@@ -1,0 +1,257 @@
+"""Evaluation CLI of the port, counterpart of ``jcfszxc_unet_tpu/cli/evaluate.py``
+(flags and defaults of reference evaluate.py:349-404): grid-tiled inference
+over the test split, count-averaged stitching, FOV masking, per-image Dice
+and AUC, and PNG artifacts.
+
+``eval_model`` loads a split and calls :func:`evaluate_arrays`, which works
+on arrays alone, so a caller without an h5 file runs the same code.
+
+The other evaluation protocols (``--spatial``, ``--sliding-window``,
+``--tta``), ``--s2d`` and ``--devices`` > 1 are not ported yet and exit
+with a message that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+
+from jcfszxc_unet_tpu_torch.data.loading import (
+    display_dataset_info,
+    load_preprocessed_data,
+    visualize_samples,
+)
+from jcfszxc_unet_tpu_torch.eval.metrics import (
+    binary_dice,
+    classification_metrics,
+    roc_auc,
+)
+from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+from jcfszxc_unet_tpu_torch.utils.device import resolve_device
+from jcfszxc_unet_tpu_torch.utils.seed import set_seed
+
+THRESHOLD_SWEEP = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
+
+
+def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
+                    inference_batch_size: int = 32,
+                    compute_dtype=torch.float32, compute_auc: bool = True,
+                    threshold: float = 0.5, full_metrics: bool = False,
+                    threshold_sweep: bool = False, device="cuda"):
+    """The tiled protocol on arrays: images (N, H, W, C), masks and labels
+    (N, H, W), float in [0, 1].
+
+    Grid centers at stride patch/2, sigmoid, count-averaged stitch, FOV
+    mask multiply, binarize > ``threshold``, per-image Dice (one fused
+    ``dice_sums`` call) and AUC.  Returns a dict of host values:
+    ``pred_maps`` (N, H, W) numpy, ``dice`` and ``auc`` lists, and the
+    optional ``classification`` rows and ``threshold_sweep`` table.
+    """
+    dev = resolve_device(device)
+    predictor = Predictor(model, compute_dtype=compute_dtype,
+                          patch_size=patch_size,
+                          inference_batch_size=inference_batch_size,
+                          device=dev)
+    images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
+    masks = torch.as_tensor(np.asarray(masks, np.float32), device=dev)
+    labels = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
+    pred_maps = predictor.predict_images(images) * masks  # evaluate.py:309
+    result = {}
+    if compute_auc:
+        result["auc"] = [float(roc_auc(pred_maps[i], labels[i], masks[i]))
+                         for i in range(pred_maps.shape[0])]
+    binary = (pred_maps > threshold).float()
+    result["dice"] = binary_dice(binary, labels).tolist()
+    if full_metrics:
+        result["classification"] = [
+            [float(v) for v in classification_metrics(binary[i], labels[i],
+                                                      masks[i])]
+            for i in range(pred_maps.shape[0])]
+    if threshold_sweep:
+        result["threshold_sweep"] = [
+            (th, float(binary_dice((pred_maps > th).float(), labels).mean()))
+            for th in THRESHOLD_SWEEP]
+    result["pred_maps"] = pred_maps.cpu().numpy()
+    return result
+
+
+def eval_model(model, output_dir: str,
+               input_data: str = "./data/test_eye_dataset.h5",
+               seed: int = 42, patch_size: int = 256,
+               inference_batch_size: int = 32, compute_dtype=torch.float32,
+               visualize: bool = True, compute_auc: bool = True,
+               error_panels: bool = False, full_metrics: bool = False,
+               threshold: float = 0.5, threshold_sweep: bool = False,
+               metrics_json: str | None = None, device="cuda"):
+    """Tiled evaluation of a preprocessed split; returns
+    (mean_dice, per_image_dice, mean_auc) like the JAX ``eval_model``."""
+    resolve_device(device)
+    set_seed(seed)
+    dataset = load_preprocessed_data(input_data)
+    display_dataset_info(dataset)
+    if visualize:
+        visualize_samples(dataset, num_samples=3)
+    images = np.asarray(dataset["images"], np.float32)
+    labels = np.asarray(dataset["labels"], np.float32)
+    res = evaluate_arrays(
+        model, images, dataset["masks"], labels, patch_size=patch_size,
+        inference_batch_size=inference_batch_size,
+        compute_dtype=compute_dtype, compute_auc=compute_auc,
+        threshold=threshold, full_metrics=full_metrics,
+        threshold_sweep=threshold_sweep, device=device)
+    dice_scores, aucs = res["dice"], res.get("auc", [])
+    if visualize:
+        from jcfszxc_unet_tpu_torch.utils.vis import (
+            save_error_panel,
+            save_grayscale,
+            save_triptych,
+        )
+
+        for i, pred_img in enumerate(res["pred_maps"]):
+            save_grayscale(pred_img, f"demo/prediction_{i}.png")
+            save_grayscale(labels[i], f"demo/label_{i}.png")
+            save_triptych(images[i], pred_img, labels[i],
+                          f"{output_dir}/prediction_{i}.png")
+            if error_panels:
+                save_error_panel(images[i], labels[i], pred_img,
+                                 f"{output_dir}/errors_{i}.png")
+    if threshold_sweep:
+        print("Threshold sweep (mean Dice):")
+        rows = res["threshold_sweep"]
+        best_th, best_d = max(rows, key=lambda r: r[1])
+        for th, d in rows:
+            mark = "  <- best" if th == best_th else ""
+            print(f"  threshold {th:.2f}: Dice {d:.4f}{mark}")
+
+    mean_dice = float(np.mean(dice_scores)) if dice_scores else 0.0
+    print(f"Average Dice Score: {mean_dice:.4f}")
+    if aucs:
+        print(f"Average AUC: {float(np.mean(aucs)):.4f}")
+    cls_rows = res.get("classification")
+    if cls_rows:
+        acc, se, sp = np.mean(np.asarray(cls_rows), axis=0)
+        print(f"Average Accuracy: {acc:.4f}")
+        print(f"Average Sensitivity: {se:.4f}")
+        print(f"Average Specificity: {sp:.4f}")
+    if metrics_json:
+        rec = {"mean_dice": mean_dice,
+               "per_image_dice": [float(d) for d in dice_scores],
+               "threshold": threshold, "n_images": len(dice_scores)}
+        if aucs:
+            rec["mean_auc"] = float(np.mean(aucs))
+            rec["per_image_auc"] = [float(a) for a in aucs]
+        if cls_rows:
+            rec["accuracy"], rec["sensitivity"], rec["specificity"] = (
+                float(v) for v in np.mean(np.asarray(cls_rows), axis=0))
+        if threshold_sweep:
+            best_th, best_d = max(res["threshold_sweep"], key=lambda r: r[1])
+            rec["threshold_sweep"] = {"rows": res["threshold_sweep"],
+                                      "best_threshold": best_th,
+                                      "best_dice": best_d}
+        with open(metrics_json, "w") as f:
+            f.write(json.dumps(rec) + "\n")
+    return mean_dice, dice_scores, (float(np.mean(aucs)) if aucs else None)
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Predict on full images using the trained model")
+    parser.add_argument("--model", "-m", type=str, default="best_model.ckpt",
+                        help="Path to the model checkpoint (the port's "
+                             "torch.save format)")
+    parser.add_argument("--data-file", "-d", type=str,
+                        default="./data/test_eye_dataset.h5",
+                        help="Path to the h5 dataset")
+    parser.add_argument("--output-dir", "-o", type=str,
+                        default="./predictions",
+                        help="Directory to save predictions")
+    parser.add_argument("--batch-size", "-b", type=int, default=4,
+                        help="Batch size for prediction")
+    parser.add_argument("--patch-size", "-p", type=int, default=512,
+                        help="Size of patches for prediction")
+    parser.add_argument("--spatial", action="store_true",
+                        help="Whole-image forward (not ported yet)")
+    parser.add_argument("--s2d", action="store_true",
+                        help="Space-to-depth execution (not ported yet)")
+    parser.add_argument("--sliding-window", action="store_true",
+                        help="Sliding-window predictor (not ported yet)")
+    parser.add_argument("--overlap", type=float, default=0.5,
+                        help="Overlap between patches (sliding-window "
+                             "predictor only)")
+    parser.add_argument("--num-images", "-n", type=int, default=5,
+                        help="Number of images to process (sliding-window "
+                             "predictor only)")
+    parser.add_argument("--image-indices", "-i", type=str, default=None,
+                        help="Comma-separated image indices (sliding-window "
+                             "predictor only)")
+    parser.add_argument("--inference-batch-size", type=int, default=32,
+                        help="Batch size for inference")
+    parser.add_argument("--dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"], help="Compute dtype")
+    parser.add_argument("--devices", type=int, default=0,
+                        help="Number of devices (only 1 is ported; 0 = 1)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (cuda, cuda:N or cpu)")
+    parser.add_argument("--error-panels", action="store_true",
+                        help="Also write TP/FP/FN color-coded panels")
+    parser.add_argument("--threshold", type=float, default=0.5,
+                        help="Binarization threshold for Dice and "
+                             "--full-metrics (reference uses 0.5)")
+    parser.add_argument("--tta", action="store_true",
+                        help="Dihedral-8 test-time augmentation (not ported "
+                             "yet)")
+    parser.add_argument("--full-metrics", action="store_true",
+                        help="Also report FOV accuracy/sensitivity/"
+                             "specificity")
+    parser.add_argument("--metrics-json", type=str, default=None,
+                        help="Write the final metrics as one JSON object to "
+                             "this path")
+    parser.add_argument("--threshold-sweep", action="store_true",
+                        help="Also print mean Dice across binarization cuts "
+                             "(0.3-0.99) from the same probability maps")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = get_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+    for flag, on in (("--spatial", args.spatial),
+                     ("--sliding-window", args.sliding_window),
+                     ("--tta", args.tta), ("--s2d", args.s2d),
+                     ("--devices > 1", args.devices > 1)):
+        if on:
+            raise SystemExit(
+                f"{flag} is not ported to PyTorch yet; the port runs the "
+                f"tiled protocol on one device")
+    device = resolve_device(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    os.makedirs("demo", exist_ok=True)
+    logging.info(f"Using device: {device}")
+    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+
+    logging.info(f"Loading model from {args.model}")
+    model, _ = load_model(args.model, device=device)
+    eval_model(
+        model=model,
+        input_data=args.data_file,
+        inference_batch_size=args.inference_batch_size,
+        output_dir=args.output_dir,
+        patch_size=args.patch_size,
+        compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
+                       else torch.float32),
+        error_panels=args.error_panels,
+        full_metrics=args.full_metrics,
+        threshold=args.threshold,
+        threshold_sweep=args.threshold_sweep,
+        metrics_json=args.metrics_json,
+        device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()
