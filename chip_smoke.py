@@ -6,15 +6,29 @@
 Phases, each of which must pass:
 
 1. build the CUDA kernels from ``jcfszxc_unet_tpu_torch/csrc`` (nvcc, ctypes);
-2. main path: full-width UNet (64 -> 1024 channels, random weights from a
+2. eval path: full-width UNet (64 -> 1024 channels, random weights from a
    seed, BatchNorm statistics calibrated on a batch and then perturbed)
    evaluates 4 synthetic DRIVE-geometry images (584 x 565, 16 patches of
    512^2) through the tiled protocol in bf16, inference batch 32, to
    per-image Dice and AUC; the kernels' launch counts are read around it;
 3. f32 end to end (TF32 off): the port's forward on one image's patches
    against a forward built only from the kernels' plain versions;
-4. each kernel against its plain version at the main path's shapes, and
-   its time beside the plain version's, a library call's and its bound.
+4. each kernel against its plain version at the eval path's shapes (the
+   conv kernel also at the train path's validation shapes, in bf16), and
+   its time beside the plain version's, a library call's and its bound;
+5. train path: full-width UNet with random weights trains on 8 synthetic
+   DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
+   defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
+   (2 images, 144 patches, 3 chunks of 64), 2 epochs of 10 steps; the
+   launch counts are read around it; one train step and one val pass are
+   profiled;
+6. train val f32 (TF32 off): on the trained weights, the val metrics and
+   probabilities through the kernels against a forward built from the
+   plain versions;
+7. probe path: ``scripts.imcol_conv_probe.run_probe`` at its defaults (B 64,
+   128 x 128, 128 -> 64, bf16) with the launch count read around it, then
+   the imcol kernel against its plain version there, in f32 at B 8 and on
+   a ragged shape, timed beside the plain version, cuDNN and its bound.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -43,6 +57,13 @@ F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 N_IMAGES, IMG_H, IMG_W = 4, 584, 565
 PATCH = 512
 INFER_BATCH = 32
+
+# Train path: the train CLI's defaults, cut to 8 images and 2 x 10 steps.
+TRAIN_IMAGES, TRAIN_PATCH, TRAIN_BATCH, TRAIN_LR = 8, 128, 32, 1e-6
+TRAIN_VAL, TRAIN_STEPS, TRAIN_EPOCHS, VAL_CHUNK = 0.25, 10, 2, 64
+
+# Probe path: scripts/tpu_imcol_conv_probe.py's geometry.
+PROBE = dict(b=64, h=128, w=128, cin=128, cout=64)
 
 # (spatial size, Cin, Cout) of UNet's 18 3x3 convs in forward order.
 UNET_CONVS = [
@@ -238,8 +259,7 @@ def phase_main_path(report, state):
     model = build_model(dev, seed=0)
     images, masks, labels = synthetic_drive(N_IMAGES, IMG_H, IMG_W, seed=0)
     state.update(model=model, images=images)
-    n_patches = len(range(PATCH // 2, IMG_H, PATCH // 2)) * len(
-        range(PATCH // 2, IMG_W, PATCH // 2)) * N_IMAGES
+    n_patches = grid_count(IMG_H, IMG_W, PATCH) * N_IMAGES
     n_chunks = math.ceil(n_patches / min(INFER_BATCH, n_patches))
 
     def run():
@@ -289,13 +309,15 @@ def phase_main_path(report, state):
     if bad:
         raise AssertionError(f"main-path checks failed: {bad}")
     profile_eval(report, run)
+    profile_patch_gather(report, images)
 
 
 def device_rows(fn, reps: int = 1):
     """Device-side events (kernels and copies) of ``reps`` calls of ``fn``
     under torch.profiler: [{"name", "count", "device_ms"}] per call,
-    largest first.  Host-side operator rows are left out, since their
-    device time repeats that of the kernels they launched."""
+    largest first.  Host-side operator rows and user-annotation ranges
+    (such as ``Optimizer.step#RMSprop.step``) are left out, since their
+    device time repeats that of the kernels they cover."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -311,6 +333,7 @@ def device_rows(fn, reps: int = 1):
              "device_ms": ev.self_device_time_total / 1e3 / reps}
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
             and ev.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r["device_ms"])
 
@@ -330,6 +353,48 @@ def profile_eval(report, run):
     for r in rows[:8]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<4g} {r['name']}",
               flush=True)
+
+
+def profile_patch_gather(report, images):
+    """The eval path's patch cut (``extract_patches``: one advanced-index
+    gather) beside a stack of per-patch slices, its earlier form, on the
+    same pool and grid: device time (profiler) and host-clock time per
+    call, each over 20 calls."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.data.sampler import (
+        build_grid_sample_map,
+        extract_patches,
+    )
+
+    pool = torch.as_tensor(images, device="cuda")
+    centers = build_grid_sample_map(N_IMAGES, IMG_H, IMG_W, PATCH // 2)
+    half = PATCH // 2
+
+    def slice_stack():
+        return torch.stack([
+            pool[i, x - half:x - half + PATCH, y - half:y - half + PATCH]
+            for i, x, y in centers.tolist()])
+
+    def gather():
+        return extract_patches(pool, centers, PATCH)
+
+    equal = bool(torch.equal(gather(), slice_stack()))
+    out = {"n_patches": len(centers), "dtype": str(pool.dtype),
+           "equal": equal}
+    for name, fn in (("gather", gather), ("slice_stack", slice_stack)):
+        rows = device_rows(fn, reps=20)
+        out[name] = {"device_ms": sum(r["device_ms"] for r in rows),
+                     "host_ms": host_ms(fn, 20), "rows": rows[:6]}
+    report["patch_gather"] = out
+    print(f"[gather] {len(centers)} patches of {PATCH}^2 from {N_IMAGES} "
+          f"images: gather {out['gather']['device_ms'] * 1e3:.1f} us device, "
+          f"{out['gather']['host_ms'] * 1e3:.1f} us per call; slice stack "
+          f"{out['slice_stack']['device_ms'] * 1e3:.1f} us device, "
+          f"{out['slice_stack']['host_ms'] * 1e3:.1f} us per call; equal "
+          f"{equal}", flush=True)
+    if not equal:
+        raise AssertionError("extract_patches differs from the slice stack")
 
 
 def phase_f32_end_to_end(report, state):
@@ -386,17 +451,26 @@ def phase_kernels(report, state):
         shift = 0.1 * torch.randn((cout,), generator=g, device=dev)
         return x, w, scale, shift
 
-    # Correctness at batch 2 at UNet's shapes, plus ReLU off and a ragged
-    # whole DRIVE image.  Both sides accumulate in f32 and differ only in
-    # summation order and (bf16) one output rounding.
+    # Correctness at batch 2 at UNet's eval shapes, plus ReLU off and a
+    # ragged whole DRIVE image, in both types; then the train path's
+    # validation shapes (a chunk of VAL_CHUNK patches at each conv's size
+    # for patch TRAIN_PATCH, 128^2 down to 8^2, where every 128-pixel tile
+    # spans several images) in bf16, which that path runs (its f32 twin is
+    # the train_val_f32 phase).  Both sides accumulate in f32 and differ
+    # only in summation order and (bf16) one output rounding.
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    cases = [(2, hw, hw, cin, cout, True) for hw, cin, cout
+    both = (torch.float32, torch.bfloat16)
+    cases = [("eval", 2, hw, hw, cin, cout, True, both) for hw, cin, cout
              in sorted(set(UNET_CONVS))]
-    cases += [(2, 64, 64, 64, 128, False), (1, IMG_H, IMG_W, 3, 64, True)]
+    cases += [("eval", 2, 64, 64, 64, 128, False, both),
+              ("eval", 1, IMG_H, IMG_W, 3, 64, True, both)]
+    down = PATCH // TRAIN_PATCH
+    cases += [("train_val", VAL_CHUNK, hw // down, hw // down, cin, cout, True,
+               (torch.bfloat16,)) for hw, cin, cout in sorted(set(UNET_CONVS))]
     checks = []
     failures = []
-    for b, h, wd, cin, cout, relu in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for path, b, h, wd, cin, cout, relu, dtypes in cases:
+        for dtype in dtypes:
             x, w, scale, shift = conv_inputs(b, h, wd, cin, cout, dtype)
             k = conv3x3_affine_relu(x, w, scale, shift, relu=relu).float()
             p = conv3x3_affine_relu_torch(x, w, scale, shift,
@@ -404,15 +478,21 @@ def phase_kernels(report, state):
             torch.cuda.synchronize()
             err = float((k - p).abs().max())
             ref = float(p.abs().max())
-            checks.append({"shape": [b, h, wd, cin, cout], "relu": relu,
-                           "dtype": str(dtype).split(".")[-1],
+            checks.append({"path": path, "shape": [b, h, wd, cin, cout],
+                           "relu": relu, "dtype": str(dtype).split(".")[-1],
                            "max_abs_err": err, "max_abs_plain": ref,
                            "ok": err <= tol[dtype] * ref})
             if not checks[-1]["ok"]:
                 failures.append(checks[-1])
-    n_ok = sum(c["ok"] for c in checks)
-    print(f"[conv] kernel vs plain: {n_ok}/{len(checks)} shape/dtype cases "
-          f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|", flush=True)
+            del x, w, k, p
+    for path in ("eval", "train_val"):
+        mine = [c for c in checks if c["path"] == path]
+        err16 = max(c["max_abs_err"] for c in mine
+                    if c["dtype"] == "bfloat16")
+        print(f"[conv] kernel vs plain at the {path} shapes: "
+              f"{sum(c['ok'] for c in mine)}/{len(mine)} shape/dtype cases "
+              f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max abs "
+              f"err {err16:.3e}", flush=True)
 
     # Times at the main path's shapes (batch = one chunk of patches), in
     # bf16 (the main path) and f32.  The library yardstick is cuDNN's
@@ -518,6 +598,339 @@ def phase_kernels(report, state):
     ]
 
 
+def grid_count(h, w, patch):
+    """Patches of the half-overlapping grid over one h x w image."""
+    half = patch // 2
+    return len(range(half, h, half)) * len(range(half, w, half))
+
+
+def host_ms(fn, reps: int):
+    """Mean host-clock time of ``fn`` over ``reps`` calls that end in a
+    device sync, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_train_path(report, state):
+    import torch
+
+    import numpy as np
+
+    from jcfszxc_unet_tpu_torch.cli.train import split_indices, train_arrays
+    from jcfszxc_unet_tpu_torch.data.sampler import build_grid_sample_map
+    from jcfszxc_unet_tpu_torch.models import create_model
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+    from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
+    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+    from jcfszxc_unet_tpu_torch.train.trainer import build_val_patches
+
+    dev = torch.device("cuda")
+    model = create_model("UNet.UNet")
+    reset_parameters(model, torch.Generator().manual_seed(2))
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    images, masks, labels = synthetic_drive(TRAIN_IMAGES, IMG_H, IMG_W,
+                                            seed=1)
+    n_val = int(TRAIN_IMAGES * TRAIN_VAL)
+    n_val_patches = n_val * grid_count(IMG_H, IMG_W, TRAIN_PATCH)
+    n_chunks = math.ceil(n_val_patches / VAL_CHUNK)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_path = os.path.join(ckpt_dir, "best_model.pt")
+    metrics_path = os.path.join(OUT_DIR, "train_metrics.jsonl")
+    for path in (save_path, metrics_path):
+        if os.path.exists(path):
+            os.remove(path)
+
+    torch.cuda.synchronize()
+    conv_fused.counter.reset()
+    dice_fused.counter.reset()
+    t0 = time.perf_counter()
+    res = train_arrays(
+        model, images, masks, labels, steps=TRAIN_STEPS,
+        batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR,
+        val_percent=TRAIN_VAL, patch_size=TRAIN_PATCH, seed=0,
+        save_path=save_path, compute_dtype=torch.bfloat16,
+        max_epochs=TRAIN_EPOCHS, visualize=False, metrics_file=metrics_path,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"conv3x3_affine_relu": conv_fused.counter.launches,
+                "dice_sums": dice_fused.counter.launches}
+    state["train_launches"] = launches
+
+    hist = res["history"]
+    delta = max(float((p.detach().cpu() - before[k]).abs().max())
+                for k, p in model.named_parameters())
+    reloaded, _ = load_model(save_path, device=dev)  # strict=True
+    reload_ok = isinstance(reloaded, torch.nn.Module)
+    del reloaded
+    os.remove(save_path)
+    checks = {
+        "epochs_run": len(hist) == TRAIN_EPOCHS,
+        "losses_finite": all(math.isfinite(r["loss"]) for r in hist),
+        "no_step_skipped": all(r["skipped_steps"] == 0 for r in hist),
+        "params_changed": delta > 0.0,
+        "val_dice_in_0_1": all(0.0 <= r["dice"] <= 1.0 for r in hist),
+        "checkpoint_reloads_strict": reload_ok,
+        "conv_launches_18_per_chunk_per_epoch":
+            launches["conv3x3_affine_relu"] == 18 * n_chunks * TRAIN_EPOCHS,
+        "dice_launched_every_epoch":
+            launches["dice_sums"] >= TRAIN_EPOCHS,
+    }
+    steady = hist[-1]
+    step_ms = steady["train_seconds"] * 1e3 / TRAIN_STEPS
+    report["train_path"] = {
+        "n_images": TRAIN_IMAGES, "patch": TRAIN_PATCH, "batch": TRAIN_BATCH,
+        "lr": TRAIN_LR, "val_percent": TRAIN_VAL, "steps": TRAIN_STEPS,
+        "epochs": TRAIN_EPOCHS, "dtype": "bfloat16",
+        "n_val_patches": n_val_patches, "n_val_chunks": n_chunks,
+        "launches": launches, "history": hist, "max_abs_param_delta": delta,
+        "wall_seconds": wall, "steady_patches_per_s":
+            TRAIN_STEPS * TRAIN_BATCH / steady["train_seconds"],
+        "steady_ms_per_step": step_ms,
+        "steady_val_ms": steady["val_seconds"] * 1e3, "checks": checks,
+    }
+    print(f"[train] {TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps, batch "
+          f"{TRAIN_BATCH}, patch {TRAIN_PATCH}, bf16; val {n_val_patches} "
+          f"patches in {n_chunks} chunks; launches {launches}", flush=True)
+    for r in hist:
+        print(f"[train] epoch {r['epoch']}: loss {r['loss']:.5f}, val dice "
+              f"{r['dice']:.4f}, skipped {r['skipped_steps']}, train "
+              f"{r['train_seconds'] * 1e3:.1f} ms, val "
+              f"{r['val_seconds'] * 1e3:.1f} ms", flush=True)
+    print(f"[train] steady state (epoch {steady['epoch']}): "
+          f"{report['train_path']['steady_patches_per_s']:.1f} patches/s, "
+          f"{step_ms:.2f} ms per step, val pass "
+          f"{steady['val_seconds'] * 1e3:.2f} ms; max |dparam| {delta:.3e}",
+          flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"train-path checks failed: {bad}")
+    # The val split train_arrays made (seed 0), cut once for the profile
+    # and the f32 comparison.
+    np.random.seed(0)
+    val_idx, _ = split_indices(TRAIN_IMAGES, TRAIN_VAL)
+    val = build_val_patches(
+        images[val_idx], labels[val_idx, ..., None],
+        build_grid_sample_map(n_val, IMG_H, IMG_W, TRAIN_PATCH // 2),
+        TRAIN_PATCH, device=dev)
+    state["train_model"], state["train_val"] = model, val
+    profile_train(report, model, images, labels, val)
+
+
+def profile_train(report, model, images, labels, val):
+    """Device time by kernel of one train step and of one val pass, and
+    the device's idle share against each one's untraced wall time."""
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.data.sampler import (
+        build_train_sample_map,
+        sample_batch,
+    )
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+    from jcfszxc_unet_tpu_torch.train.state import TrainState
+    from jcfszxc_unet_tpu_torch.train.trainer import (
+        make_batch_step_fn,
+        make_val_fn,
+    )
+
+    dev = torch.device("cuda")
+    pool = torch.as_tensor(images, device=dev)
+    labs = torch.as_tensor(labels[..., None], device=dev)
+    smap = torch.as_tensor(build_train_sample_map(
+        np.ones(labels.shape, np.float32), TRAIN_PATCH // 2),
+        device=dev).long()
+    g = torch.Generator(device=dev).manual_seed(3)
+    imgs, labs_b = sample_batch(g, pool, labs, smap, TRAIN_BATCH, TRAIN_PATCH)
+    st = TrainState(model, make_optimizer(model.parameters(), TRAIN_LR))
+    step = make_batch_step_fn(n_classes=1, compute_dtype=torch.bfloat16)
+    val_fn = make_val_fn(model, compute_dtype=torch.bfloat16)
+    out = {}
+    for name, fn, reps in (
+            ("train_step", lambda: step(st, imgs, labs_b), 5),
+            ("val_pass", lambda: val_fn(*val), 3)):
+        wall = host_ms(fn, reps)
+        rows = device_rows(fn, reps=reps)
+        busy = sum(r["device_ms"] for r in rows)
+        out[name] = {"untraced_wall_ms": wall, "device_ms_total": busy,
+                     "device_idle_share": max(0.0, 1.0 - busy / wall),
+                     "top": rows[:25]}
+        print(f"[profile] {name}: device busy {busy:.2f} ms of {wall:.2f} ms "
+              f"wall (idle share {out[name]['device_idle_share']:.3f}); top:",
+              flush=True)
+        for r in rows[:6]:
+            print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5g} "
+                  f"{r['name']}", flush=True)
+    report["train_profile"] = out
+
+
+def phase_train_val_f32(report, state):
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
+        dice_from_sums,
+        dice_sums_torch,
+    )
+    from jcfszxc_unet_tpu_torch.train.trainer import make_val_fn
+
+    model = state["train_model"]
+    val_imgs, val_labs = state["train_val"]
+    metrics, probs = make_val_fn(model, compute_dtype=torch.float32)(
+        val_imgs, val_labs)
+    model.eval()
+    with torch.no_grad():
+        want = torch.cat([
+            torch.sigmoid(plain_unet_forward(
+                model, chunk.permute(0, 3, 1, 2)).float()).permute(0, 2, 3, 1)
+            for chunk in val_imgs.split(VAL_CHUNK)])
+    model.train()
+    p, t = want[..., 0], val_labs[..., 0]
+
+    def plain_dice(pred, target):
+        return float(dice_from_sums(*dice_sums_torch(pred, target)).mean())
+
+    plain = {"dice": plain_dice((p > 0.5).float(), t),
+             "dice_fg": plain_dice((p <= 0.5).float(), 1.0 - t)}
+    dprob = float((probs - want).abs().max())
+    ddice = {k: abs(float(metrics[k]) - v) for k, v in plain.items()}
+    report["train_val_f32"] = {
+        "n_patches": int(val_imgs.shape[0]), "max_abs_dprob": dprob,
+        "prob_tolerance": 1e-3, "dice_abs_diff": ddice,
+        "dice_tolerance": 1e-3, "kernel_path": {
+            k: float(metrics[k]) for k in ("dice", "dice_fg", "dice_avg")},
+        "plain_path": plain, "prob_std": float(want.std())}
+    print(f"[train-f32] val through the kernels vs plain forward on "
+          f"{val_imgs.shape[0]} patches: max |dprob| {dprob:.3e} (tolerance "
+          f"1e-3), |ddice| {ddice['dice']:.3e}, |ddice_fg| "
+          f"{ddice['dice_fg']:.3e} (tolerance 1e-3)", flush=True)
+    if not (np.isfinite(dprob) and dprob <= 1e-3
+            and all(v <= 1e-3 for v in ddice.values())):
+        raise AssertionError(
+            f"train val f32: max |dprob| {dprob}, |ddice| {ddice}")
+
+
+def phase_probe(report, state):
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_imcol
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_imcol import (
+        conv3x3_relu_imcol,
+        conv3x3_relu_imcol_torch,
+    )
+    from jcfszxc_unet_tpu_torch.scripts.imcol_conv_probe import (
+        event_ms,
+        probe_inputs,
+        run_probe,
+    )
+
+    torch.cuda.synchronize()
+    conv_imcol.counter.reset()
+    res = run_probe(**PROBE, n_long=20)
+    torch.cuda.synchronize()
+    launches = conv_imcol.counter.launches
+
+    # Correctness: the probe geometry in bf16 and (at B 8) f32, and a
+    # ragged shape in both.  Both sides accumulate in f32 and differ in
+    # summation order and (bf16) one output rounding.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    g = dict(PROBE)
+    cases = [(g["b"], torch.bfloat16), (8, torch.float32)]
+    shapes = [(b, g["h"], g["w"], g["cin"], g["cout"], dt) for b, dt in cases]
+    shapes += [(2, 37, 29, 64, 64, dt) for dt in tol]
+    checks = []
+    for b, h, w, cin, cout, dt in shapes:
+        x, wt = probe_inputs(b, h, w, cin, cout, dtype=dt, seed=b + h)
+        got = conv3x3_relu_imcol(x, wt).float()
+        want = conv3x3_relu_imcol_torch(x, wt).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ref = float(want.abs().max())
+        checks.append({"shape": [b, h, w, cin, cout],
+                       "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                       "max_abs_plain": ref, "ok": err <= tol[dt] * ref})
+        del got, want, x, wt
+    checks.append({"shape": res["shape"], "dtype": res["dtype"],
+                   "max_abs_err": res["parity_max_abs"],
+                   "max_abs_plain": res["max_abs_plain"],
+                   "ok": res["parity_max_abs"] <= 1e-2 * res["max_abs_plain"]})
+
+    # Times at the probe geometry, bf16.  The bound counts x, w and out
+    # once (the padded copy is the wrapper's own traffic); the kernel
+    # alone is bound by its padded x, wt and out and the same operations.
+    x, wt = probe_inputs(**PROBE)
+    b, h, w, cin, cout = (PROBE[k] for k in ("b", "h", "w", "cin", "cout"))
+    flops = 2 * b * h * w * cout * 9 * cin
+    nbytes = (x.numel() + wt.numel() + b * h * w * cout) * 2
+    c8 = -(-cin // 8) * 8
+    kernel_bytes = (b * (h + 2) * (w + 2) * c8 + 9 * c8 * cout
+                    + b * h * w * cout) * 2
+    x_cl = x.permute(0, 3, 1, 2)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+    times = {
+        "ms": res["imcol"]["ms"], "kernel_ms": res["kernel"]["ms"],
+        "pad_ms": res["pad"]["ms"], "cudnn_relu_ms": res["cudnn"]["ms"],
+        "nine_tap_ms": res["9tap"]["ms"],
+        "plain_ms": event_ms(lambda: conv3x3_relu_imcol_torch(x, wt), 5),
+        "library_ms": event_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1), 20),
+        "bound_ms": bound_ms(flops, nbytes, BF16_FLOPS),
+        "bound_by": ("operations" if flops / BF16_FLOPS
+                     > nbytes / HBM_BYTES_PER_S else "bytes"),
+        "kernel_bound_ms": bound_ms(flops, kernel_bytes, BF16_FLOPS),
+        "flops": flops, "bytes": nbytes, "kernel_bytes": kernel_bytes,
+    }
+    report["probe"] = {"launches": launches, "run": res, "checks": checks,
+                       "times": times}
+    n_ok = sum(c["ok"] for c in checks)
+    print(f"[probe] imcol kernel vs plain: {n_ok}/{len(checks)} cases within "
+          f"1e-2 (bf16) / 1e-4 (f32) of max|plain|; launches on the probe "
+          f"path {launches}", flush=True)
+    print(f"[probe] B{b} {h}x{w} {cin}->{cout} bf16: wrapper "
+          f"{times['ms']:.3f} ms (pad {times['pad_ms']:.3f} + kernel "
+          f"{times['kernel_ms']:.3f}, {flops / times['kernel_ms'] / 1e9:.1f} "
+          f"TFLOP/s), 9-tap kernel {times['nine_tap_ms']:.3f} ms, cuDNN conv "
+          f"{times['library_ms']:.3f} ms (+ReLU {times['cudnn_relu_ms']:.3f}),"
+          f" plain {times['plain_ms']:.3f} ms, bound {times['bound_ms']:.3f} "
+          f"ms ({times['bound_by']}; kernel alone "
+          f"{times['kernel_bound_ms']:.3f} ms)", flush=True)
+    if n_ok != len(checks) or launches < 1:
+        raise AssertionError(f"probe checks failed: {checks}, launches "
+                             f"{launches}")
+    state["kernels_probe"] = {
+        "name": "conv3x3_relu_imcol", "route": "cuda",
+        "source": "jcfszxc_unet_tpu_torch/csrc/conv3x3_relu_imcol.cu",
+        "replaces": "scripts/tpu_imcol_conv_probe.py:52",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in checks
+                           if c["dtype"] == "bfloat16"),
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "library_ms": times["library_ms"]}
+
+
+def kernels_line(state):
+    """The kernels of every path, each with its launches summed over the
+    paths that ran it (and split by path)."""
+    rows = [dict(k) for k in state["kernels"]]
+    for row in rows:
+        by_path = {"eval": row["launches"],
+                   "train": state["train_launches"][row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    probe = dict(state["kernels_probe"])
+    probe["launches_by_path"] = {"probe": probe["launches"]}
+    return rows + [probe]
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     import torch
@@ -537,10 +950,18 @@ def main() -> None:
     state = {}
     t_start = time.perf_counter()
     failed = []
+    needs = {"train_val_f32": "train_path"}
     for name, phase in (("build", phase_build),
                         ("main_path", phase_main_path),
                         ("f32_end_to_end", phase_f32_end_to_end),
-                        ("kernels", phase_kernels)):
+                        ("kernels", phase_kernels),
+                        ("train_path", phase_train_path),
+                        ("train_val_f32", phase_train_val_f32),
+                        ("probe", phase_probe)):
+        if needs.get(name) in failed:
+            failed.append(name)
+            continue
+        t_phase = time.perf_counter()
         try:
             if name == "build":
                 phase(report)
@@ -551,6 +972,9 @@ def main() -> None:
             failed.append(name)
             if name in ("build", "main_path"):
                 break
+        finally:
+            report.setdefault("phase_seconds", {})[name] = (
+                time.perf_counter() - t_phase)
     report["failed_phases"] = failed
     report["seconds"] = time.perf_counter() - t_start
     try:
@@ -562,7 +986,7 @@ def main() -> None:
         json.dump(report, f, indent=1, default=str)
     if failed:
         fail(f"phases failed: {failed}")
-    print(json.dumps({"kernels": state["kernels"]}))
+    print(json.dumps({"kernels": kernels_line(state)}))
     print(report["gpu"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 // Source pixel of tap `tap` (0..8, row-major 3x3) for output pixel p at
@@ -227,16 +229,6 @@ constexpr int LDS = BK + 8;  // smem row stride (bf16): conflict-free fragments
 static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warp grid");
 static_assert(BM * BK == THREADS * 16, "each thread gathers 16 A values");
 static_assert(BN * BK == THREADS * 8, "each thread gathers 8 B values");
-
-// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Eight bf16 values (raw bits) of x for one pixel, k in [k0, k0 + 8).
 template <bool VEC>

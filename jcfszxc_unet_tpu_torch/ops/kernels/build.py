@@ -1,14 +1,15 @@
 """Builds the hand-written Hopper kernels and loads them with ``ctypes``;
 launch bookkeeping shared by their wrappers.
 
-Every ``*.cu`` under ``jcfszxc_unet_tpu_torch/csrc/`` is compiled by
-``nvcc`` for ``sm_90a`` (one ``nvcc`` process per source, all started
-together), linked into one shared library with a plain C interface and
-loaded with ``ctypes``; no PyTorch headers are involved, so a build takes
-seconds.  The library is built at first use into ``build/kernels/<hash>/``
-under the repository root, keyed by a hash of the sources and the flags,
-so that a fresh checkout builds it by itself and an edited source is
-never served from a stale build.
+Every ``*.cu`` under ``jcfszxc_unet_tpu_torch/csrc/`` (which may include
+the ``*.cuh`` headers beside it) is compiled by ``nvcc`` for ``sm_90a``
+(one ``nvcc`` process per source, all started together), linked into one
+shared library with a plain C interface and loaded with ``ctypes``; no
+PyTorch headers are involved, so a build takes seconds.  The library is
+built at first use into ``build/kernels/<hash>/`` under the repository
+root, keyed by a hash of the sources, the headers and the flags, so that
+a fresh checkout builds it by itself and an edited source is never
+served from a stale build.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines without ``nvcc`` or a GPU.
@@ -53,7 +54,7 @@ def _sources() -> list[Path]:
 
 def _key(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -104,6 +105,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dice_sums_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
     lib.dice_sums_launch.restype = i32
+    lib.conv3x3_relu_imcol_launch.argtypes = [
+        i32, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+    lib.conv3x3_relu_imcol_launch.restype = i32
     lib.kernels_error_string.argtypes = [i32]
     lib.kernels_error_string.restype = ctypes.c_char_p
 

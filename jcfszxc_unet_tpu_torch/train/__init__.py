@@ -1,1 +1,1 @@
-"""Checkpoints (training itself is not ported yet)."""
+"""Training: losses, optimizer, train state, trainer and checkpoints."""

@@ -1,0 +1,199 @@
+"""Training engine, counterpart of ``jcfszxc_unet_tpu/train/trainer.py``
+(the reference's ``train_model`` hot loop, train.py:201-353).
+
+What differs in mechanism from the JAX package:
+
+  * PyTorch runs eagerly: an epoch is a Python loop of steps, each of
+    which samples centers on the device, gathers the patches, runs the
+    train-mode forward and backward on stock ops, clips and steps RMSprop.
+  * The NaN guard (trainer.py:98-110) reads ``isfinite(loss)`` on the
+    host once per step, after the backward is queued: a device sync that
+    the JAX package avoids with a branchless select.  A non-finite loss
+    drops the gradients and skips the update, so parameters and optimizer
+    state stay as they were, while
+    the BatchNorm running statistics keep the update that the forward
+    already made, as in the JAX package and the reference.
+  * Validation runs the eval-mode forward in chunks under
+    ``torch.no_grad()``: every DoubleConv conv goes through the
+    ``conv3x3_affine_relu`` kernel with its BatchNorm folded in, and both
+    Dice scores through the ``dice_sums`` kernel.
+
+Models take NCHW tensors in ``torch.channels_last``; batches stay NHWC
+(the JAX layout) and are permuted into that form without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+from torch import nn
+
+from jcfszxc_unet_tpu_torch.data.sampler import (
+    augment_batch,
+    extract_patches,
+    sample_batch,
+    sample_centers,
+)
+from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import dice_coeff_hard
+from jcfszxc_unet_tpu_torch.train.losses import combined_loss
+from jcfszxc_unet_tpu_torch.train.optim import clip_and_step
+from jcfszxc_unet_tpu_torch.train.state import TrainState
+
+
+def _nchw(batch: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, H, W, C) -> NCHW view in channels_last, cast to ``dtype``."""
+    return batch.to(dtype).permute(0, 3, 1, 2)
+
+
+def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
+                       clip_norm: float = 1.0) -> Callable:
+    """The per-batch update ``(state, imgs, labs) -> (loss, ok)``:
+    train-mode forward, 1/2 BCE + 1/2 Dice, backward, clip by global norm,
+    RMSprop.  ``loss`` is a 0-d f32 tensor (0 when skipped); ``ok`` is
+    False when the loss was not finite and the update was skipped."""
+
+    def train_step(state: TrainState, imgs: torch.Tensor, labs: torch.Tensor):
+        model, opt = state.model, state.optimizer
+        model.train()
+        logits = model(_nchw(imgs, compute_dtype)).permute(0, 2, 3, 1)
+        loss, _, _ = combined_loss(logits, labs, n_classes)
+        state.step += 1
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        # Host sync: see module doc.  It comes after the backward has been
+        # queued, so the device is not left idle while the host launches it.
+        if not bool(torch.isfinite(loss)):
+            opt.zero_grad(set_to_none=True)
+            return torch.zeros((), device=loss.device), False
+        clip_and_step(opt, clip_norm)
+        return loss.detach().float(), True
+
+    return train_step
+
+
+def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
+                  steps: int, compute_dtype=torch.float32,
+                  augment: bool = False) -> Callable:
+    """``(state, images, labels, sample_map, generator) -> {"epoch_loss",
+    "skipped"}``: ``steps`` steps on batches drawn from ``generator``.
+    ``epoch_loss`` is the sum of the kept losses (a 0-d tensor): skipped
+    steps add nothing, the caller still divides by ``steps``
+    (train.py:303, 392).  ``augment`` adds a random dihedral-8 element per
+    sample."""
+    batch_step = make_batch_step_fn(n_classes=n_classes,
+                                    compute_dtype=compute_dtype)
+
+    def epoch_fn(state, images, labels, sample_map, generator):
+        total = torch.zeros((), device=images.device)
+        skipped = 0
+        for _ in range(steps):
+            imgs, labs = sample_batch(generator, images, labels, sample_map,
+                                      batch_size, patch_size)
+            if augment:
+                imgs, labs = augment_batch(generator, imgs, labs)
+            loss, ok = batch_step(state, imgs, labs)
+            total += loss
+            skipped += not ok
+        return {"epoch_loss": total, "skipped": skipped}
+
+    return epoch_fn
+
+
+@torch.no_grad()
+def precise_bn(model: nn.Module, batches: Iterable[torch.Tensor],
+               compute_dtype=torch.float32) -> None:
+    """Set every BatchNorm's running statistics to the arithmetic mean of
+    the pure batch statistics of ``batches`` ((B, P, P, C) image patches),
+    whatever statistics they held before.
+
+    Each BN is reset and switched to a cumulative average
+    (``momentum=None``) for the train-mode forwards, then given back its
+    momentum and batch count: the same result as the JAX package's
+    ``(mean_i S_i - (1 - m) base) / m``."""
+    bns = [m for m in model.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    if not bns:
+        return
+    saved = [(bn.momentum, bn.num_batches_tracked.clone()) for bn in bns]
+    was_training = model.training
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None
+    model.train()
+    try:
+        for imgs in batches:
+            model(_nchw(imgs, compute_dtype))
+    finally:
+        for bn, (momentum, tracked) in zip(bns, saved):
+            bn.momentum = momentum
+            bn.num_batches_tracked.copy_(tracked)
+        model.train(was_training)
+
+
+def make_precise_bn_fn(*, batch_size: int, patch_size: int, k_batches: int,
+                       compute_dtype=torch.float32) -> Callable:
+    """``(model, images, sample_map, generator)``: :func:`precise_bn` over
+    ``k_batches`` fresh training batches (CLI ``--precise-bn K``; off by
+    default, as in the JAX package)."""
+
+    def precise_bn_fn(model, images, sample_map, generator):
+        def batches():
+            for _ in range(k_batches):
+                centers = sample_centers(generator, sample_map, batch_size)
+                yield extract_patches(images, centers, patch_size)
+
+        precise_bn(model, batches(), compute_dtype)
+
+    return precise_bn_fn
+
+
+def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
+                compute_dtype=torch.float32) -> Callable:
+    """``(val_imgs (V, P, P, C), val_labs (V, P, P, 1)) -> (metrics,
+    probs (V, P, P, 1) f32)``, with the metrics of train.py:348-367 as 0-d
+    tensors, the fg/bg naming quirk included: ``dice`` == ``dice_bg`` is
+    the Dice of ``p > 0.5`` against the labels, ``dice_fg`` that of
+    ``p <= 0.5`` against ``1 - labels``, ``dice_avg`` their mean.  The
+    model is put back in the mode it was in."""
+
+    @torch.no_grad()
+    def val_fn(val_imgs: torch.Tensor, val_labs: torch.Tensor):
+        if val_imgs.shape[0] == 0:
+            # Empty split: zeros, as the JAX package (the reference would
+            # crash on an empty np.stack, train.py:334).
+            zero = torch.zeros((), device=val_imgs.device)
+            return ({"dice": zero, "dice_bg": zero, "dice_fg": zero,
+                     "dice_avg": zero},
+                    torch.zeros(val_labs.shape, device=val_labs.device))
+        was_training = model.training
+        model.eval()
+        try:
+            probs = torch.cat([
+                torch.sigmoid(model(_nchw(chunk, compute_dtype)).float())
+                .permute(0, 2, 3, 1)
+                for chunk in val_imgs.split(chunk_size)])
+        finally:
+            model.train(was_training)
+        p = probs[..., 0].contiguous()
+        t = val_labs[..., 0].float().contiguous()
+        dice = dice_coeff_hard((p > 0.5).float(), t)
+        dice_fg = dice_coeff_hard((p <= 0.5).float(), 1.0 - t)
+        metrics = {"dice": dice, "dice_bg": dice, "dice_fg": dice_fg,
+                   "dice_avg": (dice + dice_fg) / 2.0}
+        return metrics, probs
+
+    return val_fn
+
+
+def build_val_patches(images: np.ndarray, labels: np.ndarray,
+                      sample_map_val: np.ndarray, patch_size: int,
+                      device="cpu"):
+    """The whole validation patch set, cut once on ``device`` (the
+    reference cuts it every epoch on the host, train.py:317-331).
+    images (N, H, W, C), labels (N, H, W, 1)."""
+    images = torch.as_tensor(np.asarray(images, np.float32), device=device)
+    labels = torch.as_tensor(np.asarray(labels, np.float32), device=device)
+    return (extract_patches(images, sample_map_val, patch_size),
+            extract_patches(labels, sample_map_val, patch_size))

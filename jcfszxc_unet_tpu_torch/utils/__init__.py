@@ -1,1 +1,1 @@
-"""Seeding, device selection and PNG writers."""
+"""Seeding, device selection, PNG writers and the throughput counter."""
