@@ -14,8 +14,9 @@ Phases, each of which must pass:
 3. f32 end to end (TF32 off): the port's forward on one image's patches
    against a forward built only from the kernels' plain versions;
 4. each kernel against its plain version at the eval path's shapes (the
-   conv kernel also at the train path's validation shapes, in bf16), and
-   its time beside the plain version's, a library call's and its bound;
+   conv kernel also at the train path's validation shapes and at the edges
+   of its wgmma plan, in bf16), and its time beside the plain version's, a
+   library call's and its bound, per layer for the conv kernel;
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -64,6 +65,16 @@ TRAIN_VAL, TRAIN_STEPS, TRAIN_EPOCHS, VAL_CHUNK = 0.25, 10, 2, 64
 
 # Probe path: scripts/tpu_imcol_conv_probe.py's geometry.
 PROBE = dict(b=64, h=128, w=128, cin=128, cout=64)
+
+# (B, H, W, Cin, Cout, relu) at the edges of the conv kernel's wgmma plan:
+# one tile, boxes spanning images, ragged W and H, Cin not a multiple of
+# 64, Cout not a multiple of the tile width, ReLU off.
+PLAN_EDGE_CASES = [
+    (1, 8, 16, 64, 64, True), (4, 8, 8, 64, 64, True),
+    (2, 37, 29, 64, 64, True), (2, 37, 29, 16, 64, True),
+    (2, 37, 29, 72, 96, False), (2, 16, 16, 64, 96, True),
+    (2, 8, 8, 64, 160, False), (2, 8, 8, 256, 320, True),
+]
 
 # (spatial size, Cin, Cout) of UNet's 18 3x3 convs in forward order.
 UNET_CONVS = [
@@ -275,7 +286,9 @@ def phase_main_path(report, state):
     torch.cuda.synchronize()
     launches = {"conv3x3_affine_relu": conv_fused.counter.launches,
                 "dice_sums": dice_fused.counter.launches}
+    bodies = dict(conv_fused.counter.bodies)
     state["launches"] = launches
+    state["conv_bodies"] = {"eval": bodies}
     pm = res["pred_maps"]
     checks = {
         "pred_shape": pm.shape == (N_IMAGES, IMG_H, IMG_W),
@@ -286,6 +299,9 @@ def phase_main_path(report, state):
         "auc_finite": all(np.isfinite(a) and 0 <= a <= 1 for a in res["auc"]),
         "conv_launches_18_per_chunk":
             launches["conv3x3_affine_relu"] == 18 * n_chunks,
+        # every bf16 conv with Cin % 8 == 0 on wgmma; Cin = 3 on mma.sync
+        "conv_bodies_17_wgmma_1_mma_sync_per_chunk":
+            bodies == {"wgmma": 17 * n_chunks, "mma_sync": n_chunks},
         "dice_launched": launches["dice_sums"] >= 1,
     }
     torch.cuda.synchronize()
@@ -296,12 +312,14 @@ def phase_main_path(report, state):
     report["main_path"] = {
         "n_images": N_IMAGES, "image_hw": [IMG_H, IMG_W], "patch": PATCH,
         "n_patches": n_patches, "n_chunks": n_chunks, "dtype": "bfloat16",
-        "launches": launches, "dice": res["dice"], "auc": res["auc"],
+        "launches": launches, "conv_bodies": bodies, "dice": res["dice"],
+        "auc": res["auc"],
         "prob_mean": float(pm.mean()), "prob_std": float(pm.std()),
         "eval_seconds": dt, "images_per_s": N_IMAGES / dt, "checks": checks,
     }
     print(f"[main] {n_patches} patches in {n_chunks} chunk(s); launches "
-          f"{launches}; dice {[round(d, 4) for d in res['dice']]}; "
+          f"{launches}, conv bodies {bodies}; dice "
+          f"{[round(d, 4) for d in res['dice']]}; "
           f"auc {[round(a, 4) for a in res['auc']]}", flush=True)
     print(f"[main] eval of {N_IMAGES} images: {dt:.3f} s = "
           f"{N_IMAGES / dt:.2f} images/s", flush=True)
@@ -431,8 +449,10 @@ def phase_kernels(report, state):
     import torch
     import torch.nn.functional as F
 
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
         conv3x3_affine_relu,
+        conv3x3_affine_relu_kmajor,
         conv3x3_affine_relu_torch,
     )
     from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
@@ -454,49 +474,56 @@ def phase_kernels(report, state):
     # Correctness at batch 2 at UNet's eval shapes, plus ReLU off and a
     # ragged whole DRIVE image, in both types; then the train path's
     # validation shapes (a chunk of VAL_CHUNK patches at each conv's size
-    # for patch TRAIN_PATCH, 128^2 down to 8^2, where every 128-pixel tile
-    # spans several images) in bf16, which that path runs (its f32 twin is
-    # the train_val_f32 phase).  Both sides accumulate in f32 and differ
-    # only in summation order and (bf16) one output rounding.
+    # for patch TRAIN_PATCH, 128^2 down to 8^2, where a wgmma tile's box
+    # spans two images at 8^2) in bf16, which that path runs (its f32 twin
+    # is the train_val_f32 phase); then the edges of the wgmma plan in
+    # bf16.  Both sides accumulate in f32 and differ only in summation
+    # order and (bf16) one output rounding.
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     both = (torch.float32, torch.bfloat16)
+    bf16 = (torch.bfloat16,)
     cases = [("eval", 2, hw, hw, cin, cout, True, both) for hw, cin, cout
              in sorted(set(UNET_CONVS))]
     cases += [("eval", 2, 64, 64, 64, 128, False, both),
               ("eval", 1, IMG_H, IMG_W, 3, 64, True, both)]
     down = PATCH // TRAIN_PATCH
     cases += [("train_val", VAL_CHUNK, hw // down, hw // down, cin, cout, True,
-               (torch.bfloat16,)) for hw, cin, cout in sorted(set(UNET_CONVS))]
+               bf16) for hw, cin, cout in sorted(set(UNET_CONVS))]
+    cases += [("plan_edge", *shape, bf16) for shape in PLAN_EDGE_CASES]
     checks = []
     failures = []
+
+    def record(path, shape, relu, dtype, body, k, p):
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        ref = float(p.abs().max())
+        checks.append({"path": path, "shape": shape, "relu": relu,
+                       "dtype": str(dtype).split(".")[-1], "body": body,
+                       "max_abs_err": err, "max_abs_plain": ref,
+                       "ok": err <= tol[dtype] * ref})
+        if not checks[-1]["ok"]:
+            failures.append(checks[-1])
+
     for path, b, h, wd, cin, cout, relu, dtypes in cases:
         for dtype in dtypes:
             x, w, scale, shift = conv_inputs(b, h, wd, cin, cout, dtype)
+            runs = dict(conv_fused.counter.bodies)
             k = conv3x3_affine_relu(x, w, scale, shift, relu=relu).float()
-            p = conv3x3_affine_relu_torch(x, w, scale, shift,
-                                          relu=relu).float()
-            torch.cuda.synchronize()
-            err = float((k - p).abs().max())
-            ref = float(p.abs().max())
-            checks.append({"path": path, "shape": [b, h, wd, cin, cout],
-                           "relu": relu, "dtype": str(dtype).split(".")[-1],
-                           "max_abs_err": err, "max_abs_plain": ref,
-                           "ok": err <= tol[dtype] * ref})
-            if not checks[-1]["ok"]:
-                failures.append(checks[-1])
-            del x, w, k, p
-    for path in ("eval", "train_val"):
-        mine = [c for c in checks if c["path"] == path]
-        err16 = max(c["max_abs_err"] for c in mine
-                    if c["dtype"] == "bfloat16")
-        print(f"[conv] kernel vs plain at the {path} shapes: "
-              f"{sum(c['ok'] for c in mine)}/{len(mine)} shape/dtype cases "
-              f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max abs "
-              f"err {err16:.3e}", flush=True)
+            body = next(name for name, n in conv_fused.counter.bodies.items()
+                        if n != runs.get(name, 0))
+            record(path, [b, h, wd, cin, cout], relu, dtype, body, k,
+                   conv3x3_affine_relu_torch(x, w, scale, shift,
+                                             relu=relu).float())
+            del x, w, k
 
     # Times at the main path's shapes (batch = one chunk of patches), in
-    # bf16 (the main path) and f32.  The library yardstick is cuDNN's
-    # F.conv2d alone on the same channels_last input, TF32 off.
+    # bf16 (the main path) and f32, through the K-major entry that the
+    # main path calls (ops/blocks.conv_bn_relu_fused) on weights laid out
+    # once; the output of each is also checked against the plain version
+    # (the eval_chunk cases: the persistent wgmma blocks walk more tiles
+    # at this batch than at the eval cases' batch 2).  The library
+    # yardstick is cuDNN's F.conv2d alone on the same channels_last input,
+    # TF32 off.
     b = min(INFER_BATCH, report["main_path"]["n_patches"])
     conv_times = {}
     for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32,
@@ -504,11 +531,18 @@ def phase_kernels(report, state):
         per_shape = {}
         for hw, cin, cout in sorted(set(UNET_CONVS)):
             x, w, scale, shift = conv_inputs(b, hw, hw, cin, cout, dtype)
+            w_km = w.permute(3, 0, 1, 2).contiguous()
+            record("eval_chunk", [b, hw, hw, cin, cout], True, dtype,
+                   conv_fused.plan_for(x, w_km).body,
+                   conv3x3_affine_relu_kmajor(x, w_km, scale, shift).float(),
+                   conv3x3_affine_relu_torch(x, w, scale, shift).float())
             x_cl = x.permute(0, 3, 1, 2)  # NCHW view in channels_last
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
             flops, nbytes = conv_cost(b, hw, cin, cout, x.element_size())
-            ms = time_ms(lambda: conv3x3_affine_relu(x, w, scale, shift))
+            ms = time_ms(lambda: conv3x3_affine_relu_kmajor(x, w_km, scale,
+                                                            shift))
             per_shape[(hw, cin, cout)] = {
+                "body": conv_fused.plan_for(x, w_km).body,
                 "ms": ms, "tflops": flops / ms / 1e9,
                 "plain_ms": time_ms(
                     lambda: conv3x3_affine_relu_torch(x, w, scale, shift)),
@@ -517,7 +551,7 @@ def phase_kernels(report, state):
                 "bound_ms": bound_ms(flops, nbytes, peak),
                 "flops": flops, "bytes": nbytes,
             }
-            del x, w, x_cl, w_oihw
+            del x, w, w_km, x_cl, w_oihw
         rows = [{"hw": hw, "cin": cin, "cout": cout,
                  **per_shape[(hw, cin, cout)]} for hw, cin, cout in UNET_CONVS]
         total = {key: sum(r[key] for r in rows)
@@ -532,7 +566,30 @@ def phase_kernels(report, state):
               f" TFLOP/s), plain {total['plain_ms']:.2f} ms, cuDNN conv "
               f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms "
               f"({total['bound_by']})", flush=True)
+        if dtype == torch.bfloat16:
+            print("[conv] per layer, bf16: size Cin->Cout body ms TFLOP/s "
+                  "bound_ms cuDNN_ms", flush=True)
+            for r in rows:
+                print(f"    {r['hw']:4d}^2 {r['cin']:5d}->{r['cout']:<5d} "
+                      f"{r['body']:8s} {r['ms']:7.3f} {r['tflops']:6.1f} "
+                      f"{r['bound_ms']:7.3f} {r['library_ms']:7.3f}",
+                      flush=True)
+            with open(os.path.join(OUT_DIR, "conv_layers.json"), "w") as f:
+                json.dump({"gpu": gpu_name_and_power(), **conv_times[name]},
+                          f, indent=1)
     total = conv_times["bfloat16"]["total"]
+    for path in ("eval", "eval_chunk", "train_val", "plan_edge"):
+        mine = [c for c in checks if c["path"] == path]
+        err16 = max(c["max_abs_err"] / c["max_abs_plain"] for c in mine
+                    if c["dtype"] == "bfloat16")
+        print(f"[conv] kernel vs plain at the {path} shapes: "
+              f"{sum(c['ok'] for c in mine)}/{len(mine)} shape/dtype cases "
+              f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max "
+              f"err / max|plain| {err16:.2e}", flush=True)
+    wrong_body = [c for c in checks if c["dtype"] == "bfloat16"
+                  and c["shape"][3] % 8 == 0 and c["body"] != "wgmma"]
+    if wrong_body:
+        failures.append({"bf16 Cin % 8 == 0 off the wgmma body": wrong_body})
 
     # Dice: correctness on 20 x 584 x 565, times at the main path's shape.
     dice_rows = {}
@@ -663,7 +720,9 @@ def phase_train_path(report, state):
     wall = time.perf_counter() - t0
     launches = {"conv3x3_affine_relu": conv_fused.counter.launches,
                 "dice_sums": dice_fused.counter.launches}
+    bodies = dict(conv_fused.counter.bodies)
     state["train_launches"] = launches
+    state["conv_bodies"]["train"] = bodies
 
     hist = res["history"]
     delta = max(float((p.detach().cpu() - before[k]).abs().max())
@@ -681,6 +740,9 @@ def phase_train_path(report, state):
         "checkpoint_reloads_strict": reload_ok,
         "conv_launches_18_per_chunk_per_epoch":
             launches["conv3x3_affine_relu"] == 18 * n_chunks * TRAIN_EPOCHS,
+        "conv_bodies_17_wgmma_1_mma_sync_per_chunk": bodies == {
+            "wgmma": 17 * n_chunks * TRAIN_EPOCHS,
+            "mma_sync": n_chunks * TRAIN_EPOCHS},
         "dice_launched_every_epoch":
             launches["dice_sums"] >= TRAIN_EPOCHS,
     }
@@ -691,7 +753,8 @@ def phase_train_path(report, state):
         "lr": TRAIN_LR, "val_percent": TRAIN_VAL, "steps": TRAIN_STEPS,
         "epochs": TRAIN_EPOCHS, "dtype": "bfloat16",
         "n_val_patches": n_val_patches, "n_val_chunks": n_chunks,
-        "launches": launches, "history": hist, "max_abs_param_delta": delta,
+        "launches": launches, "conv_bodies": bodies, "history": hist,
+        "max_abs_param_delta": delta,
         "wall_seconds": wall, "steady_patches_per_s":
             TRAIN_STEPS * TRAIN_BATCH / steady["train_seconds"],
         "steady_ms_per_step": step_ms,
@@ -838,6 +901,7 @@ def phase_probe(report, state):
     res = run_probe(**PROBE, n_long=20)
     torch.cuda.synchronize()
     launches = conv_imcol.counter.launches
+    bodies = dict(conv_imcol.counter.bodies)
 
     # Correctness: the probe geometry in bf16 and (at B 8) f32, and a
     # ragged shape in both.  Both sides accumulate in f32 and differ in
@@ -888,12 +952,12 @@ def phase_probe(report, state):
         "kernel_bound_ms": bound_ms(flops, kernel_bytes, BF16_FLOPS),
         "flops": flops, "bytes": nbytes, "kernel_bytes": kernel_bytes,
     }
-    report["probe"] = {"launches": launches, "run": res, "checks": checks,
-                       "times": times}
+    report["probe"] = {"launches": launches, "bodies": bodies, "run": res,
+                       "checks": checks, "times": times}
     n_ok = sum(c["ok"] for c in checks)
     print(f"[probe] imcol kernel vs plain: {n_ok}/{len(checks)} cases within "
           f"1e-2 (bf16) / 1e-4 (f32) of max|plain|; launches on the probe "
-          f"path {launches}", flush=True)
+          f"path {launches} ({bodies})", flush=True)
     print(f"[probe] B{b} {h}x{w} {cin}->{cout} bf16: wrapper "
           f"{times['ms']:.3f} ms (pad {times['pad_ms']:.3f} + kernel "
           f"{times['kernel_ms']:.3f}, {flops / times['kernel_ms'] / 1e9:.1f} "
@@ -902,14 +966,14 @@ def phase_probe(report, state):
           f" plain {times['plain_ms']:.3f} ms, bound {times['bound_ms']:.3f} "
           f"ms ({times['bound_by']}; kernel alone "
           f"{times['kernel_bound_ms']:.3f} ms)", flush=True)
-    if n_ok != len(checks) or launches < 1:
+    if n_ok != len(checks) or launches < 1 or bodies != {"wgmma": launches}:
         raise AssertionError(f"probe checks failed: {checks}, launches "
-                             f"{launches}")
+                             f"{launches} ({bodies})")
     state["kernels_probe"] = {
         "name": "conv3x3_relu_imcol", "route": "cuda",
         "source": "jcfszxc_unet_tpu_torch/csrc/conv3x3_relu_imcol.cu",
         "replaces": "scripts/tpu_imcol_conv_probe.py:52",
-        "launches": launches,
+        "launches": launches, "launches_by_body": {"probe": bodies},
         "max_abs_err": max(c["max_abs_err"] for c in checks
                            if c["dtype"] == "bfloat16"),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
@@ -926,6 +990,8 @@ def kernels_line(state):
                    "train": state["train_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if row["name"] == "conv3x3_affine_relu":
+            row["launches_by_body"] = state["conv_bodies"]
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {"probe": probe["launches"]}
     return rows + [probe]

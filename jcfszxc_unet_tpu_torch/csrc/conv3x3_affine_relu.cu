@@ -1,5 +1,5 @@
 // Fused 3x3 SAME conv + per-channel affine (folded BatchNorm or bias) +
-// optional ReLU, for NHWC activations and HWIO weights on Hopper (sm_90a).
+// optional ReLU, for NHWC activations on Hopper (sm_90a).
 //
 // Replaces the TPU kernel conv3x3_affine_relu_pallas
 // (jcfszxc_unet_tpu/ops/pallas/conv_fused.py, body _kernel).  Function:
@@ -7,37 +7,41 @@
 //   stored once in the activation dtype (float32 or bfloat16).
 //
 // Form: an implicit GEMM with M = B*H*W output pixels, N = Cout and
-// K = 9*Cin, with K ordered (tap, cin) so that row k of the GEMM's B
-// operand is row k of the HWIO weight viewed as (9*Cin, Cout).  A block
-// owns a (pixels x output channels) tile and walks K in steps: it gathers
-// the A tile (pixels x k) straight from x, with the out-of-image taps
-// zero-filled by masking (no padded copy of x), and the B tile from w,
-// into shared memory, double-buffered with the next step's global loads
-// in flight while the current step computes.  The epilogue applies
-// scale/shift/ReLU to the f32 accumulators before the single store.
+// K = 9*Cin ordered (tap, cin).  The weights come K-major, w (Cout, 9, Cin),
+// so that row n of the GEMM's B operand is contiguous.  The out-of-image
+// taps read zeros: no padded copy of x is made.
 //
-// Two bodies share that form:
-//   * bfloat16 (the evaluation default): 128 x 64 tiles, 8 warps each
-//     owning 32 x 32, on the tensor cores with mma.sync m16n8k16
-//     (bf16 in, f32 accumulate);
-//   * float32: 128 x 64 tiles, 8 x 4 outputs per thread, FMAs on the
-//     CUDA cores, so the f32 path keeps full f32 products.
-//
-// Bound on the H100: at UNet's shapes the work is 9*Cin multiply-adds per
-// output element, far above the card's ridge point, so it is bound by
-// operations.  mma.sync reaches only part of the tensor cores' rate on
-// Hopper; left for later: wgmma on tiles fed by TMA, a deeper pipeline,
-// warp specialisation and a persistent tile scheduler.
+// Bound on the H100: at UNet's shapes the work is 2*9*Cin flops per output
+// value, far above the card's ridge point, so the tensor cores' rate bounds
+// the bf16 path, and only wgmma reaches it (the first form's mma.sync with
+// register-staged gathers reached 80 TFLOP/s).  Three bodies, chosen by the
+// caller's plan (ops/kernels/conv_plan.py) from dtype, Cin and alignment,
+// and checked here:
+//   * wgmma (bf16, Cin % 8 == 0, x and w 16-byte aligned: 17 of UNet's 18
+//     convs): the TMA-fed, warp-specialised wgmma mainloop of
+//     conv3x3_wgmma.cuh, whose TMA zero fill supplies the halo;
+//   * mma_sync (bf16, any other Cin: UNet's first conv, Cin = 3, 0.25 % of
+//     its flops): TMA needs 16-byte global strides and a 3-channel pixel is
+//     6 bytes, so this body gathers A element by element in registers with
+//     a per-tap bounds test, stages A and B in double-buffered shared memory
+//     and multiplies with mma.sync m16n8k16 (128 x 64 tiles, 8 warps);
+//   * fma (float32): the same gather and staging, 8 x 4 outputs per thread
+//     on the CUDA cores, so f32 products stay exact f32; fma_vec when
+//     Cin % 8 == 0 and x, w are 16-byte aligned (16-byte loads).
 //
 // Offsets into x and out are 64-bit: B*H*W*C passes 2^31 at UNet's shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
-#include "mma_bf16.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace {
+
+// Bodies, as numbered by ops/kernels/conv_plan.py.
+enum Body { kFma = 0, kFmaVec = 1, kMmaSync = 2, kWgmma = 3 };
 
 // Source pixel of tap `tap` (0..8, row-major 3x3) for output pixel p at
 // (py, px); false where the tap falls outside the image.
@@ -64,15 +68,16 @@ constexpr int BK = 16;    // K step
 constexpr int TM = 8;     // pixels per thread
 constexpr int TN = 4;     // channels per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int LDB = BN + 4;  // B row stride: 2-way store conflicts at most
 
 static_assert(THREADS == 256, "tile shape and thread count disagree");
 static_assert(BM * BK == THREADS * 8, "each thread gathers 8 A values");
 static_assert(BN * BK == THREADS * 4, "each thread gathers 4 B values");
 
 // Gathers this thread's 8 A values (one pixel, k in [k0, k0 + 8)) and 4 B
-// values (one k row, 4 consecutive output channels) of K step kt.
-// VEC: Cin % 8 == 0 and x is 16-byte aligned, so the 8 k's share one tap
-// and are two float4 loads.
+// values (one output channel, 4 consecutive k) of K step kt.
+// VEC: Cin % 8 == 0 and x, w 16-byte aligned, so the 8 k's share one tap
+// and are two float4 loads, and the 4 weights are one.
 template <bool VEC>
 __device__ __forceinline__ void gather(
     const float* __restrict__ x, const float* __restrict__ w, int kt, int K,
@@ -104,10 +109,16 @@ __device__ __forceinline__ void gather(
     }
   }
   const int kb = kt * BK + bk;
+  const int n = n0 + bn;
+  const float* wr = w + (int64_t)n * K + kb;  // four threads: 64 bytes
+  if (VEC) {  // K % 8 == 0: the 4 k's are all in or all out
+    const float4 v = (n < Cout && kb < K) ? *reinterpret_cast<const float4*>(wr)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    b_reg[0] = v.x; b_reg[1] = v.y; b_reg[2] = v.z; b_reg[3] = v.w;
+  } else {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + bn + j;
-    b_reg[j] = (kb < K && n < Cout) ? w[(int64_t)kb * Cout + n] : 0.f;
+    for (int j = 0; j < 4; ++j)
+      b_reg[j] = (n < Cout && kb + j < K) ? wr[j] : 0.f;
   }
 }
 
@@ -118,7 +129,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             float* __restrict__ out, int64_t M, int H, int W, int Cin,
             int Cout, int relu) {
   __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+  __shared__ __align__(16) float Bs[2][BK][LDB];
 
   const int tid = threadIdx.x;
   const int64_t m0 = (int64_t)blockIdx.x * BM;
@@ -127,7 +138,9 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int KT = (K + BK - 1) / BK;
 
   // Gather roles: a warp takes 32 consecutive pixels at one k offset, so
-  // its shared-memory stores hit 32 different banks.
+  // its shared-memory stores hit 32 different banks; for B, one output
+  // channel and 4 consecutive k, four threads to a channel, so a warp
+  // reads 8 channels' 64-byte runs of k.
   const int am = tid % BM;
   const int ak = (tid / BM) * 8;
   const int64_t ap = m0 + am;
@@ -139,8 +152,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     ax = (int)(ap - row * W);
     ay = (int)(row % H);
   }
-  const int bk = tid / (BN / 4);
-  const int bn = (tid % (BN / 4)) * 4;
+  const int bn = tid / (BK / 4);
+  const int bk = (tid % (BK / 4)) * 4;
 
   // Compute roles: TM pixels x TN channels per thread.
   const int tn = tid % (BN / TN);
@@ -154,13 +167,16 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   float a_reg[8];
   float b_reg[4];
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) As[buf][ak + j][am] = a_reg[j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Bs[buf][bk + j][bn] = b_reg[j];
+  };
 
   gather<VEC>(x, w, 0, K, Cin, Cout, H, W, ap, a_valid, ay, ax, ak, bk, bn,
               n0, a_reg, b_reg);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) As[0][ak + j][am] = a_reg[j];
-  *reinterpret_cast<float4*>(&Bs[0][bk][bn]) =
-      make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
+  stage(0);
   __syncthreads();
 
   for (int kt = 0; kt < KT; ++kt) {
@@ -183,13 +199,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
-    if (more) {
-      const int nxt = cur ^ 1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) As[nxt][ak + j][am] = a_reg[j];
-      *reinterpret_cast<float4*>(&Bs[nxt][bk][bn]) =
-          make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-    }
+    if (more) stage(cur ^ 1);
     __syncthreads();
   }
 
@@ -213,7 +223,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores
+// bfloat16 at any Cin: register-staged gather + mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
 namespace bf16 {
@@ -230,41 +240,22 @@ static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warp grid");
 static_assert(BM * BK == THREADS * 16, "each thread gathers 16 A values");
 static_assert(BN * BK == THREADS * 8, "each thread gathers 8 B values");
 
-// Eight bf16 values (raw bits) of x for one pixel, k in [k0, k0 + 8).
-template <bool VEC>
+// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 out.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Eight bf16 values (raw bits) of x for one pixel, k in [k0, k0 + 8), each
+// with its own tap.
 __device__ __forceinline__ uint4 gather_a8(const uint16_t* __restrict__ x,
                                            int k0, int K, int Cin, int64_t ap,
                                            bool a_valid, int ay, int ax, int H,
                                            int W) {
-  if (VEC) {
-    // Cin % 8 == 0 and x 16-byte aligned: one tap, one 16-byte load.
-    int64_t src;
-    const int tap = k0 / Cin;
-    if (a_valid && k0 < K && tap_source(tap, ap, ay, ax, H, W, &src))
-      return *reinterpret_cast<const uint4*>(x + src * Cin + (k0 - tap * Cin));
-    return make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t pair = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + j + h;
-        const int tap = k / Cin;
-        int64_t src;
-        if (a_valid && k < K && tap_source(tap, ap, ay, ax, H, W, &src))
-          pair |= (uint32_t)x[src * Cin + (k - tap * Cin)] << (16 * h);
-      }
-      r[j / 2] = pair;
-    }
-    return make_uint4(r[0], r[1], r[2], r[3]);
-  }
-}
-
-// Eight bf16 values of w for one output channel n, k in [k0, k0 + 8).
-__device__ __forceinline__ uint4 gather_b8(const uint16_t* __restrict__ w,
-                                           int k0, int K, int n, int Cout) {
   uint32_t r[4];
 #pragma unroll
   for (int j = 0; j < 8; j += 2) {
@@ -272,14 +263,34 @@ __device__ __forceinline__ uint4 gather_b8(const uint16_t* __restrict__ w,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = k0 + j + h;
-      if (k < K && n < Cout) pair |= (uint32_t)w[(int64_t)k * Cout + n] << (16 * h);
+      const int tap = k / Cin;
+      int64_t src;
+      if (a_valid && k < K && tap_source(tap, ap, ay, ax, H, W, &src))
+        pair |= (uint32_t)x[src * Cin + (k - tap * Cin)] << (16 * h);
     }
     r[j / 2] = pair;
   }
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-template <bool VEC>
+// Eight bf16 values of w (Cout, K) for output channel n, k in [k0, k0 + 8).
+__device__ __forceinline__ uint4 gather_b8(const uint16_t* __restrict__ w,
+                                           int k0, int K, int n, int Cout) {
+  uint32_t r[4];
+  const uint16_t* wr = w + (int64_t)n * K;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t pair = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + j + h;
+      if (k < K && n < Cout) pair |= (uint32_t)wr[k] << (16 * h);
+    }
+    r[j / 2] = pair;
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
 __global__ void __launch_bounds__(THREADS)
 conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
             const float* __restrict__ scale, const float* __restrict__ shift,
@@ -298,7 +309,7 @@ conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
   const int KT = (K + BK - 1) / BK;
 
   // Gather roles: one pixel and 16 consecutive k of A; one output channel
-  // and 8 consecutive k of B (a warp reads 32 consecutive channels).
+  // and 8 consecutive k of B.
   const int am = tid % BM;
   const int ak = (tid / BM) * 16;
   const int64_t ap = m0 + am;
@@ -333,8 +344,8 @@ conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
   uint4 b_reg;
   auto gather = [&](int kt) {
     const int k0 = kt * BK;
-    a_reg[0] = gather_a8<VEC>(x, k0 + ak, K, Cin, ap, a_valid, ay, ax, H, W);
-    a_reg[1] = gather_a8<VEC>(x, k0 + ak + 8, K, Cin, ap, a_valid, ay, ax, H, W);
+    a_reg[0] = gather_a8(x, k0 + ak, K, Cin, ap, a_valid, ay, ax, H, W);
+    a_reg[1] = gather_a8(x, k0 + ak + 8, K, Cin, ap, a_valid, ay, ax, H, W);
     b_reg = gather_b8(w, k0 + bk, K, n0 + bn, Cout);
   };
   auto stage = [&](int buf) {
@@ -410,48 +421,67 @@ conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out share it; scale and shift
-// are float32).  vec: Cin % 8 == 0 and x 16-byte aligned, checked by the
-// caller.  Returns cudaGetLastError() after the launch.
+// are float32).  x (B, H, W, Cin), w (Cout, 9, Cin) K-major, out (B, H, W,
+// Cout), all contiguous.  plan: wgmma_conv::PLAN_INTS ints from
+// ops/kernels/conv_plan.py (body, box, BN, stages, grid, tiles).  Returns 0,
+// or the error of a refused tensor-map encode, shared-memory attribute or
+// launch, or cudaErrorInvalidValue for a plan the body does not take or
+// whose grid does not cover the output.
 extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
                                           const void* w, const void* scale,
                                           const void* shift, void* out,
                                           long long B, int H, int W, int Cin,
-                                          int Cout, int relu, int vec,
+                                          int Cout, int relu, const int* plan,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const wgmma_conv::Plan pl = *reinterpret_cast<const wgmma_conv::Plan*>(plan);
   const int64_t M = (int64_t)B * H * W;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
-  if (dtype == 0) {
-    const dim3 grid((unsigned)((M + f32::BM - 1) / f32::BM),
-                    (unsigned)((Cout + f32::BN - 1) / f32::BN));
-    const float* xt = static_cast<const float*>(x);
-    const float* wt = static_cast<const float*>(w);
-    float* o = static_cast<float*>(out);
-    if (vec)
-      f32::conv_kernel<true><<<grid, f32::THREADS, 0, s>>>(
-          xt, wt, sc, sh, o, M, H, W, Cin, Cout, relu);
-    else
-      f32::conv_kernel<false><<<grid, f32::THREADS, 0, s>>>(
-          xt, wt, sc, sh, o, M, H, W, Cin, Cout, relu);
-  } else if (dtype == 1) {
-    const dim3 grid((unsigned)((M + bf16::BM - 1) / bf16::BM),
-                    (unsigned)((Cout + bf16::BN - 1) / bf16::BN));
-    const uint16_t* xt = static_cast<const uint16_t*>(x);
-    const uint16_t* wt = static_cast<const uint16_t*>(w);
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    if (vec)
-      bf16::conv_kernel<true><<<grid, bf16::THREADS, 0, s>>>(
-          xt, wt, sc, sh, o, M, H, W, Cin, Cout, relu);
-    else
-      bf16::conv_kernel<false><<<grid, bf16::THREADS, 0, s>>>(
-          xt, wt, sc, sh, o, M, H, W, Cin, Cout, relu);
+  const dim3 grid((unsigned)pl.grid_x, (unsigned)pl.grid_y);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  static_assert(f32::BM == bf16::BM && f32::BN == bf16::BN,
+                "the register-staged bodies share one tile");
+  const bool covers = (int64_t)pl.grid_x * f32::BM >= M &&
+                      (int64_t)pl.grid_y * f32::BN >= Cout;
+  if (pl.body != kWgmma && !covers) {
+    return (int)cudaErrorInvalidValue;
+  } else if (dtype == 0 && pl.body == kFmaVec && Cin % 8 == 0 && aligned) {
+    f32::conv_kernel<true><<<grid, f32::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
+        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
+  } else if (dtype == 0 && pl.body == kFma) {
+    f32::conv_kernel<false><<<grid, f32::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
+        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
+  } else if (dtype == 1 && pl.body == kMmaSync) {
+    bf16::conv_kernel<<<grid, bf16::THREADS, 0, s>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), sc,
+        sh, static_cast<__nv_bfloat16*>(out), M, H, W, Cin, Cout, relu);
+  } else if (dtype == 1 && pl.body == kWgmma) {
+    return wgmma_conv::launch<true>(pl, x, w, sc, sh, out, B, H, W, Cin, Cout,
+                                    /*halo=*/1, relu, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// Message for a code returned by a launch function of this library.
 extern "C" const char* kernels_error_string(int code) {
+  static thread_local char buf[160];
+  if (code >= wgmma_conv::kErrTensorMap) {
+    snprintf(buf, sizeof buf,
+             "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
+             code - wgmma_conv::kErrTensorMap);
+    return buf;
+  }
+  if (code >= wgmma_conv::kErrEntryPoint) {
+    snprintf(buf, sizeof buf,
+             "no driver entry point for cuTensorMapEncodeTiled (status %d)",
+             code - wgmma_conv::kErrEntryPoint);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,0 +1,617 @@
+// The bf16 mainloop shared by both 3x3 conv kernels on Hopper (sm_90a): an
+// implicit GEMM on wgmma with both operands brought in by TMA.
+//
+//   out[p, n] = act(sum_k A[p, k] * Bw[n, k]),  k = (tap, channel)
+//
+// M = output pixels, N = Cout, K = 9 taps x Cin channels.  A tile is BM
+// output pixels (128 or 256) x BN output channels (64, 128 or 256); the
+// pixels are a spatial box (TW, TH, TB) of the NHWC activations with
+// TW * TH * TB = BM (powers of two), chosen by the caller's plan
+// (ops/kernels/conv_plan.py).  K is walked in steps of BK = 64 channels of
+// one tap:
+//
+//   * A: one TMA load of the 4-D box (64, TW, TH, TB) from a tensor map over
+//     x (dims C, W, H, B) at (c0, x0 + dx - halo, y0 + dy - halo, b0).  The
+//     box lands as BM rows of 128 bytes, which is a K-major BM x 64 tile
+//     with the 128-byte swizzle for any box shape.  halo = 1 for unpadded x:
+//     TMA fills coordinates outside the tensor with zeros, and that fill is
+//     the SAME padding (no mask, no padded copy).  halo = 0 for the padded
+//     copy xp of the im2col kernel.  Channels past C are zero-filled too, so
+//     Cin need not be a multiple of 64.
+//   * B: one TMA load of the box (64, 1, BN) from a 3-D map over the weights
+//     laid out (Cout, 9, Cin) at (c0, tap, n0): it stops at the tap's last
+//     channel (a flat (Cout, 9*Cin) map would run into the next tap's
+//     weights whenever Cin % 64 != 0) and zero-fills past Cin and Cout.
+//   * STRIP (rows of TW = 128 pixels): a stage holds the TH rows y0 + dy - 1
+//     .. of 130 pixels, x0 - 1 .. x0 + 128, and the weights of the three taps
+//     (dy, 0..2); tap dx multiplies the strip from row dx on.  A is then read
+//     from L2 three times per output instead of nine.
+//
+// A block is persistent: it walks tiles blockIdx.x, + gridDim.x, ...  Warp 8
+// is the producer: its lane 0 keeps a ring of STAGES stages in flight, each
+// with a full and an empty mbarrier.  Warps 0-7 are two consumer warpgroups;
+// warpgroup g multiplies rows (BM/2)g .. of the A tile, one or two m64
+// blocks, by the B tile with wgmma.mma_async m64nBNk16, keeps one wgmma
+// group in flight and frees a stage once its group has retired.  The
+// accumulators are f32 registers; the epilogue applies scale/shift (AFFINE)
+// and the optional ReLU in f32 and stores bf16 once, masking rows outside
+// the image or batch and channels past Cout.  While it runs, the producer
+// already fills the ring with the next tile's operands.
+//
+// What bounds it: at UNet's shapes the work is 2 * 9 * Cin flops per output
+// value, far above the H100's ridge point, so the tensor cores' rate, which
+// only wgmma reaches.  Below that, where Cout <= 128 and K is short, the
+// operand bytes each stage pulls from L2 (tall tiles and strips cut them).
+// TMA moves the operands with no thread spending an instruction or a
+// register on them.
+//
+// Host side: the tensor maps are encoded per launch with
+// cuTensorMapEncodeTiled (taken through the runtime's driver entry point, so
+// nothing links libcuda) and passed as __grid_constant__ parameters.  Every
+// refusal (entry point, encode, shared-memory attribute, launch) comes back
+// as an error code; nothing is retried another way.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cudaTypedefs.h>
+#include <stdint.h>
+
+namespace wgmma_conv {
+
+constexpr int BK = 64;         // channels of one tap per K step: 128 bytes
+constexpr int CONSUMERS = 2;   // consumer warpgroups, BM / 2 rows each
+constexpr int PRODUCER_WARP = CONSUMERS * 4;
+constexpr int THREADS = CONSUMERS * 128 + 32;
+
+// Error codes beyond cudaError_t's range (see kernels_error_string).
+constexpr int kErrEntryPoint = 10000;  // + cudaError_t of the lookup
+constexpr int kErrTensorMap = 20000;   // + CUresult of the encode
+
+struct Params {
+  int B, H, W, Cin, Cout;  // output geometry (H, W of the output)
+  int tw_log, th_log, tb;  // box: TW = 1 << tw_log, TH = 1 << th_log
+  int tiles_w, tiles_h, tiles_n, tiles;
+  int halo;                // 1: unpadded x; 0: padded xp
+  int relu;
+  const float* scale;      // AFFINE only
+  const float* shift;
+  __nv_bfloat16* out;      // (B, H, W, Cout)
+};
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.  A wait that
+// outlasts ~10 s of clock traps instead of hanging the device: the launch
+// then fails with an error that the caller sees.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile stored as rows of 128
+// bytes with the 128-byte swizzle (what TMA writes with SWIZZLE_128B): start
+// address >> 4, leading byte offset 1 (unused for this layout), stride byte
+// offset 1024 (8 rows) >> 4, base offset 0, layout type 1 (128-byte
+// swizzle).  Stepping 16 k (32 bytes) inside a row adds 2 to the start
+// address.  The swizzle is a function of the absolute shared-memory address
+// (bits 4-6 XOR bits 7-9), for TMA's writes and wgmma's reads alike, so a
+// window may start at any row of a 1024-byte-aligned tile with base offset
+// 0: the strips' windows start at rows dx, 130 + dx, ...  (Setting the base
+// offset to (address >> 7) & 7 there gave wrong products on the H100.)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x N, f32, registers) = A (64 x 16, smem) * B (16 x N, smem)^T
+// [+ D when scale_d != 0]; both operands K-major bf16.
+__device__ __forceinline__ void wgmma_m64nk16(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64nk16(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64nk16(float (&d)[128], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// Tile t -> origin (x0, y0, b0) of its pixel box and first channel n0; the
+// output-channel tile varies fastest, so the blocks sharing an A box run
+// side by side.
+__device__ __forceinline__ void tile_origin(const Params& p, int tile, int bn,
+                                            int& x0, int& y0, int& b0,
+                                            int& n0) {
+  const int nt = tile % p.tiles_n;
+  int m = tile / p.tiles_n;
+  const int bx = m % p.tiles_w;
+  m /= p.tiles_w;
+  const int by = m % p.tiles_h;
+  const int bb = m / p.tiles_h;
+  x0 = bx << p.tw_log;
+  y0 = by << p.th_log;
+  b0 = bb * p.tb;
+  n0 = nt * bn;
+}
+
+template <int BM, int BN, int STAGES, bool STRIP, bool AFFINE>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_kernel(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_w, const Params p) {
+  static_assert(BM == 128 || BM == 256, "tile rows: one or two m64 a warpgroup");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma tile width");
+  constexpr int MI = BM / 128;  // m64 blocks per consumer warpgroup
+  // A stage holds one tap's box and weights, or (STRIP) TH = BM / 128 rows
+  // of 130 pixels and the weights of the taps (dy, 0..2).
+  constexpr int TAPS = STRIP ? 3 : 1;  // taps per stage
+  constexpr int A_BYTES =
+      STRIP ? ((130 * (BM / 128) * BK * 2 + 1023) / 1024) * 1024 : BM * BK * 2;
+  constexpr int A_TX = STRIP ? 130 * (BM / 128) * BK * 2 : A_BYTES;
+  constexpr int B_BYTES = BN * BK * 2;  // one tap
+  constexpr int STAGE_BYTES = A_BYTES + TAPS * B_BYTES;
+  static_assert(STAGE_BYTES % 1024 == 0, "stages on swizzle-atom boundaries");
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[STAGES];
+  __shared__ uint64_t empty[STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int chunks = (p.Cin + BK - 1) / BK;  // K steps per tap
+  const int KT = (9 / TAPS) * chunks;
+
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_x))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_w))
+                   : "memory");
+      int it = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        int x0, y0, b0, n0;
+        tile_origin(p, tile, BN, x0, y0, b0, n0);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          const int step = kt / chunks;  // tap, or the strip's dy
+          const int c0 = (kt - step * chunks) * BK;
+          const uint32_t a = ring + s * STAGE_BYTES;
+          mbar_expect_tx(&full[s], A_TX + TAPS * B_BYTES);
+          if constexpr (STRIP) {
+            tma_load_4d(a, &map_x, &full[s], c0, x0 - p.halo,
+                        y0 + step - p.halo, b0);
+            for (int dx = 0; dx < 3; ++dx)
+              tma_load_3d(a + A_BYTES + dx * B_BYTES, &map_w, &full[s], c0,
+                          3 * step + dx, n0);
+          } else {
+            const int dy = step / 3;
+            const int dx = step - dy * 3;
+            tma_load_4d(a, &map_x, &full[s], c0, x0 + dx - p.halo,
+                        y0 + dy - p.halo, b0);
+            tma_load_3d(a + A_BYTES, &map_w, &full[s], c0, step, n0);
+          }
+        }
+      }
+    }
+  } else {
+    const int wg = warp / 4;
+    const int t = threadIdx.x % 128;  // thread in the warpgroup
+    float acc[MI][BN / 2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mi][i] = 0.f;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      int x0, y0, b0, n0;
+      tile_origin(p, tile, BN, x0, y0, b0, n0);
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint32_t a = ring + s * STAGE_BYTES;
+        const uint32_t b = a + A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int dx = 0; dx < TAPS; ++dx)
+#pragma unroll
+          for (int k = 0; k < BK / 16; ++k)
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+              // first A row of this warpgroup's m64 block mi
+              const int r0 = wg * (BM / 2) + mi * 64;
+              const int row = STRIP ? (r0 / 128) * 130 + r0 % 128 + dx : r0;
+              wgmma_m64nk16(
+                  acc[mi], smem_desc(a + row * 128 + 32 * k),
+                  smem_desc(b + dx * B_BYTES + 32 * k),
+                  (kt > 0 || dx > 0 || k > 0) ? 1 : 0);
+            }
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();  // the previous step's group has retired
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // Epilogue.  Accumulator [mi][j*4 + h*2 + e] holds row
+      // (BM/2)*wg + 64*mi + 16*(t/32) + (t%32)/4 + 8*h and column
+      // 8*j + 2*(t%4) + e of the tile; tile row r is box pixel
+      // (r >> (tw+th), (r >> tw) % TH, r % TW).
+      const int tw_mask = (1 << p.tw_log) - 1;
+      const int th_mask = (1 << p.th_log) - 1;
+      const bool pairs = (p.Cout & 1) == 0;  // 4-byte aligned bf16 pairs
+#pragma unroll
+      for (int mh = 0; mh < 2 * MI; ++mh) {
+        const int mi = mh / 2;
+        const int h = mh % 2;
+        const int r = (BM / 2) * wg + 64 * mi + 16 * (t / 32) + (t % 32) / 4 +
+                      8 * h;
+        const int xx = x0 + (r & tw_mask);
+        const int yy = y0 + ((r >> p.tw_log) & th_mask);
+        const int bb = b0 + (r >> (p.tw_log + p.th_log));
+        if (xx >= p.W || yy >= p.H || bb >= p.B) continue;
+        __nv_bfloat16* row =
+            p.out + (((int64_t)bb * p.H + yy) * p.W + xx) * p.Cout;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + 2 * (t % 4);
+          if (n >= p.Cout) continue;
+          const bool two = n + 1 < p.Cout;
+          float v0 = acc[mi][j * 4 + h * 2];
+          float v1 = acc[mi][j * 4 + h * 2 + 1];
+          if constexpr (AFFINE) {
+            v0 = fmaf(v0, __ldg(p.scale + n), __ldg(p.shift + n));
+            if (two) v1 = fmaf(v1, __ldg(p.scale + n + 1), __ldg(p.shift + n + 1));
+          }
+          if (p.relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          if (two && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(row + n) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            row[n] = __float2bfloat16_rn(v0);
+            if (two) row[n + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+struct EncodeFn {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  int error = 0;
+};
+
+// cuTensorMapEncodeTiled from the driver, looked up once per process.
+inline const EncodeFn& encode_fn() {
+  static const EncodeFn found = [] {
+    EncodeFn e;
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !fn) {
+      e.error = kErrEntryPoint + (err != cudaSuccess ? (int)err : 999);
+    } else {
+      e.fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }
+    return e;
+  }();
+  return found;
+}
+
+// Tiled bf16 map with the 128-byte swizzle and zero fill out of bounds;
+// dims and box innermost first, strides in bytes for dims 1.. .
+inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  const EncodeFn& e = encode_fn();
+  if (!e.fn) return e.error;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = e.fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+// The launch plan, as computed by ops/kernels/conv_plan.py (ConvPlan.ints).
+struct Plan {
+  int body, bm, tw, th, tb, bn, stages, strip, grid_x, grid_y, tiles_w,
+      tiles_h, tiles_b, tiles_n;
+};
+constexpr int PLAN_INTS = 14;
+
+inline int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+template <int BM, int BN, int STAGES, bool STRIP, bool AFFINE>
+int launch_config(const CUtensorMap& mx, const CUtensorMap& mw,
+                  const Params& p, int grid, cudaStream_t stream) {
+  auto kern = conv_kernel<BM, BN, STAGES, STRIP, AFFINE>;
+  const int a_bytes =
+      STRIP ? ((130 * (BM / 128) * BK * 2 + 1023) / 1024) * 1024 : BM * BK * 2;
+  const int smem =
+      STAGES * (a_bytes + (STRIP ? 3 : 1) * BN * BK * 2) + 1024;  // + align
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, THREADS, smem, stream>>>(mx, mw, p);
+  return (int)cudaGetLastError();
+}
+
+// x: (B, Hx, Wx, C) bf16 with Hx, Wx = H, W (halo 1) or H+2, W+2 (halo 0);
+// w: (Cout, 9, C) bf16; out: (B, H, W, Cout) bf16.  Returns 0 or an error
+// code; cudaErrorInvalidValue when the plan is not one this body takes or
+// its tiles do not cover the output.
+template <bool AFFINE>
+int launch(const Plan& pl, const void* x, const void* w, const float* scale,
+           const float* shift, void* out, long long B, int H, int W, int C,
+           int Cout, int halo, int relu, cudaStream_t stream) {
+  const int tw_log = log2_exact(pl.tw);
+  const int th_log = log2_exact(pl.th);
+  if (tw_log < 0 || th_log < 0 || pl.tw * pl.th * pl.tb != pl.bm ||
+      (pl.strip && (pl.tw != 128 || pl.tb != 1)) ||
+      C % 8 != 0 || B > (1ll << 30) || pl.grid_y != 1 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)pl.tiles_w * pl.tiles_h * pl.tiles_b * pl.tiles_n;
+  if (tiles > 0x7fffffff || pl.grid_x < 1 ||
+      (long long)pl.tiles_w << tw_log < W || (long long)pl.tiles_h << th_log < H ||
+      (long long)pl.tiles_b * pl.tb < B || (long long)pl.tiles_n * pl.bn < Cout)
+    return (int)cudaErrorInvalidValue;
+
+  const int Hx = H + 2 * (1 - halo);
+  const int Wx = W + 2 * (1 - halo);
+  CUtensorMap mx, mw;
+  const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)Wx, (cuuint64_t)Hx,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {(cuuint64_t)C * 2, (cuuint64_t)Wx * C * 2,
+                            (cuuint64_t)Hx * Wx * C * 2};
+  const cuuint32_t xb[4] = {BK, (cuuint32_t)(pl.tw + (pl.strip ? 2 : 0)),
+                            (cuuint32_t)pl.th, (cuuint32_t)pl.tb};
+  int err = encode_map(&mx, x, 4, xd, xs, xb);
+  if (err) return err;
+  const cuuint64_t wd[3] = {(cuuint64_t)C, 9, (cuuint64_t)Cout};
+  const cuuint64_t ws[2] = {(cuuint64_t)C * 2, (cuuint64_t)9 * C * 2};
+  const cuuint32_t wb[3] = {BK, 1, (cuuint32_t)pl.bn};
+  err = encode_map(&mw, w, 3, wd, ws, wb);
+  if (err) return err;
+
+  Params p;
+  p.B = (int)B;
+  p.H = H;
+  p.W = W;
+  p.Cin = C;
+  p.Cout = Cout;
+  p.tw_log = tw_log;
+  p.th_log = th_log;
+  p.tb = pl.tb;
+  p.tiles_w = pl.tiles_w;
+  p.tiles_h = pl.tiles_h;
+  p.tiles_n = pl.tiles_n;
+  p.tiles = (int)tiles;
+  p.halo = halo;
+  p.relu = relu;
+  p.scale = scale;
+  p.shift = shift;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  // The (BM, BN, stages, strip) configurations the plan may name
+  // (conv_plan.WGMMA_CONFIGS).
+#define CONV_WGMMA_CONFIG(BM_, BN_, ST_, SP_)                                 \
+  if (pl.bm == BM_ && pl.bn == BN_ && pl.stages == ST_ && pl.strip == SP_) \
+    return launch_config<BM_, BN_, ST_, SP_, AFFINE>(mx, mw, p, pl.grid_x,  \
+                                                     stream);
+  CONV_WGMMA_CONFIG(256, 64, 4, 0)
+  CONV_WGMMA_CONFIG(256, 64, 3, 1)
+  CONV_WGMMA_CONFIG(256, 128, 4, 0)
+  CONV_WGMMA_CONFIG(128, 256, 3, 0)
+#undef CONV_WGMMA_CONFIG
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace wgmma_conv

@@ -6,8 +6,8 @@ Attribute names follow the reference (``double_conv.0``,
 with ``strict=True``.  Tensors are NCHW in ``torch.channels_last``.
 
 In eval mode a DoubleConv runs each conv3x3 -> BatchNorm -> ReLU as one
-call of :func:`conv3x3_affine_relu` with the BatchNorm folded into a
-per-channel scale and shift; on a CUDA tensor that is the hand-written
+call of :func:`conv3x3_affine_relu_kmajor` with the BatchNorm folded into
+a per-channel scale and shift; on a CUDA tensor that is the hand-written
 kernel.  The eval-mode forward is for inference: no gradient flows
 through the kernel.  In train mode the blocks run stock torch ops.
 """
@@ -17,7 +17,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import conv3x3_affine_relu
+from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+    conv3x3_affine_relu_kmajor,
+)
 from jcfszxc_unet_tpu_torch.ops.layers import (
     BatchNorm2d,
     Conv2d,
@@ -30,8 +32,10 @@ def conv_bn_relu_fused(x, conv: Conv2d, bn: BatchNorm2d):
     """Eval-mode conv3x3 (no bias) -> BN -> ReLU as one fused call.
     x: NCHW channels_last; returns NCHW channels_last in x.dtype."""
     scale, shift = bn.folded()
-    w = conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # HWIO
-    y = conv3x3_affine_relu(x.permute(0, 2, 3, 1), w, scale, shift)
+    # (Cout, 3, 3, Cin), the kernel's layout: one copy at most (none for a
+    # channels_last f32 weight)
+    w = conv.weight.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+    y = conv3x3_affine_relu_kmajor(x.permute(0, 2, 3, 1), w, scale, shift)
     return y.permute(0, 3, 1, 2)
 
 

@@ -99,14 +99,15 @@ def _build(out_dir: Path, sources: list[Path]) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    plan = ctypes.POINTER(ctypes.c_int)  # conv_plan.ConvPlan.ints()
     lib.conv3x3_affine_relu_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, vp]
+        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, plan, vp]
     lib.conv3x3_affine_relu_launch.restype = i32
     lib.dice_sums_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
     lib.dice_sums_launch.restype = i32
     lib.conv3x3_relu_imcol_launch.argtypes = [
-        i32, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+        i32, vp, vp, vp, i64, i32, i32, i32, i32, plan, vp]
     lib.conv3x3_relu_imcol_launch.restype = i32
     lib.kernels_error_string.argtypes = [i32]
     lib.kernels_error_string.restype = ctypes.c_char_p
@@ -136,13 +137,19 @@ def load_library() -> ctypes.CDLL:
 
 class LaunchCounter:
     """Launches of one kernel since the last reset; its wrapper adds one
-    where it launches the kernel and nowhere else."""
+    where it launches the kernel and nowhere else.  ``bodies`` splits the
+    count by the body that ran, for kernels with more than one."""
 
     def __init__(self):
-        self.launches = 0
+        self.reset()
 
     def reset(self):
         self.launches = 0
+        self.bodies: dict[str, int] = {}
+
+    def add(self, body: str) -> None:
+        self.launches += 1
+        self.bodies[body] = self.bodies.get(body, 0) + 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

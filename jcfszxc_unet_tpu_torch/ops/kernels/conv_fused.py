@@ -8,15 +8,23 @@ through it with its BatchNorm folded into ``scale``/``shift``.
 Kernel: ``csrc/conv3x3_affine_relu.cu``, CUDA C++ for sm_90a, replacing
 the TPU kernel ``conv3x3_affine_relu_pallas`` in
 ``jcfszxc_unet_tpu/ops/pallas/conv_fused.py``.  It is an implicit GEMM
-(M = B*H*W, N = Cout, K = 9*Cin) whose out-of-image taps are masked
-rather than padded; bf16 runs on the tensor cores (``mma.sync``), f32 on
-FMAs so that its products stay f32.  At UNet's shapes the work is bound
-by operations, and this simple form stays well below the bf16
-tensor-core peak; ``wgmma`` tiles fed by TMA are the next step.
+(M = B*H*W, N = Cout, K = 9*Cin) that reads the weights K-major,
+(Cout, 3, 3, Cin), and no padded copy of x.  At UNet's shapes it is bound
+by operations, so the bf16 path has to reach the tensor cores' ``wgmma``
+rate, which its first ``mma.sync`` form (80 TFLOP/s) did not.  The ``wgmma``
+body (``csrc/conv3x3_wgmma.cuh``) brings both operands in by TMA: x as 4-D
+boxes of output pixels whose out-of-image taps TMA zero-fills, or as
+haloed row strips that serve three taps each, into a persistent,
+warp-specialised ``mbarrier`` ring.  It takes every bf16 call with
+Cin % 8 == 0 and 16-byte-aligned operands.  TMA needs 16-byte global
+strides, and a pixel of UNet's first conv (Cin = 3) is 6 bytes, so that
+conv keeps the register-staged ``mma.sync`` body; f32 runs on FMAs so
+that its products stay f32.  :func:`conv_plan.plan_conv` picks the body
+and the tile from the dtype, the shapes and the alignment.
 
 :func:`conv3x3_affine_relu_torch` is the plain PyTorch version.  The
-wrapper takes it only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+wrappers take it only for tensors on the CPU; for a CUDA tensor they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from jcfszxc_unet_tpu_torch.ops.kernels import build
+from jcfszxc_unet_tpu_torch.ops.kernels import build, conv_plan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,55 +51,96 @@ def conv3x3_affine_relu_torch(x, w, scale, shift, relu: bool = True):
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def _validate(x, w, scale, shift):
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
-        raise ValueError(
-            f"expected x (B,H,W,Cin) and w (3,3,Cin,Cout), got "
-            f"{tuple(x.shape)} and {tuple(w.shape)}")
-    cin, cout = w.shape[2], w.shape[3]
+def _validate(x, w_km, scale, shift):
+    """w_km: the weights K-major, (Cout, 3, 3, Cin)."""
+    cout, cin = w_km.shape[0], w_km.shape[3]
     if x.shape[3] != cin:
         raise ValueError(f"x has {x.shape[3]} channels, w expects {cin}")
     if tuple(scale.shape) != (cout,) or tuple(shift.shape) != (cout,):
         raise ValueError(f"scale and shift must have shape ({cout},)")
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in _DTYPE_CODES or w_km.dtype != x.dtype:
         raise TypeError(
             f"x and w must share float32 or bfloat16, got {x.dtype} and "
-            f"{w.dtype}")
+            f"{w_km.dtype}")
     if scale.dtype != torch.float32 or shift.dtype != torch.float32:
         raise TypeError("scale and shift must be float32")
-    for name, t in (("x", x), ("w", w), ("scale", scale), ("shift", shift)):
+    for name, t in (("x", x), ("scale", scale), ("shift", shift)):
         if not t.is_contiguous():
             raise ValueError(
                 f"{name} must be contiguous in the layout given (for x: a "
                 f"channels_last NCHW tensor permuted to NHWC)")
+    for name, t in (("w", w_km), ("scale", scale), ("shift", shift)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _check_dims(x, w, window, layout: str):
+    """window: w's two kernel-window dims, which must be (3, 3)."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(window) != (3, 3):
+        raise ValueError(
+            f"expected x (B,H,W,Cin) and w {layout}, got {tuple(x.shape)} "
+            f"and {tuple(w.shape)}")
+
+
+def launch(x, w_km, scale, shift, relu: bool, plan: conv_plan.ConvPlan):
+    """The kernel on CUDA tensors with the given plan; raises on any error
+    the launch function returns (a refused tensor-map encode, shared-memory
+    attribute or launch, or a plan the body does not take)."""
+    b, h, wd, cin = x.shape
+    cout = w_km.shape[0]
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.conv3x3_affine_relu_launch(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_km.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+            b, h, wd, cin, cout, int(relu), plan.ints(), stream)
+    build.check(lib, code, "conv3x3_affine_relu")
+    counter.add(plan.body)
+    return out
+
+
+def plan_for(x, w_km) -> conv_plan.ConvPlan:
+    """The plan :func:`conv3x3_affine_relu_kmajor` launches with."""
+    b, h, wd, cin = x.shape
+    aligned = x.data_ptr() % 16 == 0 and w_km.data_ptr() % 16 == 0
+    return conv_plan.plan_conv(b, h, wd, cin, w_km.shape[0], x.dtype, aligned,
+                               conv_plan.sm_count(x.device))
+
+
+def conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu: bool = True):
+    """:func:`conv3x3_affine_relu` with the weights K-major: ``w_km``
+    (Cout, 3, 3, Cin), contiguous, which is ``conv.weight.permute(0, 2, 3,
+    1)`` of a PyTorch conv and the layout the kernel reads."""
+    _check_dims(x, w_km, w_km.shape[1:3], "(Cout,3,3,Cin)")
+    _validate(x, w_km, scale, shift)
+    if not w_km.is_contiguous():
+        raise ValueError("w must be contiguous (Cout, 3, 3, Cin)")
+    if x.device.type == "cpu":
+        return conv3x3_affine_relu_torch(x, w_km.permute(1, 2, 3, 0), scale,
+                                         shift, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return launch(x, w_km, scale, shift, relu, plan_for(x, w_km))
 
 
 def conv3x3_affine_relu(x, w, scale, shift, relu: bool = True):
     """``relu?(conv3x3_SAME(x, w) * scale + shift)`` in ``x.dtype``.
 
     x: (B, H, W, Cin) float32 or bfloat16, contiguous; w: (3, 3, Cin, Cout)
-    of the same dtype, contiguous; scale, shift: (Cout,) float32.
+    of the same dtype, contiguous (re-laid K-major for the kernel); scale,
+    shift: (Cout,) float32.
     """
-    _validate(x, w, scale, shift)
+    _check_dims(x, w, w.shape[:2], "(3,3,Cin,Cout)")
+    _validate(x, w.permute(3, 0, 1, 2), scale, shift)
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous (3, 3, Cin, Cout)")
     if x.device.type == "cpu":
         return conv3x3_affine_relu_torch(x, w, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    lib = build.load_library()
-    b, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    vec = int(cin % 8 == 0 and x.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.conv3x3_affine_relu_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            b, h, wd, cin, cout, int(relu), vec, stream)
-    build.check(lib, code, "conv3x3_affine_relu")
-    counter.launches += 1
-    return out
+    w_km = w.permute(3, 0, 1, 2).contiguous()
+    return launch(x, w_km, scale, shift, relu, plan_for(x, w_km))

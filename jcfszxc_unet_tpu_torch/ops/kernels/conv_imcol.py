@@ -12,11 +12,14 @@ The probe's design is kept: the wrapper writes a zero-padded copy of x
 halo with no bounds test and runs one K = 9*Cin reduction per output tile
 against the weights viewed as one (9*Cin, Cout) matrix.  The copy also
 pads the channels to a multiple of 8, and the weights go over transposed,
-(Cout, 9*Cin8), so that both operands are read in 16-byte runs along K.
-bf16 runs on the tensor cores (``mma.sync`` fed by a ``cp.async`` ring),
-f32 on FMAs so that its products stay f32.  The kernel is bound by
-operations at the probe's geometry; the padded copy adds bytes outside
-it.
+(Cout, 9*Cin8), so that both operands are K-major.  The kernel is bound by
+operations at the probe's geometry, so bf16 runs on the tensor cores'
+``wgmma`` path, which its first ``mma.sync`` form (140 TFLOP/s) did not
+reach: the TMA-fed mainloop of ``csrc/conv3x3_wgmma.cuh`` that kernel 1
+uses, with a 4-D tensor map over the padded copy (halo 0) and the weights
+viewed as (Cout, 9, Cin8).  Cin8 is a multiple of 8, so every bf16 call
+takes it.  f32 runs on FMAs so that its products stay f32.  The padded
+copy adds bytes outside the kernel.
 
 :func:`conv3x3_relu_imcol_torch` is the plain PyTorch version, the same
 arithmetic as the probe's kernel.  The wrapper takes it only for tensors
@@ -28,7 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from jcfszxc_unet_tpu_torch.ops.kernels import build
+from jcfszxc_unet_tpu_torch.ops.kernels import build, conv_plan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,6 +108,16 @@ def conv3x3_relu_imcol_padded(xp, wt):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         if t.device != xp.device:
             raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
+    plan = conv_plan.plan_conv(b, hp - 2, wp - 2, c8, cout, xp.dtype, True,
+                               conv_plan.sm_count(xp.device), imcol=True)
+    return launch(xp, wt, plan)
+
+
+def launch(xp, wt, plan: conv_plan.ConvPlan):
+    """The kernel on checked CUDA operands with the given plan; raises on
+    any error the launch function returns."""
+    b, hp, wp, c8 = xp.shape
+    cout = wt.shape[0]
     out = torch.empty((b, hp - 2, wp - 2, cout), dtype=xp.dtype,
                       device=xp.device)
     if out.numel() == 0:
@@ -114,9 +127,9 @@ def conv3x3_relu_imcol_padded(xp, wt):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.conv3x3_relu_imcol_launch(
             _DTYPE_CODES[xp.dtype], xp.data_ptr(), wt.data_ptr(),
-            out.data_ptr(), b, hp - 2, wp - 2, c8, cout, stream)
+            out.data_ptr(), b, hp - 2, wp - 2, c8, cout, plan.ints(), stream)
     build.check(lib, code, "conv3x3_relu_imcol")
-    counter.launches += 1
+    counter.add(plan.body)
     return out
 
 

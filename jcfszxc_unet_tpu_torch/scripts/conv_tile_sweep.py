@@ -1,0 +1,174 @@
+"""Tile sweep of the ``wgmma`` conv body on the card.
+
+Times every (BM, BN, stages, strip) configuration that the launchers
+instantiate (``conv_plan.WGMMA_CONFIGS``) at the shapes the main paths
+give the 3x3 conv kernels, bf16:
+
+* ``eval``: UNet's 3x3 convs with Cin >= 64 at batch 16 (one 16-patch
+  chunk of 512^2 patches);
+* ``val``: the same convs at batch 64 at the train path's 128^2 patches
+  (128^2 down to 8^2);
+* ``patch``: the Cout = 64 convs (inc, up4) at batch 32 on training
+  patches narrower than 128 (64^2, 96^2), where a row strip of 128 pixels
+  is partly past the edge;
+* ``probe``: the im2col kernel at B 64, 128^2, 128 -> 64;
+
+and, for the eval shapes at 512^2 and 256^2, a few boxes beside the one
+``choose_box`` picks.  Each configuration is checked against the plain
+version (within 1e-2 of max|plain|) before it is timed; cuDNN's conv on
+the same input is timed beside it.
+
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep [out.json]
+
+Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import sys
+
+# (spatial size, Cin, Cout) of UNet's 3x3 convs with Cin >= 64.
+SHAPES = [(512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256),
+          (128, 256, 256), (64, 256, 512), (64, 512, 512), (32, 512, 1024),
+          (32, 1024, 1024), (64, 1024, 512), (128, 512, 256),
+          (256, 256, 128), (512, 128, 64)]
+# (spatial size, Cin, Cout) of the ``patch`` path.
+NARROW = [(64, 64, 64), (64, 128, 64), (96, 64, 64), (96, 128, 64)]
+BOXES = {128: [(128, 1, 1), (64, 2, 1), (32, 4, 1), (16, 8, 1)],
+         256: [(256, 1, 1), (128, 2, 1), (64, 4, 1), (32, 8, 1)]}
+
+
+def _event_ms(fn, target_ms=30.0):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps = max(3, min(200, math.ceil(target_ms / max(start.elapsed_time(end),
+                                                     1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sweep():
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_imcol
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
+        WGMMA_CONFIGS,
+        sm_count,
+        wgmma_plan,
+    )
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the sweep times CUDA kernels: it needs a GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    sms = sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    def run(path, b, hw, cin, cout, kernel, plain, library, plans):
+        want = plain().float()
+        ref = float(want.abs().max())
+        lib_ms = _event_ms(library)
+        flops = 2 * b * hw * hw * cout * 9 * cin
+        for label, plan in plans:
+            try:
+                err = float((kernel(plan).float() - want).abs().max())
+            except RuntimeError as e:  # a launch the card refuses
+                rows.append({"path": path, "b": b, "hw": hw, "cin": cin,
+                             "cout": cout, "label": label, "ok": False,
+                             "error": str(e)})
+                print(f"{path:5s} B{b:<3d} {hw:4d}^2 {cin:5d}->{cout:<5d} "
+                      f"{label:22s} refused: {e}", flush=True)
+                continue
+            ms = _event_ms(lambda: kernel(plan))
+            rows.append({"path": path, "b": b, "hw": hw, "cin": cin,
+                         "cout": cout, "config": [plan.bm, plan.bn,
+                                                  plan.stages, plan.strip],
+                         "box": list(plan.box), "label": label, "ms": ms,
+                         "tflops": flops / ms / 1e9, "cudnn_ms": lib_ms,
+                         "ok": err <= 1e-2 * ref})
+            print(f"{path:5s} B{b:<3d} {hw:4d}^2 {cin:5d}->{cout:<5d} "
+                  f"{label:22s} {ms:8.3f} ms {flops / ms / 1e9:7.1f} TFLOP/s "
+                  f"(cuDNN {lib_ms:.3f} ms) {'ok' if rows[-1]['ok'] else 'BAD'}",
+                  flush=True)
+        del want
+
+    def configs(path, b, hw, cout, boxes=False):
+        out = []
+        for cfg in WGMMA_CONFIGS:
+            if cfg[1] > max(64, cout) or (cfg[3] and hw < 128
+                                          and path != "patch"):
+                continue
+            for box in (BOXES[cfg[0]] if boxes and not cfg[3] else (None,)):
+                plan = wgmma_plan(b, hw, hw, cout, cfg, sms, box)
+                out.append((f"{cfg} box {plan.box}", plan))
+        return out
+
+    for path, b, shapes in (
+            ("eval", 16, SHAPES),
+            ("val", 64, [(hw // 4, cin, cout) for hw, cin, cout in SHAPES]),
+            ("patch", 32, NARROW)):
+        for hw, cin, cout in shapes:
+            x = torch.randn((b, hw, hw, cin), generator=g, device=dev
+                            ).bfloat16()
+            w = (torch.randn((cout, 3, 3, cin), generator=g, device=dev)
+                 / math.sqrt(9 * cin)).bfloat16()
+            scale = 0.5 + torch.rand((cout,), generator=g, device=dev)
+            shift = 0.1 * torch.randn((cout,), generator=g, device=dev)
+            x_cl = x.permute(0, 3, 1, 2)
+            w_oihw = w.permute(0, 3, 1, 2).contiguous()
+            boxes = path == "eval" and hw >= 256
+            run(path, b, hw, cin, cout,
+                lambda plan: conv_fused.launch(x, w, scale, shift, True,
+                                               plan),
+                lambda: conv_fused.conv3x3_affine_relu_torch(
+                    x, w.permute(1, 2, 3, 0), scale, shift),
+                lambda: F.conv2d(x_cl, w_oihw, padding=1),
+                configs(path, b, hw, cout, boxes))
+            del x, w, x_cl, w_oihw
+
+    from jcfszxc_unet_tpu_torch.scripts.imcol_conv_probe import probe_inputs
+
+    x, w = probe_inputs()
+    b, hw, _, cin = x.shape
+    cout = w.shape[3]
+    xp, wt = conv_imcol.pad_inputs(x, w)
+    x_cl = x.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    run("probe", b, hw, cin, cout,
+        lambda plan: conv_imcol.launch(xp, wt, plan),
+        lambda: conv_imcol.conv3x3_relu_imcol_torch(x, w),
+        lambda: F.conv2d(x_cl, w_oihw, padding=1),
+        configs("probe", b, hw, cout))
+    return {"device": torch.cuda.get_device_name(0), "sm_count": sms,
+            "rows": rows}
+
+
+def main():
+    res = sweep()
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(res, f, indent=1)
+    bad = [r for r in res["rows"] if not r["ok"]]
+    print(f"{len(res['rows'])} timings, {len(bad)} outside 1e-2 of max|plain|")
+    if bad:
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,7 @@ fixed seed; everything is f32.  The ``cuda`` tests hold the CUDA kernels
 against the plain versions on a GPU and skip elsewhere.
 """
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -25,9 +26,14 @@ from jcfszxc_unet_tpu.ops.pallas.dice_fused import (
     dice_sums_xla,
 )
 from jcfszxc_unet_tpu.train.losses import dice_coeff
-from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+from jcfszxc_unet_tpu_torch.ops.kernels import (
+    conv_fused,
+    conv_plan,
+    dice_fused,
+)
 from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
     conv3x3_affine_relu,
+    conv3x3_affine_relu_kmajor,
     conv3x3_affine_relu_torch,
 )
 from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
@@ -82,6 +88,23 @@ def test_conv_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     want = conv3x3_affine_relu_torch(x, wt, scale, shift)
     assert torch.equal(got, want)
     assert conv_fused.counter.launches == before  # counts kernel launches only
+
+
+def test_conv_kmajor_entry_on_cpu_is_the_plain_version():
+    x, wt, scale, shift = map(torch.from_numpy,
+                              _conv_inputs(2, 7, 10, 16, 24, seed=2))
+    w_km = wt.permute(3, 0, 1, 2).contiguous()  # (Cout, 3, 3, Cin)
+    before = conv_fused.counter.launches
+    got = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu=False)
+    want = conv3x3_affine_relu_torch(x, wt, scale, shift, relu=False)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert conv_fused.counter.launches == before
+    with pytest.raises(ValueError, match="channels"):
+        conv3x3_affine_relu_kmajor(x, wt.permute(3, 0, 1, 2)[..., :8]
+                                   .contiguous(), scale, shift)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        conv3x3_affine_relu_kmajor(*(t.to("meta")
+                                     for t in (x, w_km, scale, shift)))
 
 
 def test_conv_wrapper_rejects_what_the_kernel_does_not_take():
@@ -158,23 +181,104 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Edges of the wgmma body's plan: one tile, boxes spanning images, ragged
+# W and H, Cin not a multiple of 64, Cout not a multiple of BN, ReLU off.
+PLAN_EDGE_CASES = [
+    (1, 8, 16, 64, 64, True),
+    (4, 8, 8, 64, 64, True),
+    (64, 8, 8, 128, 128, True),
+    (2, 37, 29, 64, 64, True),
+    (2, 37, 29, 16, 64, True),
+    (2, 37, 29, 72, 96, False),
+    (2, 16, 16, 64, 96, True),
+    (2, 8, 8, 64, 160, False),
+    (2, 8, 8, 256, 320, True),
+]
+
+
+def _check_conv_on_gpu(device, dtype, tol, b, h, w, cin, cout, relu):
+    torch.backends.cudnn.allow_tf32 = False
+    x, wt, scale, shift = (torch.from_numpy(a).to(device) for a in
+                           _conv_inputs(b, h, w, cin, cout, seed=cin + h))
+    x, wt = x.to(dtype), wt.to(dtype)
+    before = conv_fused.counter.launches
+    bodies = dict(conv_fused.counter.bodies)
+    got = conv3x3_affine_relu(x, wt, scale, shift, relu=relu).float()
+    want = conv3x3_affine_relu_torch(x, wt, scale, shift, relu=relu).float()
+    torch.cuda.synchronize()
+    assert conv_fused.counter.launches == before + 1
+    # the body that ran: wgmma for every bf16 call with Cin % 8 == 0
+    body = {torch.float32: "fma_vec" if cin % 8 == 0 else "fma",
+            torch.bfloat16: "wgmma" if cin % 8 == 0 else "mma_sync"}[dtype]
+    assert conv_fused.counter.bodies.get(body, 0) == bodies.get(body, 0) + 1
+    # both accumulate in f32: summation order and (bf16) one rounding
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,h,w,cin,cout,relu", CONV_CASES)
 def test_conv_kernel_matches_plain_on_gpu(cuda_device, dtype, tol, b, h, w,
                                           cin, cout, relu):
-    torch.backends.cudnn.allow_tf32 = False
+    _check_conv_on_gpu(cuda_device, dtype, tol, b, h, w, cin, cout, relu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,w,cin,cout,relu", PLAN_EDGE_CASES)
+def test_conv_kernel_plan_edges_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
+                                       cout, relu):
+    _check_conv_on_gpu(cuda_device, dtype, tol, b, h, w, cin, cout, relu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cin", [(torch.bfloat16, 64),
+                                       (torch.bfloat16, 3),
+                                       (torch.float32, 64)])
+def test_conv_wrapper_raises_when_the_launch_is_refused(cuda_device, dtype,
+                                                        cin):
     x, wt, scale, shift = (torch.from_numpy(a).to(cuda_device) for a in
-                           _conv_inputs(b, h, w, cin, cout, seed=cin + h))
+                           _conv_inputs(1, 8, 16, cin, 64, seed=5))
     x, wt = x.to(dtype), wt.to(dtype)
+    w_km = wt.permute(3, 0, 1, 2).contiguous()
+    plan = conv_fused.plan_for(x, w_km)
     before = conv_fused.counter.launches
-    got = conv3x3_affine_relu(x, wt, scale, shift, relu=relu).float()
-    want = conv3x3_affine_relu_torch(x, wt, scale, shift, relu=relu).float()
+    # an empty grid: refused
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_fused.launch(x, w_km, scale, shift, True,
+                          dataclasses.replace(plan, grid=(0, 1)))
+    # a body the dtype and shape do not take: refused by the launcher
+    other = "wgmma" if plan.body != "wgmma" else "fma"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_fused.launch(x, w_km, scale, shift, True,
+                          dataclasses.replace(plan, body=other))
     torch.cuda.synchronize()
-    assert conv_fused.counter.launches == before + 1
-    # both accumulate in f32: summation order and (bf16) one rounding
-    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    assert conv_fused.counter.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cin", [(torch.bfloat16, 64),
+                                       (torch.bfloat16, 3),
+                                       (torch.float32, 64)])
+@pytest.mark.parametrize("smaller", ["batch", "height", "width", "cout"])
+def test_conv_launcher_refuses_a_plan_that_does_not_cover_the_output(
+        cuda_device, dtype, cin, smaller):
+    b, h, w, cout = 2, 16, 130, 136
+    x, wt, scale, shift = (torch.from_numpy(a).to(cuda_device) for a in
+                           _conv_inputs(b, h, w, cin, cout, seed=6))
+    x, wt = x.to(dtype), wt.to(dtype)
+    w_km = wt.permute(3, 0, 1, 2).contiguous()
+    shape = {"batch": (1, h, w, cout), "height": (b, h // 2, w, cout),
+             "width": (b, h, w // 2, cout), "cout": (b, h, w, 64)}[smaller]
+    plan = conv_plan.plan_conv(*shape[:3], cin, shape[3], dtype, True,
+                               conv_plan.sm_count(cuda_device))
+    assert plan.body == conv_fused.plan_for(x, w_km).body
+    before = conv_fused.counter.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_fused.launch(x, w_km, scale, shift, True, plan)
+    assert conv_fused.counter.launches == before
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from jcfszxc_unet_tpu.ops.pallas.conv_fused import conv3x3_affine_relu_xla
-from jcfszxc_unet_tpu_torch.ops.kernels import conv_imcol
+from jcfszxc_unet_tpu_torch.ops.kernels import conv_imcol, conv_plan
 from jcfszxc_unet_tpu_torch.ops.kernels.conv_imcol import (
     conv3x3_relu_imcol,
     conv3x3_relu_imcol_torch,
@@ -132,7 +132,9 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,h,w,cin,cout",
-                         CASES + [(2, 37, 29, 64, 64), (2, 32, 32, 128, 64)])
+                         CASES + [(2, 37, 29, 64, 64), (2, 32, 32, 128, 64),
+                                  (4, 8, 8, 64, 64), (2, 37, 29, 72, 96),
+                                  (1, 8, 16, 64, 64)])
 def test_kernel_matches_plain_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
                                      cout):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,9 +144,30 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
                            / math.sqrt(9 * cin)).astype(np.float32))
     x, wt = x.to(cuda_device, dtype), wt.to(cuda_device, dtype)
     before = conv_imcol.counter.launches
+    body = "wgmma" if dtype == torch.bfloat16 else "fma"
+    runs = conv_imcol.counter.bodies.get(body, 0)
     got = conv3x3_relu_imcol(x, wt).float()
     want = conv3x3_relu_imcol_torch(x, wt).float()
     torch.cuda.synchronize()
     assert conv_imcol.counter.launches == before + 1
+    assert conv_imcol.counter.bodies[body] == runs + 1
     # both accumulate in f32: summation order and (bf16) one rounding
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launcher_refuses_a_plan_that_does_not_cover_the_output(cuda_device,
+                                                                dtype):
+    x, wt = (torch.from_numpy(a).to(cuda_device, dtype)
+             for a in _inputs(2, 16, 130, 64, 136))
+    xp, w2 = pad_inputs(x, wt)
+    before = conv_imcol.counter.launches
+    for shape in ((1, 16, 130, 136), (2, 8, 130, 136), (2, 16, 65, 136),
+                  (2, 16, 130, 64)):
+        plan = conv_plan.plan_conv(*shape[:3], 64, shape[3], dtype, True,
+                                   conv_plan.sm_count(cuda_device),
+                                   imcol=True)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            conv_imcol.launch(xp, w2, plan)
+    assert conv_imcol.counter.launches == before
