@@ -15,8 +15,9 @@ Phases, each of which must pass:
    against a forward built only from the kernels' plain versions;
 4. each kernel against its plain version at the eval path's shapes (the
    conv kernel also at the train path's validation shapes and at the edges
-   of its wgmma plan, in bf16), and its time beside the plain version's, a
-   library call's and its bound, per layer for the conv kernel;
+   of its wgmma plan, in bf16, and at the zoo's and whole-image shapes in
+   both types), and its time beside the plain version's, a library call's
+   and its bound, per layer for the conv kernel;
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -29,7 +30,24 @@ Phases, each of which must pass:
 7. probe path: ``scripts.imcol_conv_probe.run_probe`` at its defaults (B 64,
    128 x 128, 128 -> 64, bf16) with the launch count read around it, then
    the imcol kernel against its plain version there, in f32 at B 8 and on
-   a ragged shape, timed beside the plain version, cuDNN and its bound.
+   a ragged shape, timed beside the plain version, cuDNN and its bound;
+8. zoo eval: ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet and
+   R2AttentionUNet at full width (seeded weights, BatchNorm calibrated and
+   perturbed as for UNet) evaluate the same 4 images through the tiled
+   protocol in bf16, with the conv kernel's launches checked per body
+   against each model's count, images/s, the device's idle share, the conv
+   kernel's time per forward beside cuDNN's for the same conv list (each
+   of its shapes, at the eval batch, also checked against the plain
+   version), and an f32 check (TF32 off) of each model's forward through
+   the kernels on 2 patches of 128^2 against the same model's forward on
+   a CPU copy;
+9. eval protocols: the main path's UNet on the same images through the
+   sliding window (patch 256, overlap 0.5), dihedral-8 TTA (tiled 512) and
+   whole-image evaluation (padded to a multiple of 32), each with its
+   launches, images/s, idle share and conv times (its conv list's shapes
+   checked against the plain version as for the zoo), and each checked in
+   f32 against the same protocol on a CPU copy (TTA on a 256^2 crop at
+   patch 256, to keep the CPU side short).
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -75,6 +93,41 @@ PLAN_EDGE_CASES = [
     (2, 37, 29, 72, 96, False), (2, 16, 16, 64, 96, True),
     (2, 8, 8, 64, 160, False), (2, 8, 8, 256, 320, True),
 ]
+
+# The six zoo models of the zoo_eval phase: registry name -> launches of
+# the conv kernel per eval forward, by body (Cin = 3 convs on mma_sync).
+ZOO = {
+    "ResUNet.ResUNet": {"mma_sync": 2, "wgmma": 13},
+    "SegNet.SegNet": {"mma_sync": 1, "wgmma": 25},
+    "UNetPP.NestedUNet": {"mma_sync": 1, "wgmma": 29},
+    "AttentionUNet.AttentionUNet": {"mma_sync": 1, "wgmma": 21},
+    "R2UNet.R2UNet": {"wgmma": 58},
+    "R2AttentionUNet.R2AttentionUNet": {"wgmma": 58},
+}
+ZOO_F32_PATCHES, ZOO_F32_HW = 2, 128
+
+# Protocols of the eval_protocols phase.
+SLIDING_PATCH, SLIDING_OVERLAP, SPATIAL_DIVISOR = 256, 0.5, 32
+TTA_F32_CROP = 256
+
+# (B, H, W, Cin, Cout, relu) the zoo's forwards give the conv kernel beyond
+# UNet's shapes: Cout 32 and 1 under one 64-wide tile, Cin 96, 160, 192,
+# 320, 384 and 768, ReLU off with a bias as the shift, Cin 3 with ReLU off.
+ZOO_CONV_CASES = [
+    (2, 64, 64, 3, 32, True), (2, 64, 64, 32, 32, True),
+    (2, 64, 64, 96, 32, True), (2, 64, 64, 160, 32, True),
+    (2, 32, 32, 192, 64, True), (2, 32, 32, 320, 64, True),
+    (2, 16, 16, 384, 128, True), (2, 16, 16, 768, 256, False),
+    (2, 64, 64, 64, 1, False), (2, 64, 64, 3, 64, False),
+    (2, 64, 64, 64, 64, False), (2, 16, 16, 1024, 512, True),
+]
+# Whole-image maps (608 x 576 padded from 584 x 565) down UNet's levels
+# and SegNet's bottom (19 x 18), batch 1.
+WHOLE_IMAGE_CONV_CASES = [
+    (1, 608 // d, 576 // d, cin, cout, True)
+    for d, cin, cout in ((1, 3, 64), (1, 64, 64), (2, 64, 128), (4, 128, 256),
+                         (8, 256, 512), (16, 512, 1024), (16, 1024, 1024),
+                         (32, 512, 512))]
 
 # (spatial size, Cin, Cout) of UNet's 18 3x3 convs in forward order.
 UNET_CONVS = [
@@ -133,10 +186,10 @@ def synthetic_drive(n, h, w, seed):
     return images, masks, labels
 
 
-def build_model(device, seed):
-    """Full-width UNet from a seeded generator; each BatchNorm's running
+def build_model(device, seed, name="UNet.UNet"):
+    """Full-width model from a seeded generator; each BatchNorm's running
     statistics are measured on one batch (so activations keep their
-    scale through 18 layers) and then perturbed, with gamma and beta
+    scale through the layers) and then perturbed, with gamma and beta
     drawn at random, so the eval-mode fold has work to do."""
     import torch
 
@@ -144,7 +197,7 @@ def build_model(device, seed):
     from jcfszxc_unet_tpu_torch.ops.layers import BatchNorm2d, reset_parameters
 
     g = torch.Generator().manual_seed(seed)
-    model = create_model("UNet.UNet")
+    model = create_model(name)
     reset_parameters(model, g)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     with torch.no_grad():
@@ -231,10 +284,10 @@ def time_ms(fn, target_ms: float = 40.0, max_reps: int = 50):
     return start.elapsed_time(end) / reps
 
 
-def conv_cost(b, hw, cin, cout, itemsize):
+def conv_cost(b, h, w, cin, cout, itemsize):
     """(flops, bytes) of one fused conv: 2*M*N*K multiply-adds plus the
     3-op epilogue; x, w, scale, shift read once, out written once."""
-    m = b * hw * hw
+    m = b * h * w
     flops = 2 * m * cout * 9 * cin + 3 * m * cout
     nbytes = (m * cin + 9 * cin * cout + m * cout) * itemsize + 2 * cout * 4
     return flops, nbytes
@@ -242,6 +295,95 @@ def conv_cost(b, hw, cin, cout, itemsize):
 
 def bound_ms(flops, nbytes, peak_flops):
     return max(nbytes / HBM_BYTES_PER_S, flops / peak_flops) * 1e3
+
+
+# Kernel 1 against its plain version: both accumulate in f32 and differ
+# only in summation order and (bf16) one output rounding.
+CONV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def conv_inputs(g, b, h, w, cin, cout, dtype):
+    """Random x (B, H, W, Cin), w (3, 3, Cin, Cout) scaled to keep the
+    output near unit size, and f32 scale and shift, on the card."""
+    import torch
+
+    x = torch.randn((b, h, w, cin), generator=g, device="cuda").to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=g, device="cuda")
+          / math.sqrt(9 * cin)).to(dtype)
+    scale = 0.5 + torch.rand((cout,), generator=g, device="cuda")
+    shift = 0.1 * torch.randn((cout,), generator=g, device="cuda")
+    return x, wt, scale, shift
+
+
+def conv_check(path, shape, relu, dtype, body, got, want):
+    """One comparison of kernel 1's output with its plain version's, as a
+    row: max abs error, max |plain| and whether it is within CONV_TOL."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ref = float(want.abs().max())
+    name = str(dtype).split(".")[-1]
+    return {"path": path, "shape": list(shape), "relu": relu, "dtype": name,
+            "body": body, "max_abs_err": err, "max_abs_plain": ref,
+            "ok": err <= CONV_TOL[name] * ref}
+
+
+def conv_list(calls, dtype, path, seed=7, target_ms=20.0):
+    """Kernel 1 over a list of fused conv calls, ``{(B, H, W, Cin, Cout,
+    relu): count}`` (as :func:`record_convs` gives), on random inputs at
+    each shape: its output through the K-major entry that
+    ``ops/blocks.conv_bn_relu_fused`` calls, checked against the plain
+    version, and its time beside the plain version's, cuDNN's ``F.conv2d``
+    alone (channels_last input, TF32 off) and its bound.  Each shape is
+    run once and weighted by its count.  Returns {"rows", "checks",
+    "total"}."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_kmajor,
+        conv3x3_affine_relu_torch,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    rows, checks = [], []
+    for (b, h, wd, cin, cout, relu), n in sorted(calls.items()):
+        x, w, scale, shift = conv_inputs(g, b, h, wd, cin, cout, dtype)
+        w_km = w.permute(3, 0, 1, 2).contiguous()
+        body = conv_fused.plan_for(x, w_km).body
+        checks.append(conv_check(
+            path, [b, h, wd, cin, cout], relu, dtype, body,
+            conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu).float(),
+            conv3x3_affine_relu_torch(x, w, scale, shift, relu).float()))
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view in channels_last
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        flops, nbytes = conv_cost(b, h, wd, cin, cout, x.element_size())
+        ms = time_ms(lambda: conv3x3_affine_relu_kmajor(
+            x, w_km, scale, shift, relu), target_ms)
+        rows.append({
+            "shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
+            "body": body, "ms": ms, "tflops": flops / ms / 1e9,
+            "plain_ms": time_ms(lambda: conv3x3_affine_relu_torch(
+                x, w, scale, shift, relu), target_ms),
+            "library_ms": time_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1),
+                                  target_ms),
+            "bound_ms": bound_ms(flops, nbytes, peak),
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": checks[-1]["max_abs_err"], "ok": checks[-1]["ok"],
+        })
+        del x, w, w_km, x_cl, w_oihw
+    total = {key: sum(r["count"] * r[key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                         "bytes")}
+    total["n_convs"] = sum(calls.values())
+    total["bound_by"] = ("operations" if total["flops"] / peak
+                         > total["bytes"] / HBM_BYTES_PER_S else "bytes")
+    total["checks_ok"] = sum(c["ok"] for c in checks)
+    total["checks"] = len(checks)
+    return {"rows": rows, "checks": checks, "total": total}
 
 
 def phase_build(report):
@@ -269,7 +411,7 @@ def phase_main_path(report, state):
     dev = torch.device("cuda")
     model = build_model(dev, seed=0)
     images, masks, labels = synthetic_drive(N_IMAGES, IMG_H, IMG_W, seed=0)
-    state.update(model=model, images=images)
+    state.update(model=model, images=images, masks=masks, labels=labels)
     n_patches = grid_count(IMG_H, IMG_W, PATCH) * N_IMAGES
     n_chunks = math.ceil(n_patches / min(INFER_BATCH, n_patches))
 
@@ -446,13 +588,13 @@ def phase_f32_end_to_end(report, state):
 
 
 def phase_kernels(report, state):
+    from collections import Counter
+
     import torch
-    import torch.nn.functional as F
 
     from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
         conv3x3_affine_relu,
-        conv3x3_affine_relu_kmajor,
         conv3x3_affine_relu_torch,
     )
     from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
@@ -463,23 +605,13 @@ def phase_kernels(report, state):
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
 
-    def conv_inputs(b, h, w, cin, cout, dtype):
-        x = torch.randn((b, h, w, cin), generator=g, device=dev).to(dtype)
-        w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
-             / math.sqrt(9 * cin)).to(dtype)
-        scale = 0.5 + torch.rand((cout,), generator=g, device=dev)
-        shift = 0.1 * torch.randn((cout,), generator=g, device=dev)
-        return x, w, scale, shift
-
     # Correctness at batch 2 at UNet's eval shapes, plus ReLU off and a
     # ragged whole DRIVE image, in both types; then the train path's
     # validation shapes (a chunk of VAL_CHUNK patches at each conv's size
     # for patch TRAIN_PATCH, 128^2 down to 8^2, where a wgmma tile's box
     # spans two images at 8^2) in bf16, which that path runs (its f32 twin
     # is the train_val_f32 phase); then the edges of the wgmma plan in
-    # bf16.  Both sides accumulate in f32 and differ only in summation
-    # order and (bf16) one output rounding.
-    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    # bf16; then the zoo's and the whole-image shapes in both types.
     both = (torch.float32, torch.bfloat16)
     bf16 = (torch.bfloat16,)
     cases = [("eval", 2, hw, hw, cin, cout, True, both) for hw, cin, cout
@@ -490,75 +622,39 @@ def phase_kernels(report, state):
     cases += [("train_val", VAL_CHUNK, hw // down, hw // down, cin, cout, True,
                bf16) for hw, cin, cout in sorted(set(UNET_CONVS))]
     cases += [("plan_edge", *shape, bf16) for shape in PLAN_EDGE_CASES]
+    cases += [("zoo", *shape, both) for shape in ZOO_CONV_CASES]
+    cases += [("whole_image", *shape, both)
+              for shape in WHOLE_IMAGE_CONV_CASES]
     checks = []
-    failures = []
-
-    def record(path, shape, relu, dtype, body, k, p):
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        ref = float(p.abs().max())
-        checks.append({"path": path, "shape": shape, "relu": relu,
-                       "dtype": str(dtype).split(".")[-1], "body": body,
-                       "max_abs_err": err, "max_abs_plain": ref,
-                       "ok": err <= tol[dtype] * ref})
-        if not checks[-1]["ok"]:
-            failures.append(checks[-1])
 
     for path, b, h, wd, cin, cout, relu, dtypes in cases:
         for dtype in dtypes:
-            x, w, scale, shift = conv_inputs(b, h, wd, cin, cout, dtype)
+            x, w, scale, shift = conv_inputs(g, b, h, wd, cin, cout, dtype)
             runs = dict(conv_fused.counter.bodies)
             k = conv3x3_affine_relu(x, w, scale, shift, relu=relu).float()
             body = next(name for name, n in conv_fused.counter.bodies.items()
                         if n != runs.get(name, 0))
-            record(path, [b, h, wd, cin, cout], relu, dtype, body, k,
-                   conv3x3_affine_relu_torch(x, w, scale, shift,
-                                             relu=relu).float())
+            checks.append(conv_check(
+                path, [b, h, wd, cin, cout], relu, dtype, body, k,
+                conv3x3_affine_relu_torch(x, w, scale, shift,
+                                          relu=relu).float()))
             del x, w, k
 
-    # Times at the main path's shapes (batch = one chunk of patches), in
-    # bf16 (the main path) and f32, through the K-major entry that the
-    # main path calls (ops/blocks.conv_bn_relu_fused) on weights laid out
-    # once; the output of each is also checked against the plain version
-    # (the eval_chunk cases: the persistent wgmma blocks walk more tiles
-    # at this batch than at the eval cases' batch 2).  The library
-    # yardstick is cuDNN's F.conv2d alone on the same channels_last input,
-    # TF32 off.
+    # Checks and times at the main path's shapes (batch = one chunk of
+    # patches; the persistent wgmma blocks walk more tiles there than at
+    # the eval cases' batch 2), in bf16 (the main path) and f32.
     b = min(INFER_BATCH, report["main_path"]["n_patches"])
     conv_times = {}
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32,
-                                                        F32_FLOPS)):
-        per_shape = {}
-        for hw, cin, cout in sorted(set(UNET_CONVS)):
-            x, w, scale, shift = conv_inputs(b, hw, hw, cin, cout, dtype)
-            w_km = w.permute(3, 0, 1, 2).contiguous()
-            record("eval_chunk", [b, hw, hw, cin, cout], True, dtype,
-                   conv_fused.plan_for(x, w_km).body,
-                   conv3x3_affine_relu_kmajor(x, w_km, scale, shift).float(),
-                   conv3x3_affine_relu_torch(x, w, scale, shift).float())
-            x_cl = x.permute(0, 3, 1, 2)  # NCHW view in channels_last
-            w_oihw = w.permute(3, 2, 0, 1).contiguous()
-            flops, nbytes = conv_cost(b, hw, cin, cout, x.element_size())
-            ms = time_ms(lambda: conv3x3_affine_relu_kmajor(x, w_km, scale,
-                                                            shift))
-            per_shape[(hw, cin, cout)] = {
-                "body": conv_fused.plan_for(x, w_km).body,
-                "ms": ms, "tflops": flops / ms / 1e9,
-                "plain_ms": time_ms(
-                    lambda: conv3x3_affine_relu_torch(x, w, scale, shift)),
-                "library_ms": time_ms(
-                    lambda: F.conv2d(x_cl, w_oihw, padding=1)),
-                "bound_ms": bound_ms(flops, nbytes, peak),
-                "flops": flops, "bytes": nbytes,
-            }
-            del x, w, w_km, x_cl, w_oihw
+    for dtype in (torch.bfloat16, torch.float32):
+        res = conv_list(Counter((b, hw, hw, cin, cout, True)
+                                for hw, cin, cout in UNET_CONVS),
+                        dtype, "eval_chunk", seed=1, target_ms=40.0)
+        checks += res["checks"]
+        by_shape = {tuple(r["shape"]): r for r in res["rows"]}
         rows = [{"hw": hw, "cin": cin, "cout": cout,
-                 **per_shape[(hw, cin, cout)]} for hw, cin, cout in UNET_CONVS]
-        total = {key: sum(r[key] for r in rows)
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                             "flops", "bytes")}
-        total["bound_by"] = ("operations" if total["flops"] / peak
-                             > total["bytes"] / HBM_BYTES_PER_S else "bytes")
+                 **by_shape[(b, hw, hw, cin, cout)]}
+                for hw, cin, cout in UNET_CONVS]
+        total = res["total"]
         name = str(dtype).split(".")[-1]
         conv_times[name] = {"batch": b, "rows": rows, "total": total}
         print(f"[conv] one {name} forward at batch {b} (18 convs): kernel "
@@ -578,7 +674,8 @@ def phase_kernels(report, state):
                 json.dump({"gpu": gpu_name_and_power(), **conv_times[name]},
                           f, indent=1)
     total = conv_times["bfloat16"]["total"]
-    for path in ("eval", "eval_chunk", "train_val", "plan_edge"):
+    for path in ("eval", "eval_chunk", "train_val", "plan_edge", "zoo",
+                 "whole_image"):
         mine = [c for c in checks if c["path"] == path]
         err16 = max(c["max_abs_err"] / c["max_abs_plain"] for c in mine
                     if c["dtype"] == "bfloat16")
@@ -586,6 +683,7 @@ def phase_kernels(report, state):
               f"{sum(c['ok'] for c in mine)}/{len(mine)} shape/dtype cases "
               f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max "
               f"err / max|plain| {err16:.2e}", flush=True)
+    failures = [c for c in checks if not c["ok"]]
     wrong_body = [c for c in checks if c["dtype"] == "bfloat16"
                   and c["shape"][3] % 8 == 0 and c["body"] != "wgmma"]
     if wrong_body:
@@ -653,6 +751,290 @@ def phase_kernels(report, state):
          "bound_ms": main["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]
+
+
+def record_convs(fn):
+    """The fused conv calls that ``fn`` makes, as {(B, H, W, Cin, Cout,
+    relu): count}, read at the blocks' entry point (counts untouched)."""
+    from jcfszxc_unet_tpu_torch.ops import blocks
+
+    calls = {}
+    real = blocks.conv3x3_affine_relu_kmajor
+
+    def recording(x, w_km, scale, shift, relu=True):
+        key = (*x.shape, w_km.shape[0], bool(relu))
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, w_km, scale, shift, relu)
+
+    blocks.conv3x3_affine_relu_kmajor = recording
+    try:
+        fn()
+    finally:
+        blocks.conv3x3_affine_relu_kmajor = real
+    return calls
+
+
+def timed_eval(run, n_images):
+    """(seconds of one untraced run after the counted one, device busy ms
+    and idle share of one profiled run)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = device_rows(run)
+    busy = sum(r["device_ms"] for r in rows)
+    kernel = sum(r["device_ms"] for r in rows if "conv_kernel" in r["name"])
+    return {"eval_seconds": dt, "images_per_s": n_images / dt,
+            "device_ms_total": busy, "conv_kernel_device_ms": kernel,
+            "device_idle_share": max(0.0, 1.0 - busy / (dt * 1e3)),
+            "top": rows[:12]}
+
+
+def launch_counts():
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+
+    return ({"conv3x3_affine_relu": conv_fused.counter.launches,
+             "dice_sums": dice_fused.counter.launches},
+            dict(conv_fused.counter.bodies))
+
+
+def reset_counts():
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+
+    torch.cuda.synchronize()
+    conv_fused.counter.reset()
+    dice_fused.counter.reset()
+
+
+def f32_against_cpu_copy(model, fn):
+    """max |dprob| between ``fn(predictor)`` on the card and on a CPU copy
+    of ``model``, both f32 (on the CPU the wrappers take their plain
+    versions), and the reference's std."""
+    import copy
+
+    import torch
+
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+
+    got = fn(Predictor(model, compute_dtype=torch.float32, device="cuda"))
+    cpu = Predictor(copy.deepcopy(model).cpu(), compute_dtype=torch.float32,
+                    device="cpu")
+    want = fn(cpu)
+    del cpu
+    diff = float((got.cpu() - want).abs().max())
+    return diff, float(want.std())
+
+
+def phase_zoo_eval(report, state):
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.data.sampler import extract_patches
+
+    dev = torch.device("cuda")
+    images, masks, labels = state["images"], state["masks"], state["labels"]
+    n_patches = grid_count(IMG_H, IMG_W, PATCH) * N_IMAGES
+    n_chunks = math.ceil(n_patches / min(INFER_BATCH, n_patches))
+    f32_centers = np.array([[0, IMG_H // 2, IMG_W // 2],
+                            [1, IMG_H // 3, IMG_W // 3]][:ZOO_F32_PATCHES])
+    f32_patches = extract_patches(torch.as_tensor(images[:2], device=dev),
+                                  f32_centers, ZOO_F32_HW)
+    out, failures = {}, []
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0}
+    conv_by_model = {}
+    for k, (name, per_chunk) in enumerate(ZOO.items()):
+        model = build_model(dev, seed=10 + k, name=name)
+
+        def run():
+            return evaluate_arrays(
+                model, images, masks, labels, patch_size=PATCH,
+                inference_batch_size=INFER_BATCH,
+                compute_dtype=torch.bfloat16, device=dev)
+
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts()
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+        conv_by_model[name] = bodies
+        want_bodies = {b: n * n_chunks for b, n in per_chunk.items()}
+        pm = res["pred_maps"]
+        patches = extract_patches(torch.as_tensor(images[:1], device=dev),
+                                  np.array([[0, IMG_H // 2, IMG_W // 2]]),
+                                  PATCH)
+        calls = record_convs(lambda: bf16_forward(model, patches))
+        convs = conv_list({(min(INFER_BATCH, n_patches), *key[1:]): n
+                           for key, n in calls.items()},
+                          torch.bfloat16, "zoo_chunk")
+        times = convs["total"]
+        diff, std = f32_against_cpu_copy(
+            model, lambda p: p.predict_patches(f32_patches.to(p.device)))
+        row = {
+            "launches": launches, "conv_bodies": bodies,
+            "expected_conv_bodies": want_bodies,
+            "dice": res["dice"], "auc": res["auc"],
+            "prob_mean": float(pm.mean()), "prob_std": float(pm.std()),
+            "conv_per_forward": convs,
+            "f32_max_abs_dprob": diff, "f32_prob_std": std,
+            **timed_eval(run, N_IMAGES),
+        }
+        row["checks"] = {
+            "pred_finite_in_0_1": bool(np.isfinite(pm).all() and pm.min() >= 0
+                                       and pm.max() <= 1),
+            "dice_finite": all(np.isfinite(d) and 0 <= d <= 1
+                               for d in res["dice"]),
+            "auc_finite": all(np.isfinite(a) and 0 <= a <= 1
+                              for a in res["auc"]),
+            "conv_bodies_as_expected": bodies == want_bodies,
+            "dice_launched": launches["dice_sums"] >= 1,
+            "f32_within_1e-3": bool(np.isfinite(diff) and diff <= 1e-3),
+            "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
+        }
+        out[name] = row
+        bad = [c for c, ok in row["checks"].items() if not ok]
+        if bad:
+            failures.append({name: bad})
+        print(f"[zoo] {name}: launches {launches}, conv bodies {bodies} "
+              f"(expected {want_bodies}); dice "
+              f"{[round(d, 4) for d in res['dice']]}, auc "
+              f"{[round(a, 4) for a in res['auc']]}; "
+              f"{row['images_per_s']:.2f} images/s, idle share "
+              f"{row['device_idle_share']:.3f}; conv per 16-patch forward: "
+              f"kernel {times['ms']:.2f} ms "
+              f"({times['flops'] / times['ms'] / 1e9:.1f} TFLOP/s), cuDNN "
+              f"{times['library_ms']:.2f} ms, bound {times['bound_ms']:.2f} "
+              f"ms, kernel vs plain {times['checks_ok']}/{times['checks']} "
+              f"shapes; f32 vs CPU max |dprob| {diff:.2e}"
+              + (f"; FAILED {bad}" if bad else ""), flush=True)
+        del model, res
+        torch.cuda.empty_cache()
+    report["zoo_eval"] = out
+    state["zoo_launches"] = launches_sum
+    state["zoo_conv_launches"] = conv_by_model
+    state["conv_bodies"]["zoo"] = {
+        b: sum(m.get(b, 0) for m in conv_by_model.values())
+        for b in ("wgmma", "mma_sync")}
+    if failures:
+        raise AssertionError(f"zoo checks failed: {failures}")
+
+
+def bf16_forward(model, patches):
+    """One bf16 eval forward of (B, P, P, C) patches through ``model``."""
+    import torch
+
+    with torch.inference_mode():
+        return model(patches.permute(0, 3, 1, 2).to(torch.bfloat16))
+
+
+def sliding_windows(h, w, patch, overlap):
+    step = int(patch * (1 - overlap))
+    return (len(range(0, h - patch + 1, step))
+            * len(range(0, w - patch + 1, step)))
+
+
+def phase_eval_protocols(report, state):
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+
+    dev = torch.device("cuda")
+    model = state["model"]
+    images, masks, labels = state["images"], state["masks"], state["labels"]
+    n_tiles = grid_count(IMG_H, IMG_W, PATCH) * N_IMAGES
+    windows = sliding_windows(IMG_H, IMG_W, SLIDING_PATCH, SLIDING_OVERLAP)
+    # (evaluate_arrays kwargs, UNet forwards per evaluation, f32 check)
+    crop = (slice(0, 1), slice(IMG_H // 2 - TTA_F32_CROP // 2,
+                               IMG_H // 2 + TTA_F32_CROP // 2),
+            slice(IMG_W // 2 - TTA_F32_CROP // 2,
+                  IMG_W // 2 + TTA_F32_CROP // 2))
+    protocols = {
+        "sliding_window": (
+            dict(sliding_window=True, patch_size=SLIDING_PATCH,
+                 overlap=SLIDING_OVERLAP),
+            N_IMAGES * math.ceil(windows / INFER_BATCH),
+            lambda p: p.predict_full_image(images[0], SLIDING_PATCH,
+                                           SLIDING_OVERLAP, INFER_BATCH)),
+        "tta": (
+            dict(tta=True, patch_size=PATCH),
+            8 * math.ceil(n_tiles / INFER_BATCH),
+            lambda p: p.predict_images(images[crop], TTA_F32_CROP)),
+        "spatial": (
+            dict(spatial=True, patch_size=PATCH),
+            math.ceil(N_IMAGES / INFER_BATCH),
+            lambda p: p.predict_spatial(images[:1], SPATIAL_DIVISOR)),
+    }
+    out, failures = {}, []
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0}
+    bodies_sum = {"wgmma": 0, "mma_sync": 0}
+    for name, (kwargs, forwards, f32_fn) in protocols.items():
+        def run():
+            return evaluate_arrays(
+                model, images, masks, labels,
+                inference_batch_size=INFER_BATCH,
+                compute_dtype=torch.bfloat16, device=dev, **kwargs)
+
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts()
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+        for key in bodies_sum:
+            bodies_sum[key] += bodies.get(key, 0)
+        calls = record_convs(run)
+        convs = conv_list(calls, torch.bfloat16, f"protocol_{name}")
+        times = convs["total"]
+        diff, std = f32_against_cpu_copy(model, f32_fn)
+        pm = res["pred_maps"]
+        row = {"kwargs": {k: v for k, v in kwargs.items()},
+               "forwards": forwards, "launches": launches,
+               "conv_bodies": bodies, "dice": res["dice"], "auc": res["auc"],
+               "prob_mean": float(pm.mean()),
+               "conv_per_evaluation": convs, "f32_max_abs_dprob": diff,
+               "f32_prob_std": std, **timed_eval(run, N_IMAGES)}
+        row["checks"] = {
+            "pred_shape": pm.shape == (N_IMAGES, IMG_H, IMG_W),
+            "pred_finite_in_0_1": bool(np.isfinite(pm).all() and pm.min() >= 0
+                                       and pm.max() <= 1),
+            "dice_finite": all(np.isfinite(d) and 0 <= d <= 1
+                               for d in res["dice"]),
+            "auc_finite": all(np.isfinite(a) and 0 <= a <= 1
+                              for a in res["auc"]),
+            "conv_launches_18_per_forward":
+                launches["conv3x3_affine_relu"] == 18 * forwards,
+            "conv_bodies_17_wgmma_1_mma_sync_per_forward": bodies == {
+                "wgmma": 17 * forwards, "mma_sync": forwards},
+            "dice_launched": launches["dice_sums"] >= 1,
+            "f32_within_1e-3": bool(np.isfinite(diff) and diff <= 1e-3),
+            "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
+        }
+        out[name] = row
+        bad = [c for c, ok in row["checks"].items() if not ok]
+        if bad:
+            failures.append({name: bad})
+        print(f"[protocol] {name}: {forwards} forwards, launches {launches}; "
+              f"dice {[round(d, 4) for d in res['dice']]}; "
+              f"{row['images_per_s']:.2f} images/s, idle share "
+              f"{row['device_idle_share']:.3f}; conv per evaluation "
+              f"({times['n_convs']} calls): kernel {times['ms']:.2f} ms, "
+              f"cuDNN {times['library_ms']:.2f} ms, bound "
+              f"{times['bound_ms']:.2f} ms, kernel vs plain "
+              f"{times['checks_ok']}/{times['checks']} shapes; f32 vs CPU "
+              f"max |dprob| {diff:.2e}" + (f"; FAILED {bad}" if bad else ""),
+              flush=True)
+    report["eval_protocols"] = out
+    state["protocol_launches"] = launches_sum
+    state["conv_bodies"]["protocols"] = bodies_sum
+    if failures:
+        raise AssertionError(f"protocol checks failed: {failures}")
 
 
 def grid_count(h, w, patch):
@@ -987,11 +1369,14 @@ def kernels_line(state):
     rows = [dict(k) for k in state["kernels"]]
     for row in rows:
         by_path = {"eval": row["launches"],
-                   "train": state["train_launches"][row["name"]]}
+                   "train": state["train_launches"][row["name"]],
+                   "zoo": state["zoo_launches"][row["name"]],
+                   "protocols": state["protocol_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
             row["launches_by_body"] = state["conv_bodies"]
+            row["launches_by_model"] = state["zoo_conv_launches"]
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {"probe": probe["launches"]}
     return rows + [probe]
@@ -1021,6 +1406,8 @@ def main() -> None:
                         ("main_path", phase_main_path),
                         ("f32_end_to_end", phase_f32_end_to_end),
                         ("kernels", phase_kernels),
+                        ("zoo_eval", phase_zoo_eval),
+                        ("eval_protocols", phase_eval_protocols),
                         ("train_path", phase_train_path),
                         ("train_val_f32", phase_train_val_f32),
                         ("probe", phase_probe)):

@@ -1,14 +1,17 @@
 """Evaluation CLI of the port, counterpart of ``jcfszxc_unet_tpu/cli/evaluate.py``
-(flags and defaults of reference evaluate.py:349-404): grid-tiled inference
-over the test split, count-averaged stitching, FOV masking, per-image Dice
-and AUC, and PNG artifacts.
+(flags and defaults of reference evaluate.py:349-404): inference over the
+test split by one of three protocols, FOV masking, per-image Dice and AUC,
+and PNG artifacts.  The protocols: grid tiling with count-averaged
+stitching (the default), ``--sliding-window`` (top-left-anchored windows
+at ``--overlap``, on ``--num-images`` or ``--image-indices``) and
+``--spatial`` (whole images, padded to a multiple of 32); ``--tta`` adds
+dihedral-8 test-time augmentation to the two patch protocols.
 
 ``eval_model`` loads a split and calls :func:`evaluate_arrays`, which works
 on arrays alone, so a caller without an h5 file runs the same code.
 
-The other evaluation protocols (``--spatial``, ``--sliding-window``,
-``--tta``), ``--s2d`` and ``--devices`` > 1 are not ported yet and exit
-with a message that says so.
+``--s2d`` and ``--devices`` > 1 are not ported yet and exit with a message
+that says so.
 """
 
 from __future__ import annotations
@@ -38,29 +41,53 @@ from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 THRESHOLD_SWEEP = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
 
 
+def _check_protocol(sliding_window: bool, spatial: bool, tta: bool):
+    if spatial and sliding_window:
+        raise ValueError("--spatial and --sliding-window select different "
+                         "evaluation protocols; pass at most one")
+    if spatial and tta:
+        raise ValueError("--tta needs square patches; it composes with the "
+                         "tiled/sliding protocols, not --spatial")
+
+
 def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
                     inference_batch_size: int = 32,
                     compute_dtype=torch.float32, compute_auc: bool = True,
                     threshold: float = 0.5, full_metrics: bool = False,
-                    threshold_sweep: bool = False, device="cuda"):
-    """The tiled protocol on arrays: images (N, H, W, C), masks and labels
-    (N, H, W), float in [0, 1].
+                    threshold_sweep: bool = False, sliding_window: bool = False,
+                    overlap: float = 0.5, spatial: bool = False,
+                    tta: bool = False, device="cuda"):
+    """One evaluation protocol on arrays: images (N, H, W, C), masks and
+    labels (N, H, W), float in [0, 1].
 
-    Grid centers at stride patch/2, sigmoid, count-averaged stitch, FOV
-    mask multiply, binarize > ``threshold``, per-image Dice (one fused
+    Tiled by default (grid centers at stride patch/2, count-averaged
+    stitch); ``sliding_window``: windows at stride patch*(1-overlap), one
+    image at a time; ``spatial``: whole images padded to a multiple of 32;
+    ``tta``: dihedral-8 averaging of each patch.  Then sigmoid, FOV mask
+    multiply, binarize > ``threshold``, per-image Dice (one fused
     ``dice_sums`` call) and AUC.  Returns a dict of host values:
     ``pred_maps`` (N, H, W) numpy, ``dice`` and ``auc`` lists, and the
     optional ``classification`` rows and ``threshold_sweep`` table.
     """
+    _check_protocol(sliding_window, spatial, tta)
     dev = resolve_device(device)
     predictor = Predictor(model, compute_dtype=compute_dtype,
                           patch_size=patch_size,
                           inference_batch_size=inference_batch_size,
-                          device=dev)
+                          device=dev, tta=tta)
     images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
     masks = torch.as_tensor(np.asarray(masks, np.float32), device=dev)
     labels = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
-    pred_maps = predictor.predict_images(images) * masks  # evaluate.py:309
+    if spatial:
+        pred_maps = predictor.predict_spatial(images)
+    elif sliding_window:
+        pred_maps = torch.stack([
+            predictor.predict_full_image(image, patch_size, overlap,
+                                         inference_batch_size)
+            for image in images])
+    else:
+        pred_maps = predictor.predict_images(images)
+    pred_maps = pred_maps * masks  # evaluate.py:309
     result = {}
     if compute_auc:
         result["auc"] = [float(roc_auc(pred_maps[i], labels[i], masks[i]))
@@ -87,9 +114,13 @@ def eval_model(model, output_dir: str,
                visualize: bool = True, compute_auc: bool = True,
                error_panels: bool = False, full_metrics: bool = False,
                threshold: float = 0.5, threshold_sweep: bool = False,
-               metrics_json: str | None = None, device="cuda"):
-    """Tiled evaluation of a preprocessed split; returns
-    (mean_dice, per_image_dice, mean_auc) like the JAX ``eval_model``."""
+               metrics_json: str | None = None, sliding_window: bool = False,
+               overlap: float = 0.5, num_images=None, image_indices=None,
+               spatial: bool = False, tta: bool = False, device="cuda"):
+    """Evaluation of a preprocessed split; returns (mean_dice,
+    per_image_dice, mean_auc) like the JAX ``eval_model``.  With
+    ``sliding_window`` only the images ``image_indices`` (or the first
+    ``num_images``) are evaluated, as in the JAX version."""
     resolve_device(device)
     set_seed(seed)
     dataset = load_preprocessed_data(input_data)
@@ -97,13 +128,23 @@ def eval_model(model, output_dir: str,
     if visualize:
         visualize_samples(dataset, num_samples=3)
     images = np.asarray(dataset["images"], np.float32)
+    masks = np.asarray(dataset["masks"], np.float32)
     labels = np.asarray(dataset["labels"], np.float32)
+    if sliding_window:
+        if image_indices:
+            sel = list(image_indices)
+        elif num_images:
+            sel = list(range(min(int(num_images), images.shape[0])))
+        else:
+            sel = list(range(images.shape[0]))
+        images, masks, labels = images[sel], masks[sel], labels[sel]
     res = evaluate_arrays(
-        model, images, dataset["masks"], labels, patch_size=patch_size,
+        model, images, masks, labels, patch_size=patch_size,
         inference_batch_size=inference_batch_size,
         compute_dtype=compute_dtype, compute_auc=compute_auc,
         threshold=threshold, full_metrics=full_metrics,
-        threshold_sweep=threshold_sweep, device=device)
+        threshold_sweep=threshold_sweep, sliding_window=sliding_window,
+        overlap=overlap, spatial=spatial, tta=tta, device=device)
     dice_scores, aucs = res["dice"], res.get("auc", [])
     if visualize:
         from jcfszxc_unet_tpu_torch.utils.vis import (
@@ -175,13 +216,16 @@ def get_args(argv=None):
     parser.add_argument("--patch-size", "-p", type=int, default=512,
                         help="Size of patches for prediction")
     parser.add_argument("--spatial", action="store_true",
-                        help="Whole-image forward (not ported yet)")
+                        help="Whole-image forward, padded to a multiple of "
+                             "32 (no tiling or stitching; one device)")
     parser.add_argument("--s2d", action="store_true",
                         help="Space-to-depth execution (not ported yet)")
     parser.add_argument("--sliding-window", action="store_true",
-                        help="Sliding-window predictor (not ported yet)")
+                        help="Use the sliding-window predictor "
+                             "(predict_full_image protocol) driven by "
+                             "--overlap/--num-images/--image-indices")
     parser.add_argument("--overlap", type=float, default=0.5,
-                        help="Overlap between patches (sliding-window "
+                        help="Overlap between patches (0-1; sliding-window "
                              "predictor only)")
     parser.add_argument("--num-images", "-n", type=int, default=5,
                         help="Number of images to process (sliding-window "
@@ -203,8 +247,9 @@ def get_args(argv=None):
                         help="Binarization threshold for Dice and "
                              "--full-metrics (reference uses 0.5)")
     parser.add_argument("--tta", action="store_true",
-                        help="Dihedral-8 test-time augmentation (not ported "
-                             "yet)")
+                        help="Dihedral-8 test-time augmentation: average "
+                             "probabilities over all flips/rotations of "
+                             "each patch (8x compute; tiled/sliding only)")
     parser.add_argument("--full-metrics", action="store_true",
                         help="Also report FOV accuracy/sensitivity/"
                              "specificity")
@@ -220,14 +265,16 @@ def get_args(argv=None):
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    for flag, on in (("--spatial", args.spatial),
-                     ("--sliding-window", args.sliding_window),
-                     ("--tta", args.tta), ("--s2d", args.s2d),
+    for flag, on in (("--s2d", args.s2d),
                      ("--devices > 1", args.devices > 1)):
         if on:
             raise SystemExit(
-                f"{flag} is not ported to PyTorch yet; the port runs the "
-                f"tiled protocol on one device")
+                f"{flag} is not ported to PyTorch yet; the port evaluates "
+                f"on one device")
+    try:
+        _check_protocol(args.sliding_window, args.spatial, args.tta)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     os.makedirs("demo", exist_ok=True)
@@ -249,6 +296,14 @@ def main(argv=None):
         threshold=args.threshold,
         threshold_sweep=args.threshold_sweep,
         metrics_json=args.metrics_json,
+        sliding_window=args.sliding_window,
+        overlap=args.overlap,
+        num_images=args.num_images if args.sliding_window else None,
+        image_indices=(
+            [int(s) for s in args.image_indices.split(",")]
+            if (args.sliding_window and args.image_indices) else None),
+        spatial=args.spatial,
+        tta=args.tta,
         device=device,
     )
 

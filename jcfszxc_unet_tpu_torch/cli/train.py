@@ -37,6 +37,7 @@ from jcfszxc_unet_tpu_torch.data.sampler import (
     build_grid_sample_map,
     build_train_sample_map,
 )
+from jcfszxc_unet_tpu_torch.models import MODEL_REGISTRY, create_model
 from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
 from jcfszxc_unet_tpu_torch.train.optim import (
     ReduceLROnPlateau,
@@ -337,8 +338,8 @@ def get_args(argv=None):
                         dest="early_stopping_patience", type=int, default=20,
                         help="Epochs with no improvement before stopping")
     parser.add_argument("--model", "-m", type=str, default="UNet.UNet",
-                        help="Registry model name (only UNet.UNet is "
-                             "ported)")
+                        help="Registry model name; ported: "
+                             + ", ".join(sorted(MODEL_REGISTRY)))
     parser.add_argument("--save-path", type=str, default="best_model.ckpt",
                         help="Best-checkpoint output path")
     parser.add_argument("--dtype", type=str, default="bfloat16",
@@ -395,7 +396,7 @@ def main(argv=None):
         if on:
             raise SystemExit(
                 f"{flag} is not ported to PyTorch yet; the port trains "
-                f"UNet on one device")
+                f"{', '.join(sorted(MODEL_REGISTRY))} on one device")
     device = resolve_device(args.device)
     logging.info(f"Using device: {device}")
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
@@ -408,7 +409,6 @@ def main(argv=None):
         model_name, model_kwargs = cfg["model_name"], cfg["model_kwargs"]
         logging.info(f"Model loaded from {args.load}")
     else:
-        from jcfszxc_unet_tpu_torch.models import create_model
         from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
 
         model_name, model_kwargs = args.model, {}

@@ -4,8 +4,9 @@ Turns a Flax variables tree of the JAX package (``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays) into a state dict
 with the reference's torch key names, which the port's modules load with
 ``strict=True``.  The port keeps its own copy of the mapping rules for the
-ported models (UNet), independent of the JAX package; the leaf transforms
-are those of the reference interchange:
+ported models (UNet, ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet,
+R2AttentionUNet), independent of the JAX package; the leaf transforms are
+those of the reference interchange:
 
   * Conv2d:          flax kernel (kh, kw, I, O) -> torch (O, I, kh, kw)
   * ConvTranspose2d: flax kernel (kh, kw, I, O), spatially flipped ->
@@ -16,27 +17,53 @@ are those of the reference interchange:
 
 from __future__ import annotations
 
-import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-_AUTO_NAME = re.compile(r"^(.+)_(\d+)$")
-
 LEAF_CLASSES = {"Conv2d", "ConvTranspose2d", "BatchNorm2d"}
 
+# Conv -> BN -> ReLU -> Conv -> BN -> ReLU under one Sequential named
+# ``seq`` (reference DoubleConv, conv_block, UNetPP's private DoubleConv).
+def _double(seq):
+    return {"Conv2d_0": (f"{seq}.0", "Conv2d"),
+            "BatchNorm2d_0": (f"{seq}.1", "BatchNorm2d"),
+            "Conv2d_1": (f"{seq}.3", "Conv2d"),
+            "BatchNorm2d_1": (f"{seq}.4", "BatchNorm2d")}
+
+
 # Flax child segment -> (torch relative path, class), per block class
-# (reference unet_parts.py:17-79).
+# (reference unet_parts.py and UNetPP.py:15-28).
 CHILD_RULES: Dict[str, Dict[str, tuple]] = {
-    "DoubleConv": {"Conv2d_0": ("double_conv.0", "Conv2d"),
-                   "BatchNorm2d_0": ("double_conv.1", "BatchNorm2d"),
-                   "Conv2d_1": ("double_conv.3", "Conv2d"),
-                   "BatchNorm2d_1": ("double_conv.4", "BatchNorm2d")},
+    "DoubleConv": _double("double_conv"),                     # :17-34
     "Down": {"DoubleConv_0": ("maxpool_conv.1", "DoubleConv")},
     "Up": {"ConvTranspose2d_0": ("up", "ConvTranspose2d"),
            "DoubleConv_0": ("conv", "DoubleConv")},
     "OutConv": {"Conv2d_0": ("conv", "Conv2d")},
+    "ConvBlockBN": _double("conv"),                           # :82-96
+    "DoubleConvBias": _double("conv"),
+    "UpConvBlock": {"Conv2d_0": ("up.1", "Conv2d"),           # :99-111
+                    "BatchNorm2d_0": ("up.2", "BatchNorm2d")},
+    "RecurrentBlock": {"Conv2d_0": ("conv.0", "Conv2d"),      # :114-132
+                       "BatchNorm2d_0": ("conv.1", "BatchNorm2d")},
+    "RRCNNBlock": {"Conv2d_0": ("Conv_1x1", "Conv2d"),        # :135-146
+                   "RecurrentBlock_0": ("RCNN.0", "RecurrentBlock"),
+                   "RecurrentBlock_1": ("RCNN.1", "RecurrentBlock")},
+    "AttentionBlock": {"Conv2d_0": ("W_g.0", "Conv2d"),       # :149-176
+                       "BatchNorm2d_0": ("W_g.1", "BatchNorm2d"),
+                       "Conv2d_1": ("W_x.0", "Conv2d"),
+                       "BatchNorm2d_1": ("W_x.1", "BatchNorm2d"),
+                       "Conv2d_2": ("psi.0", "Conv2d"),
+                       "BatchNorm2d_2": ("psi.1", "BatchNorm2d")},
+    "ResidualConv": {"BatchNorm2d_0": ("conv_block.0", "BatchNorm2d"),
+                     "Conv2d_0": ("conv_block.2", "Conv2d"),  # :454-475
+                     "BatchNorm2d_1": ("conv_block.3", "BatchNorm2d"),
+                     "Conv2d_1": ("conv_block.5", "Conv2d"),
+                     "Conv2d_2": ("conv_skip.0", "Conv2d"),
+                     "BatchNorm2d_2": ("conv_skip.1", "BatchNorm2d")},
+    "UpsampleT": {"ConvTranspose2d_0": ("upsample",           # :478-487
+                                        "ConvTranspose2d")},
 }
 
 
@@ -52,7 +79,75 @@ def _root_unet(seg):
     raise KeyError(seg)
 
 
-ROOT_RULES = {"UNet.UNet": _root_unet}
+def _root_attention_unet(seg):
+    if seg.startswith("Up_conv"):
+        return seg, "ConvBlockBN"
+    if seg.startswith("Att"):
+        return seg, "AttentionBlock"
+    if seg == "Conv_1x1":
+        return seg, "Conv2d"
+    if seg.startswith("Conv"):
+        return seg, "ConvBlockBN"
+    if seg.startswith("Up"):
+        return seg, "UpConvBlock"
+    raise KeyError(seg)
+
+
+def _root_r2(seg):
+    if seg.startswith("RRCNN") or seg.startswith("Up_RRCNN"):
+        return seg, "RRCNNBlock"
+    if seg.startswith("Att"):
+        return seg, "AttentionBlock"
+    if seg == "Conv_1x1":
+        return seg, "Conv2d"
+    if seg.startswith("Up"):
+        return seg, "UpConvBlock"
+    raise KeyError(seg)
+
+
+_RESUNET_LEAVES = {"input_conv1": ("input_layer.0", "Conv2d"),
+                   "input_bn": ("input_layer.1", "BatchNorm2d"),
+                   "input_conv2": ("input_layer.3", "Conv2d"),
+                   "input_skip": ("input_skip.0", "Conv2d"),
+                   "output_layer": ("output_layer.0", "Conv2d")}
+
+
+def _root_resunet(seg):
+    if seg in _RESUNET_LEAVES:
+        return _RESUNET_LEAVES[seg]
+    if seg.startswith("upsample_"):
+        return seg, "UpsampleT"
+    if (seg.startswith("residual_conv") or seg == "bridge"
+            or seg.startswith("up_residual_conv")):
+        return seg, "ResidualConv"
+    raise KeyError(seg)
+
+
+def _root_segnet(seg):
+    if seg.startswith("conv"):
+        return seg, "Conv2d"
+    if seg.startswith("bn"):
+        return seg, "BatchNorm2d"
+    raise KeyError(seg)
+
+
+def _root_nested(seg):
+    if seg.startswith("conv"):
+        return seg, "DoubleConvBias"
+    if seg.startswith("final"):
+        return seg, "Conv2d"
+    raise KeyError(seg)
+
+
+ROOT_RULES = {
+    "UNet.UNet": _root_unet,
+    "AttentionUNet.AttentionUNet": _root_attention_unet,
+    "R2UNet.R2UNet": _root_r2,
+    "R2AttentionUNet.R2AttentionUNet": _root_r2,
+    "ResUNet.ResUNet": _root_resunet,
+    "SegNet.SegNet": _root_segnet,
+    "UNetPP.NestedUNet": _root_nested,
+}
 _ALIASES = {name.split(".")[-1]: name for name in ROOT_RULES}
 
 
@@ -68,7 +163,20 @@ def state_dict_from_jax(model_name: str, variables: Dict[str, Any]
     if model_name not in ROOT_RULES:
         raise MappingError(
             f"no mapping rules for model {model_name!r} (not ported yet)")
-    root = ROOT_RULES[model_name]
+    return _convert(variables, None, ROOT_RULES[model_name], model_name)
+
+
+def block_state_dict_from_jax(block_class: str, variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The same for one block of the JAX package (``block_class``: its
+    class name in ``ops/blocks.py``, e.g. ``"ResidualConv"``), keyed as
+    the port's block of that name."""
+    if block_class not in CHILD_RULES:
+        raise MappingError(f"no mapping rules for block {block_class!r}")
+    return _convert(variables, block_class, None, block_class)
+
+
+def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def emit(key, arr):
@@ -107,7 +215,7 @@ def state_dict_from_jax(model_name: str, variables: Dict[str, Any]
                     rel, sub_cls = root(seg)
                 except KeyError:
                     raise MappingError(
-                        f"no root rule for {seg!r} in {model_name}") from None
+                        f"no root rule for {seg!r} in {what}") from None
             else:
                 if seg not in CHILD_RULES[cls]:
                     raise MappingError(
@@ -117,5 +225,5 @@ def state_dict_from_jax(model_name: str, variables: Dict[str, Any]
             walk(sub, (stats or {}).get(seg, {}), sub_cls, sub_prefix)
 
     walk(variables.get("params", {}), variables.get("batch_stats", {}),
-         None, "")
+         cls, "")
     return out

@@ -1,15 +1,30 @@
-"""Model registry of the port, with the JAX package's registry names.
+"""Model registry of the port, with the JAX package's registry names and
+constructor arguments.
 
-Only UNet is ported so far; any other name raises a ``KeyError`` that
-says so.
+Seven of the zoo's 16 models are ported; any other name raises a
+``KeyError`` that says so.
 """
 
 from __future__ import annotations
 
-from jcfszxc_unet_tpu_torch.models import UNet
+from jcfszxc_unet_tpu_torch.models import (
+    AttentionUNet,
+    R2AttentionUNet,
+    R2UNet,
+    ResUNet,
+    SegNet,
+    UNet,
+    UNetPP,
+)
 
 MODEL_REGISTRY = {
     "UNet.UNet": UNet.UNet,
+    "AttentionUNet.AttentionUNet": AttentionUNet.AttentionUNet,
+    "R2UNet.R2UNet": R2UNet.R2UNet,
+    "R2AttentionUNet.R2AttentionUNet": R2AttentionUNet.R2AttentionUNet,
+    "ResUNet.ResUNet": ResUNet.ResUNet,
+    "SegNet.SegNet": SegNet.SegNet,
+    "UNetPP.NestedUNet": UNetPP.NestedUNet,
 }
 
 # Short aliases: bare class names resolve too.

@@ -1,4 +1,5 @@
-"""The layers UNet needs, on NCHW tensors held in ``torch.channels_last``.
+"""The layers of the ported models, on NCHW tensors held in
+``torch.channels_last``.
 
 Counterpart of ``jcfszxc_unet_tpu/ops/layers.py``.  Parameters and
 BatchNorm statistics stay float32; the convolutions compute in the
@@ -44,6 +45,67 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
         return scale, shift
+
+
+def channels_last(x):
+    """``x`` as a channels_last tensor: a copy only where it is not one
+    already (the conv kernel reads NCHW channels_last as contiguous NHWC)."""
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def cat_channels(*ts):
+    """Channel concat of NCHW tensors, returned in channels_last."""
+    return channels_last(torch.cat(ts, dim=1))
+
+
+def nhwc(x):
+    """NCHW channels_last -> its NHWC view (a copy only for another
+    layout)."""
+    return channels_last(x).permute(0, 2, 3, 1)
+
+
+def max_pool2d_with_indices(x):
+    """2x2/stride-2 max pool that also returns where each max came from:
+    (pooled NCHW, onehot (N, H/2, W/2, 4, C) in x.dtype), the window's
+    positions in (row, column) order.  The one-hot marks the *first*
+    maximum of a window, so ties go where the JAX version and torch's
+    argmax put them.  Counterpart of ``max_pool2d_with_indices`` in
+    ``jcfszxc_unet_tpu/ops/layers.py`` (reference SegNet.py:89-112)."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"max_pool2d_with_indices requires even H and W, got {h}x{w} "
+            f"(SegNet needs inputs divisible by 32 for its five pooling "
+            f"stages)")
+    xw = nhwc(x).reshape(n, h // 2, 2, w // 2, 2, c)
+    xw = xw.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4, c)
+    pooled = xw.amax(dim=3)
+    is_max = xw == pooled.unsqueeze(3)
+    first = is_max & (torch.cumsum(is_max.to(torch.int32), dim=3) == 1)
+    return pooled.permute(0, 3, 1, 2), first.to(x.dtype)
+
+
+def max_unpool2d(x, onehot):
+    """Inverse of :func:`max_pool2d_with_indices`: each value goes back to
+    its window's marked position, zeros elsewhere (torch F.max_unpool2d,
+    reference SegNet.py:115-138).  x: NCHW; returns NCHW channels_last."""
+    n, c, h2, w2 = x.shape
+    y = nhwc(x).unsqueeze(3) * onehot  # (N, H/2, W/2, 4, C)
+    y = y.reshape(n, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, h2 * 2, w2 * 2, c).permute(0, 3, 1, 2)
+
+
+def upsample_nearest(x, scale: int = 2):
+    """torch nn.Upsample(scale_factor=s, mode='nearest'), channels_last."""
+    return channels_last(F.interpolate(x, scale_factor=scale, mode="nearest"))
+
+
+def upsample_bilinear(x, scale: int = 2, align_corners: bool = True):
+    """torch nn.Upsample(mode='bilinear'), channels_last; align_corners=True
+    as NestedUNet's ``up`` (reference UNetPP.py:43).  The JAX version's
+    matmul form is a TPU choice with the same two-term blends."""
+    return channels_last(F.interpolate(x, scale_factor=scale, mode="bilinear",
+                                       align_corners=align_corners))
 
 
 def pad_or_crop_to(x, target_h: int, target_w: int):

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from jcfszxc_unet_tpu_torch.models import create_model
+from jcfszxc_unet_tpu_torch.utils.device import resolve_device
 
 _KEYS = {"model_name", "model_kwargs", "state_dict"}
 
@@ -78,9 +79,11 @@ def load_extra(path: str) -> Optional[Dict[str, Any]]:
     return _load(path).get("extra")
 
 
-def load_model(path: str, device="cpu") -> Tuple[nn.Module, Dict[str, Any]]:
+def load_model(path: str, device="cuda") -> Tuple[nn.Module, Dict[str, Any]]:
     """Rebuild (model, config) from a port checkpoint; the model is in
-    eval mode, in channels_last, on ``device``."""
+    eval mode, in channels_last, on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    device = resolve_device(device)
     payload = _load(path)
     model = create_model(payload["model_name"], **payload["model_kwargs"])
     model.load_state_dict(payload["state_dict"], strict=True)

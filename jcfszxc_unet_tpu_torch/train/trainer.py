@@ -188,8 +188,8 @@ def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
 
 
 def build_val_patches(images: np.ndarray, labels: np.ndarray,
-                      sample_map_val: np.ndarray, patch_size: int,
-                      device="cpu"):
+                      sample_map_val: np.ndarray, patch_size: int, *,
+                      device):
     """The whole validation patch set, cut once on ``device`` (the
     reference cuts it every epoch on the host, train.py:317-331).
     images (N, H, W, C), labels (N, H, W, 1)."""

@@ -117,7 +117,9 @@ def _inputs(b, h, w, cin, cout, seed):
 
 # (B, H, W, Cin, Cout, relu): boxes spanning images, a ragged W and H,
 # Cin not a multiple of 64, Cout not a multiple of BN, one single tile,
-# and row strips (Cout 64, W >= 128) with a ragged edge.
+# and row strips (Cout 64, W >= 128) with a ragged edge; the zoo's Cout 32
+# and Cout 1 under one 64-wide tile, Cin 96 and 160, and SegNet's 19 x 18
+# whole-image bottom.
 CASES = [
     (4, 8, 8, 64, 64, True),
     (2, 37, 29, 16, 64, True),
@@ -125,6 +127,9 @@ CASES = [
     (1, 8, 16, 64, 64, True),
     (2, 8, 8, 64, 160, False),
     (1, 3, 130, 72, 64, True),
+    (2, 8, 8, 96, 32, True),
+    (2, 8, 8, 64, 1, False),
+    (1, 19, 18, 160, 64, True),
 ]
 
 

@@ -1,6 +1,7 @@
 """The port's evaluation slice end to end against the JAX package (CPU, f32):
-tiled prediction, eval_model on an h5 split, the metrics, the CLI, and the
-rule that a CUDA default never falls back to the CPU.
+tiled prediction, eval_model on an h5 split, the metrics, the CLI (its
+three protocols and their refused combinations), and the rule that a CUDA
+default never falls back to the CPU.
 
 The split holds 2 images of 64 x 48; patch 32 gives 6 overlapping patches
 per image and inference batch 5 leaves a short tail chunk.
@@ -205,11 +206,45 @@ def test_cli_runs_the_tiled_protocol(setup, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "demo" / "label_0.png")
 
 
-@pytest.mark.parametrize("flag", [["--spatial"], ["--sliding-window"],
-                                  ["--tta"], ["--s2d"], ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--s2d"], ["--devices", "2"]])
 def test_cli_refuses_unported_protocols(flag):
     with pytest.raises(SystemExit, match="not ported"):
         port_cli.main(["--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags,kwargs", [
+    (["--spatial"], {"spatial": True}),
+    (["--sliding-window", "--overlap", "0.25", "-i", "1"],
+     {"sliding_window": True, "overlap": 0.25, "image_indices": [1]}),
+    (["--tta"], {"tta": True}),
+])
+def test_cli_runs_the_other_protocols(setup, tmp_path, monkeypatch, flags,
+                                      kwargs):
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "unet.pt")
+    save_model(ckpt, "UNet.UNet", {}, setup["port"])
+    out_json = str(tmp_path / "metrics.json")
+    port_cli.main(["-m", ckpt, "-d", setup["h5"], "-p", str(PATCH),
+                   "--inference-batch-size", str(BATCH), "--dtype", "float32",
+                   "--device", "cpu", "-o", str(tmp_path / "preds"),
+                   "--metrics-json", out_json, *flags])
+    rec = json.loads(open(out_json).read())
+    j_mean, j_dice, j_auc = jax_eval_model(
+        setup["jmodel"], setup["variables"], str(tmp_path / "jax"),
+        input_data=setup["h5"], patch_size=PATCH, inference_batch_size=BATCH,
+        compute_dtype=jnp.float32, visualize=False, **kwargs)
+    assert rec["n_images"] == len(j_dice) == (1 if "image_indices" in kwargs
+                                              else N)
+    np.testing.assert_allclose(rec["per_image_dice"], j_dice, atol=1e-5)
+    np.testing.assert_allclose(rec["mean_auc"], j_auc, atol=1e-3)
+    assert os.path.exists(tmp_path / "preds" / "prediction_0.png")
+
+
+@pytest.mark.parametrize("flags", [["--spatial", "--tta"],
+                                   ["--spatial", "--sliding-window"]])
+def test_cli_refuses_protocol_combinations(flags):
+    with pytest.raises(SystemExit, match="--spatial"):
+        port_cli.main(["--device", "cpu", *flags])
 
 
 def test_patch_larger_than_image_raises():

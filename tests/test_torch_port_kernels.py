@@ -196,6 +196,29 @@ PLAN_EDGE_CASES = [
 ]
 
 
+# Shapes the zoo's eval forwards give the kernel beyond UNet's: Cout 32
+# (NestedUNet's row 0) and 1 (SegNet's head) under one 64-wide tile, Cin
+# 96/160/192/320/384/768 (NestedUNet's dense nodes, ResUNet's and
+# AttentionUNet's concats), ReLU off (bias as the shift), Cin 3 with ReLU
+# off (ResUNet's input_skip), and whole-image maps: UNet's first and last
+# level at 608 x 576 and SegNet's 19 x 18.
+ZOO_CASES = [
+    (2, 32, 32, 64, 32, True),
+    (2, 32, 32, 96, 32, True),
+    (2, 32, 32, 64, 1, False),
+    (2, 16, 16, 160, 64, True),
+    (2, 16, 16, 192, 64, False),
+    (2, 8, 8, 320, 128, True),
+    (2, 8, 8, 384, 128, False),
+    (2, 8, 8, 768, 256, False),
+    (2, 16, 16, 3, 64, False),
+    (1, 608, 576, 3, 64, True),
+    (1, 608, 576, 64, 64, True),
+    (1, 38, 36, 1024, 512, True),
+    (1, 19, 18, 512, 512, True),
+]
+
+
 def _check_conv_on_gpu(device, dtype, tol, b, h, w, cin, cout, relu):
     torch.backends.cudnn.allow_tf32 = False
     x, wt, scale, shift = (torch.from_numpy(a).to(device) for a in
@@ -229,6 +252,15 @@ def test_conv_kernel_matches_plain_on_gpu(cuda_device, dtype, tol, b, h, w,
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,h,w,cin,cout,relu", PLAN_EDGE_CASES)
 def test_conv_kernel_plan_edges_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
+                                       cout, relu):
+    _check_conv_on_gpu(cuda_device, dtype, tol, b, h, w, cin, cout, relu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,w,cin,cout,relu", ZOO_CASES)
+def test_conv_kernel_zoo_shapes_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
                                        cout, relu):
     _check_conv_on_gpu(cuda_device, dtype, tol, b, h, w, cin, cout, relu)
 

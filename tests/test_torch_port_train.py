@@ -512,7 +512,7 @@ def test_train_cli_end_to_end(train_h5, tmp_path, monkeypatch, capsys):
     recs = [json.loads(line) for line in open(metrics)]
     assert [r["epoch"] for r in recs] == [1, 2]
     assert all(np.isfinite(r["loss"]) and 0 <= r["dice"] <= 1 for r in recs)
-    model, cfg = load_model(best)  # strict=True
+    model, cfg = load_model(best, device="cpu")  # strict=True
     assert cfg["model_name"] == "UNet.UNet"
     extra = load_extra(latest)
     assert extra["progress"]["epoch"] == 2

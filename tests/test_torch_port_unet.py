@@ -45,7 +45,7 @@ def test_state_dict_from_jax_equals_torch_mapping(unet):
 def test_state_dict_from_jax_refuses_unported_models_and_stray_keys(unet):
     _, variables, _ = unet
     with pytest.raises(MappingError, match="not ported"):
-        state_dict_from_jax("ResUNet.ResUNet", variables)
+        state_dict_from_jax("MCUNet.MCUNet", variables)
     bad = {"params": {**variables["params"], "extra": {}},
            "batch_stats": variables["batch_stats"]}
     with pytest.raises(MappingError, match="extra"):
@@ -106,7 +106,7 @@ def test_pad_or_crop_to_matches_jax():
 
 def test_registry_names():
     assert resolve_model("UNet.UNet") is resolve_model("UNet")
-    for name in ("ResUNet.ResUNet", "NestedUNet", "NoSuchNet"):
+    for name in ("MCUNet.MCUNet", "BCDUNet.BCDU_net_D3", "NoSuchNet"):
         with pytest.raises(KeyError, match="not ported"):
             create_model(name)
 
@@ -115,7 +115,7 @@ def test_checkpoint_roundtrip_and_refusal(unet, tmp_path):
     jmodel, variables, port = unet
     path = str(tmp_path / "unet.pt")
     save_model(path, "UNet.UNet", {}, port)
-    model, cfg = load_model(path)
+    model, cfg = load_model(path, device="cpu")
     assert cfg == {"model_name": "UNet.UNet", "model_kwargs": {}}
     assert not model.training
     for k, v in port.state_dict().items():
@@ -125,4 +125,13 @@ def test_checkpoint_roundtrip_and_refusal(unet, tmp_path):
     jax_ckpt.save_model(jpath, "UNet.UNet", {}, variables["params"],
                         variables["batch_stats"])
     with pytest.raises(ValueError, match="not ported yet"):
-        load_model(jpath)
+        load_model(jpath, device="cpu")
+
+
+def test_load_model_defaults_to_the_card(unet, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    path = str(tmp_path / "unet.pt")
+    save_model(path, "UNet.UNet", {}, unet[2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model(path)

@@ -49,3 +49,138 @@ def port_unet(variables):
     model.load_state_dict(state_dict_from_jax("UNet.UNet", variables),
                           strict=True)
     return model.to(memory_format=torch.channels_last).eval()
+
+
+# ---------------------------------------------------------------------------
+# The zoo: a JAX model and its port on the same weights, held against each
+# other in eval and train mode (tests/test_torch_port_zoo_*.py).
+# ---------------------------------------------------------------------------
+
+# Eval-mode forwards agree to f32 summation order: atol = rtol = 1e-4 of
+# max |JAX output|.
+EVAL_TOL = 1e-4
+# Train mode normalizes every conv by its batch statistics (BN over as few
+# as 2 x 1 x 1 values at 32^2), which amplifies the f32 summation-order
+# differences of the conv layers below it; through R2UNet's 58 convs they
+# reach ~1e-3 of max |output|.  The updated running statistics agree to
+# ~1e-5 relative.
+TRAIN_TOL, STATS_TOL = 2e-3, 1e-4
+
+
+def jax_model(name, seed=0, hw=32, **kwargs):
+    """(JAX module of registry ``name``, numpy variables with random BN
+    statistics)."""
+    model = jax_create_model(name, **kwargs)
+    variables = model.init(jax.random.PRNGKey(seed),
+                           jnp.zeros((1, hw, hw, 3), jnp.float32), train=False)
+    return model, randomize_bn(variables, seed + 1)
+
+
+def port_model(name, variables, **kwargs):
+    """The port's model ``name`` with ``variables`` (loaded strict), eval
+    mode, channels_last."""
+    import torch
+
+    model = create_model(name, **kwargs)
+    model.load_state_dict(state_dict_from_jax(name, variables), strict=True)
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def to_port(x):
+    """NHWC numpy -> NCHW channels_last torch view."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def to_nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def assert_close_to(got, want, tol):
+    """|got - want| <= tol * max|want| + tol * |want|."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def check_bridge(name, variables):
+    """state_dict_from_jax equals the JAX package's variables_to_state_dict
+    key for key, dtype for dtype and value for value, and loads strict."""
+    from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
+
+    got = state_dict_from_jax(name, variables)
+    want = variables_to_state_dict(name, variables)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].numpy().dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    assert sorted(port_model(name, variables).state_dict()) == sorted(want)
+
+
+def check_eval(jmodel, variables, port, x):
+    import torch
+
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = port(to_port(x))
+    assert got.shape == (x.shape[0], 1, x.shape[1], x.shape[2])
+    assert_close_to(to_nhwc(got), want, EVAL_TOL)
+    return want
+
+
+def check_train(name, jmodel, variables, x, monkeypatch):
+    """One train-mode forward: the output and every updated running
+    statistic against JAX's ``mutable=["batch_stats"]`` apply, with the
+    JAX BatchNorm's two-pass variance (its one-pass form trades f32
+    precision for a TPU memory pass)."""
+    import torch
+
+    from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
+    from jcfszxc_unet_tpu.ops import layers as jax_layers
+
+    monkeypatch.setattr(jax_layers, "TRAIN_BN_ONE_PASS_STATS", False)
+    want, upd = jmodel.apply(variables, jnp.asarray(x), train=True,
+                             mutable=["batch_stats"])
+    new_stats = variables_to_state_dict(name, {
+        "params": variables["params"],
+        "batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])})
+    port = port_model(name, variables).train()
+    with torch.no_grad():
+        got = port(to_port(x))
+    assert_close_to(to_nhwc(got), want, TRAIN_TOL)
+    sd, loaded = port.state_dict(), state_dict_from_jax(name, variables)
+    stats = [k for k in new_stats if k.endswith(("running_mean",
+                                                 "running_var"))]
+    assert stats
+    for k in stats:
+        assert_close_to(sd[k].numpy(), new_stats[k], STATS_TOL)
+        # the update happened: the stats moved from the loaded ones
+        assert not np.array_equal(new_stats[k], loaded[k].numpy())
+
+
+def kernel_calls(port, x, monkeypatch):
+    """Eval forward of ``port`` on ``x`` (NHWC numpy) counting the calls of
+    the fused conv entry by the body a bf16 call of that shape would
+    launch on the card (``conv_plan.plan_conv``).  On the CPU the entry
+    runs the plain version; the count is that of the kernel launches the
+    same forward makes on a CUDA tensor."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops import blocks
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_plan
+
+    bodies = {}
+    real = blocks.conv3x3_affine_relu_kmajor
+
+    def counting(xh, w_km, scale, shift, relu=True):
+        b, h, w, cin = xh.shape
+        body = conv_plan.plan_conv(b, h, w, cin, w_km.shape[0],
+                                   torch.bfloat16, True).body
+        bodies[body] = bodies.get(body, 0) + 1
+        return real(xh, w_km, scale, shift, relu)
+
+    monkeypatch.setattr(blocks, "conv3x3_affine_relu_kmajor", counting)
+    with torch.no_grad():
+        port.eval()(to_port(x))
+    return bodies
