@@ -31,16 +31,17 @@ Phases, each of which must pass:
    128 x 128, 128 -> 64, bf16) with the launch count read around it, then
    the imcol kernel against its plain version there, in f32 at B 8 and on
    a ragged shape, timed beside the plain version, cuDNN and its bound;
-8. zoo eval: ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet and
-   R2AttentionUNet at full width (seeded weights, BatchNorm calibrated and
+8. zoo eval: ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet,
+   R2AttentionUNet, BCDU_net_D3, BCDU_net_D1, MultiResUNet, DenseUNet and
+   FRUNet at full width (seeded weights, BatchNorm calibrated and
    perturbed as for UNet) evaluate the same 4 images through the tiled
    protocol in bf16, with the conv kernel's launches checked per body
    against each model's count, images/s, the device's idle share, the conv
    kernel's time per forward beside cuDNN's for the same conv list (each
    of its shapes, at the eval batch, also checked against the plain
-   version), and an f32 check (TF32 off) of each model's forward through
-   the kernels on 2 patches of 128^2 against the same model's forward on
-   a CPU copy;
+   version; BCDU's ConvLSTM x-halves at twice the batch), and an f32 check
+   (TF32 off) of each model's forward through the kernels on 2 patches of
+   128^2 against the same model's forward on a CPU copy;
 9. eval protocols: the main path's UNet on the same images through the
    sliding window (patch 256, overlap 0.5), dihedral-8 TTA (tiled 512) and
    whole-image evaluation (padded to a multiple of 32), each with its
@@ -94,8 +95,9 @@ PLAN_EDGE_CASES = [
     (2, 8, 8, 64, 160, False), (2, 8, 8, 256, 320, True),
 ]
 
-# The six zoo models of the zoo_eval phase: registry name -> launches of
-# the conv kernel per eval forward, by body (Cin = 3 convs on mma_sync).
+# The eleven zoo models of the zoo_eval phase: registry name -> launches
+# of the conv kernel per eval forward, by body (bf16 convs with Cin % 8 !=
+# 0 on mma_sync: Cin = 3, and MultiResUNet's truncated widths).
 ZOO = {
     "ResUNet.ResUNet": {"mma_sync": 2, "wgmma": 13},
     "SegNet.SegNet": {"mma_sync": 1, "wgmma": 25},
@@ -103,8 +105,21 @@ ZOO = {
     "AttentionUNet.AttentionUNet": {"mma_sync": 1, "wgmma": 21},
     "R2UNet.R2UNet": {"wgmma": 58},
     "R2AttentionUNet.R2AttentionUNet": {"wgmma": 58},
+    "BCDUNet.BCDU_net_D3": {"mma_sync": 1, "wgmma": 24},
+    "BCDUNet.BCDU_net_D1": {"mma_sync": 1, "wgmma": 20},
+    "MultiResUNet.MultiResUNet": {"mma_sync": 25, "wgmma": 12},
+    "DenseUNet.DenseUNet": {"wgmma": 40},
+    "FRUNet.FRUNet": {"mma_sync": 1, "wgmma": 43},
 }
-ZOO_F32_PATCHES, ZOO_F32_HW = 2, 128
+ZOO_F32_PATCHES, ZOO_F32_HW, ZOO_F32_TOL = 2, 128, 1e-3
+# BCDU-Net's convs have no BatchNorm after them.  Drawn as torch draws by
+# default, each conv keeps a third of its input's variance and each ReLU
+# half of that, so after its ~16 such layers the output is little more
+# than its last bias.  ``build_model`` calibrates these convs as it does
+# the BatchNorms, and they run with their pre-sigmoid head (the train
+# CLI's --logit-head), so that their probabilities vary and the f32 check
+# sees the path.
+ZOO_BN_FREE = ("BCDUNet.BCDU_net_D3", "BCDUNet.BCDU_net_D1")
 
 # Protocols of the eval_protocols phase.
 SLIDING_PATCH, SLIDING_OVERLAP, SPATIAL_DIVISOR = 256, 0.5, 32
@@ -112,7 +127,11 @@ TTA_F32_CROP = 256
 
 # (B, H, W, Cin, Cout, relu) the zoo's forwards give the conv kernel beyond
 # UNet's shapes: Cout 32 and 1 under one 64-wide tile, Cin 96, 160, 192,
-# 320, 384 and 768, ReLU off with a bias as the shift, Cin 3 with ReLU off.
+# 320, 384 and 768, ReLU off with a bias as the shift, Cin 3 with ReLU off;
+# MultiResUNet's truncated widths on mma_sync (odd Cin, odd Cout), its Cin
+# 8 (a 16-byte TMA box) and odd Cout on wgmma, BCDU-Net's Cout-2 head with
+# ReLU and its ConvLSTM gate convs (Cout 4 x hidden) on the two steps
+# stacked on the batch.
 ZOO_CONV_CASES = [
     (2, 64, 64, 3, 32, True), (2, 64, 64, 32, 32, True),
     (2, 64, 64, 96, 32, True), (2, 64, 64, 160, 32, True),
@@ -120,6 +139,15 @@ ZOO_CONV_CASES = [
     (2, 16, 16, 384, 128, True), (2, 16, 16, 768, 256, False),
     (2, 64, 64, 64, 1, False), (2, 64, 64, 3, 64, False),
     (2, 64, 64, 64, 64, False), (2, 16, 16, 1024, 512, True),
+    (2, 64, 64, 3, 8, True), (2, 64, 64, 17, 26, True),
+    (2, 64, 64, 51, 32, True), (2, 32, 32, 35, 53, True),
+    (2, 32, 32, 105, 64, True), (2, 16, 16, 71, 106, True),
+    (2, 16, 16, 212, 128, True), (2, 8, 8, 142, 213, True),
+    (2, 8, 8, 426, 256, True), (2, 4, 4, 284, 427, True),
+    (2, 64, 64, 8, 17, True), (2, 32, 32, 128, 17, True),
+    (2, 64, 64, 64, 8, True), (2, 64, 64, 64, 2, True),
+    (4, 64, 64, 64, 128, False), (4, 32, 32, 128, 256, False),
+    (4, 16, 16, 256, 512, False), (2, 16, 16, 128, 512, False),
 ]
 # Whole-image maps (608 x 576 padded from 584 x 565) down UNet's levels
 # and SegNet's bottom (19 x 18), batch 1.
@@ -190,15 +218,28 @@ def build_model(device, seed, name="UNet.UNet"):
     """Full-width model from a seeded generator; each BatchNorm's running
     statistics are measured on one batch (so activations keep their
     scale through the layers) and then perturbed, with gamma and beta
-    drawn at random, so the eval-mode fold has work to do."""
+    drawn at random, so the eval-mode fold has work to do.  The models of
+    ``ZOO_BN_FREE`` take their logit head, and on the same batch each of
+    their convs called as a module is rescaled to an output of mean 0 and
+    std 1 per channel: the calibration a BatchNorm gets, folded into the
+    conv's weight and bias."""
     import torch
 
     from jcfszxc_unet_tpu_torch.models import create_model
     from jcfszxc_unet_tpu_torch.ops.layers import BatchNorm2d, reset_parameters
 
+    def unit_output(conv, inputs, y):
+        mean, std = y.mean(dim=(0, 2, 3)), y.std(dim=(0, 2, 3)) + 1e-6
+        conv.weight.div_(std[:, None, None, None])
+        conv.bias.sub_(mean).div_(std)
+        return (y - mean[:, None, None]) / std[:, None, None]
+
     g = torch.Generator().manual_seed(seed)
-    model = create_model(name)
+    bn_free = name in ZOO_BN_FREE
+    model = create_model(name, **({"logit_head": True} if bn_free else {}))
     reset_parameters(model, g)
+    hooks = [m.register_forward_hook(unit_output) for m in model.modules()
+             if bn_free and isinstance(m, torch.nn.Conv2d)]
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     with torch.no_grad():
         for bn in bns:
@@ -212,6 +253,8 @@ def build_model(device, seed, name="UNet.UNet"):
     model.train()
     with torch.no_grad():
         model(calib)
+    for hook in hooks:
+        hook.remove()
     with torch.no_grad():
         for bn in bns:
             bn.momentum = 0.1
@@ -870,7 +913,9 @@ def phase_zoo_eval(report, state):
                                   np.array([[0, IMG_H // 2, IMG_W // 2]]),
                                   PATCH)
         calls = record_convs(lambda: bf16_forward(model, patches))
-        convs = conv_list({(min(INFER_BATCH, n_patches), *key[1:]): n
+        # one patch recorded; a call at batch k (ConvLSTM x-halves: 2) runs
+        # at k times the chunk's batch
+        convs = conv_list({(key[0] * min(INFER_BATCH, n_patches), *key[1:]): n
                            for key, n in calls.items()},
                           torch.bfloat16, "zoo_chunk")
         times = convs["total"]
@@ -894,7 +939,10 @@ def phase_zoo_eval(report, state):
                               for a in res["auc"]),
             "conv_bodies_as_expected": bodies == want_bodies,
             "dice_launched": launches["dice_sums"] >= 1,
-            "f32_within_1e-3": bool(np.isfinite(diff) and diff <= 1e-3),
+            "f32_within_1e-3": bool(np.isfinite(diff)
+                                    and diff <= ZOO_F32_TOL),
+            # a comparison that a nearly constant output would pass anyway
+            "f32_prob_std_over_10x_tol": std >= 10 * ZOO_F32_TOL,
             "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
         }
         out[name] = row

@@ -10,8 +10,12 @@ validation pass through the eval-mode kernels, the plateau scheduler,
 best-checkpoint-on-improvement, early stopping, the epoch line,
 ``--metrics-file``, ``--latest-path`` and PNG artifacts.
 
-Not ported yet, refused with a message that says so: ``--devices`` > 1,
-``--s2d``, ``--logit-head``, ``--profile-dir`` and ``--remat``.
+``--logit-head`` makes a model that ends in a sigmoid (BCDU_net_D3/D1)
+return the head before it, recorded in the checkpoint's ``model_kwargs``;
+other models exit with the list of those that take it.  BCDU models get
+``N`` = the patch size, as in the JAX CLI.  Not ported yet, refused with a
+message that says so: ``--devices`` > 1, ``--s2d``, ``--profile-dir`` and
+``--remat``.
 Checkpoints are written synchronously; ``--sync-checkpoints`` is accepted
 so that JAX command lines parse, and has no effect.
 """
@@ -37,7 +41,13 @@ from jcfszxc_unet_tpu_torch.data.sampler import (
     build_grid_sample_map,
     build_train_sample_map,
 )
-from jcfszxc_unet_tpu_torch.models import MODEL_REGISTRY, create_model
+from jcfszxc_unet_tpu_torch.models import (
+    MODEL_REGISTRY,
+    create_model,
+    logit_head_capable,
+    model_takes,
+    registry_name,
+)
 from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
 from jcfszxc_unet_tpu_torch.train.optim import (
     ReduceLROnPlateau,
@@ -366,8 +376,9 @@ def get_args(argv=None):
     parser.add_argument("--s2d", action="store_true",
                         help="Space-to-depth execution (not ported yet)")
     parser.add_argument("--logit-head", action="store_true",
-                        help="Pre-activation head of the reference-defect "
-                             "models (not ported yet)")
+                        help="Train the models whose forward ends in a "
+                             "sigmoid on their pre-sigmoid head; supported: "
+                             + ", ".join(logit_head_capable()))
     parser.add_argument("--latest-path", type=str, default=None,
                         help="Also save the FULL training state (optimizer "
                              "+ scheduler + progress) here every epoch")
@@ -390,8 +401,7 @@ def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     for flag, on in (("--devices > 1", args.devices > 1),
-                     ("--s2d", args.s2d), ("--logit-head", args.logit_head),
-                     ("--profile-dir", args.profile_dir),
+                     ("--s2d", args.s2d), ("--profile-dir", args.profile_dir),
                      ("--remat", args.remat)):
         if on:
             raise SystemExit(
@@ -404,18 +414,33 @@ def main(argv=None):
 
     if args.resume and not args.load:
         args.load = args.resume  # --resume implies loading params from it
+    model = None
     if args.load:
         model, cfg = ckpt.load_model(args.load, device=device)
         model_name, model_kwargs = cfg["model_name"], cfg["model_kwargs"]
         logging.info(f"Model loaded from {args.load}")
     else:
-        from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
-
-        model_name, model_kwargs = args.model, {}
         try:
-            model = create_model(model_name)
+            model_name, model_kwargs = registry_name(args.model), {}
         except KeyError as e:
             raise SystemExit(str(e)) from None
+        if model_takes(model_name, "N"):
+            model_kwargs["N"] = args.patch_size  # reference train.py:518
+    if args.logit_head and not model_kwargs.get("logit_head"):
+        # a forward flag over the same parameters: it composes with --load
+        # and is recorded for the eval CLI
+        if not model_takes(model_name, "logit_head"):
+            raise SystemExit(
+                f"--logit-head is not supported by {model_name} (its "
+                "forward already returns logits); supported: "
+                + ", ".join(logit_head_capable()))
+        model_kwargs["logit_head"] = True
+        if model is not None:
+            model.logit_head = True
+    if model is None:
+        from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
+
+        model = create_model(model_name, **model_kwargs)
         reset_parameters(model, set_seed(args.seed))
 
     logging.info(f"Network:\n\t{model.n_channels} input channels\n"

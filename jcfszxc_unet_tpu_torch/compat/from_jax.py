@@ -5,8 +5,9 @@ Turns a Flax variables tree of the JAX package (``{"params": ...,
 with the reference's torch key names, which the port's modules load with
 ``strict=True``.  The port keeps its own copy of the mapping rules for the
 ported models (UNet, ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet,
-R2AttentionUNet), independent of the JAX package; the leaf transforms are
-those of the reference interchange:
+R2AttentionUNet, BCDU_net_D3/D1, MultiResUNet, DenseUNet, FRUNet),
+independent of the JAX package; the leaf transforms are those of the
+reference interchange:
 
   * Conv2d:          flax kernel (kh, kw, I, O) -> torch (O, I, kh, kw)
   * ConvTranspose2d: flax kernel (kh, kw, I, O), spatially flipped ->
@@ -33,8 +34,24 @@ def _double(seq):
             "BatchNorm2d_1": (f"{seq}.4", "BatchNorm2d")}
 
 
+def _respath(seg):
+    # children named shortcut_i, conv_i, bn_i -> ModuleLists
+    kind, i = seg.rsplit("_", 1)
+    return {"shortcut": (f"shortcuts.{i}", "Conv2dBatchnorm"),
+            "conv": (f"convs.{i}", "Conv2dBatchnorm"),
+            "bn": (f"bns.{i}", "BatchNorm2d")}[kind]
+
+
+def _single_level_densenet(seg):
+    # children Conv2d_i, BatchNorm2d_i -> ModuleLists
+    kind, i = seg.rsplit("_", 1)
+    return {"Conv2d": (f"conv_list.{i}", "Conv2d"),
+            "BatchNorm2d": (f"bn_list.{i}", "BatchNorm2d")}[kind]
+
+
 # Flax child segment -> (torch relative path, class), per block class
-# (reference unet_parts.py and UNetPP.py:15-28).
+# (reference unet_parts.py and UNetPP.py:15-28); a callable maps the
+# segment for blocks with numbered children.
 CHILD_RULES: Dict[str, Dict[str, tuple]] = {
     "DoubleConv": _double("double_conv"),                     # :17-34
     "Down": {"DoubleConv_0": ("maxpool_conv.1", "DoubleConv")},
@@ -64,6 +81,43 @@ CHILD_RULES: Dict[str, Dict[str, tuple]] = {
                      "BatchNorm2d_2": ("conv_skip.1", "BatchNorm2d")},
     "UpsampleT": {"ConvTranspose2d_0": ("upsample",           # :478-487
                                         "ConvTranspose2d")},
+    "SingleLevelDensenet": _single_level_densenet,            # :346-367
+    "UpsampleNConcat": {"ConvTranspose2d_0": ("upsample_layer",  # :380-393
+                                              "ConvTranspose2d"),
+                        "Conv2d_0": ("conv", "Conv2d"),
+                        "BatchNorm2d_0": ("bn", "BatchNorm2d")},
+    "FRConv": {"Conv2d_0": ("conv.0", "Conv2d"),              # :490-507
+               "BatchNorm2d_0": ("conv.1", "BatchNorm2d"),
+               "Conv2d_1": ("conv.4", "Conv2d"),
+               "BatchNorm2d_1": ("conv.5", "BatchNorm2d")},
+    "FeatureFuse": {"Conv2d_0": ("conv11", "Conv2d"),         # :510-525
+                    "Conv2d_1": ("conv33", "Conv2d"),
+                    "Conv2d_2": ("conv33_di", "Conv2d"),
+                    "BatchNorm2d_0": ("norm", "BatchNorm2d")},
+    "FRUp": {"ConvTranspose2d_0": ("up.0", "ConvTranspose2d"),  # :528-541
+             "BatchNorm2d_0": ("up.1", "BatchNorm2d")},
+    "FRDown": {"Conv2d_0": ("down.0", "Conv2d"),              # :544-555
+               "BatchNorm2d_0": ("down.1", "BatchNorm2d")},
+    "FRBlock": {"FeatureFuse_0": ("fuse", "FeatureFuse"),     # :558-591
+                "FRConv_0": ("conv", "FRConv"),
+                "FRUp_0": ("up", "FRUp"),
+                "FRDown_0": ("down", "FRDown")},
+    "Conv2dBatchnorm": {"Conv2d_0": ("conv1", "Conv2d"),      # :617-656
+                        "BatchNorm2d_0": ("batchnorm", "BatchNorm2d")},
+    # :659-715, in the JAX order: shortcut, 3x3, 5x5, 7x7, bn1, bn2
+    "Multiresblock": {"Conv2dBatchnorm_0": ("shortcut", "Conv2dBatchnorm"),
+                      "Conv2dBatchnorm_1": ("conv_3x3", "Conv2dBatchnorm"),
+                      "Conv2dBatchnorm_2": ("conv_5x5", "Conv2dBatchnorm"),
+                      "Conv2dBatchnorm_3": ("conv_7x7", "Conv2dBatchnorm"),
+                      "BatchNorm2d_0": ("batch_norm1", "BatchNorm2d"),
+                      "BatchNorm2d_1": ("batch_norm2", "BatchNorm2d")},
+    "Respath": _respath,                                      # :718-791
+    "ConvBlockPlain": {"Conv2d_0": ("conv.0", "Conv2d"),      # :794-806
+                       "Conv2d_1": ("conv.2", "Conv2d")},
+    "ConvLSTM2D": {"Conv2d_0": ("cell.conv", "Conv2d")},      # :809-869
+    "UpConvT": {"ConvTranspose2d_0": ("up.0",                 # :872-885
+                                      "ConvTranspose2d"),
+                "BatchNorm2d_0": ("up.1", "BatchNorm2d")},
 }
 
 
@@ -139,6 +193,52 @@ def _root_nested(seg):
     raise KeyError(seg)
 
 
+def _root_bcdu(seg):
+    if seg in ("encoder", "decoder"):
+        return "", None  # transparent: its children sit at the root
+    if seg.startswith("conv_lstm"):
+        return seg, "ConvLSTM2D"
+    if seg in ("conv1", "conv2", "conv3", "conv6", "conv7"):
+        return seg, "ConvBlockPlain"
+    if seg in ("up6", "up7", "up8"):
+        return seg, "UpConvT"
+    if seg.startswith("conv8_"):  # the reference's conv8 Sequential
+        return f"conv8.{2 * (int(seg[-1]) - 1)}", "Conv2d"
+    if seg.startswith("conv"):  # conv4, conv4_1, ..., conv9
+        return seg, "Conv2d"
+    raise KeyError(seg)
+
+
+def _root_multires(seg):
+    if seg.startswith("multiresblock"):
+        return seg, "Multiresblock"
+    if seg.startswith("respath"):
+        return seg, "Respath"
+    if seg.startswith("upsample"):
+        return seg, "ConvTranspose2d"
+    if seg == "conv_final":
+        return seg, "Conv2dBatchnorm"
+    raise KeyError(seg)
+
+
+def _root_denseunet(seg):
+    if seg in ("conv1", "outconv"):
+        return seg, "Conv2d"
+    if seg.startswith("up"):
+        return seg, "UpsampleNConcat"
+    if seg == "bottom" or seg[0] in "du":
+        return seg, "SingleLevelDensenet"
+    raise KeyError(seg)
+
+
+def _root_frunet(seg):
+    if seg.startswith("block"):
+        return seg, "FRBlock"
+    if seg.startswith("final"):
+        return seg, "Conv2d"
+    raise KeyError(seg)
+
+
 ROOT_RULES = {
     "UNet.UNet": _root_unet,
     "AttentionUNet.AttentionUNet": _root_attention_unet,
@@ -147,6 +247,11 @@ ROOT_RULES = {
     "ResUNet.ResUNet": _root_resunet,
     "SegNet.SegNet": _root_segnet,
     "UNetPP.NestedUNet": _root_nested,
+    "BCDUNet.BCDU_net_D3": _root_bcdu,
+    "BCDUNet.BCDU_net_D1": _root_bcdu,
+    "MultiResUNet.MultiResUNet": _root_multires,
+    "DenseUNet.DenseUNet": _root_denseunet,
+    "FRUNet.FRUNet": _root_frunet,
 }
 _ALIASES = {name.split(".")[-1]: name for name in ROOT_RULES}
 
@@ -206,22 +311,22 @@ def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
             emit(prefix + ".num_batches_tracked", np.array(0, np.int64))
 
     def walk(params, stats, cls, prefix):
+        """cls None: the model's root rules (the root itself, or a
+        transparent wrapper such as BCDU-Net's encoder and decoder)."""
         if cls in LEAF_CLASSES:
             leaf(cls, prefix, params, stats)
             return
         for seg, sub in params.items():
-            if cls is None:
-                try:
-                    rel, sub_cls = root(seg)
-                except KeyError:
-                    raise MappingError(
-                        f"no root rule for {seg!r} in {what}") from None
-            else:
-                if seg not in CHILD_RULES[cls]:
-                    raise MappingError(
-                        f"no rule for child {seg!r} of {cls!r} at {prefix!r}")
-                rel, sub_cls = CHILD_RULES[cls][seg]
-            sub_prefix = f"{prefix}.{rel}" if prefix else rel
+            rules = root if cls is None else CHILD_RULES[cls]
+            try:
+                rel, sub_cls = (rules(seg) if callable(rules)
+                                else rules[seg])
+            except KeyError:
+                raise MappingError(
+                    f"no root rule for {seg!r} in {what}" if cls is None else
+                    f"no rule for child {seg!r} of {cls!r} at {prefix!r}"
+                ) from None
+            sub_prefix = ".".join(p for p in (prefix, rel) if p)
             walk(sub, (stats or {}).get(seg, {}), sub_cls, sub_prefix)
 
     walk(variables.get("params", {}), variables.get("batch_stats", {}),

@@ -3,13 +3,18 @@
 ``DoubleConv``/``Down``/``Up``/``OutConv`` (:17-79), ``ConvBlockBN``
 (conv_block, :82-96), ``UpConvBlock`` (up_conv, :99-111),
 ``RecurrentBlock`` (:114-132), ``RRCNNBlock`` (:135-146),
-``AttentionBlock`` (:149-176), ``ResidualConv`` (:454-475) and
-``UpsampleT`` (Upsample, :478-487).
+``AttentionBlock`` (:149-176), ``ResidualConv`` (:454-475),
+``UpsampleT`` (Upsample, :478-487), DenseUNet's ``SingleLevelDensenet``
+(:346-363), ``down_sample`` (:366) and ``UpsampleNConcat`` (:372-386),
+FRUNet's ``FRConv``, ``FeatureFuse``, ``FRUp``, ``FRDown`` and ``FRBlock``
+(:495-632), MultiResUNet's ``Conv2dBatchnorm``, ``Multiresblock`` and
+``Respath`` (:635-789) and BCDU-Net's ``ConvBlockPlain`` (:792),
+``ConvLSTM2D`` (:847-900) and ``UpConvT`` (:903).
 
 Attribute names follow the reference (``double_conv.0``, ``conv.3``,
-``up.1``, ``RCNN.0``, ``W_g.0``, ``conv_block.5``, ...), so reference-keyed
-state dicts load with ``strict=True``.  Tensors are NCHW in
-``torch.channels_last``.
+``up.1``, ``RCNN.0``, ``W_g.0``, ``conv_block.5``, ``cell.conv``,
+``shortcuts.0.conv1``, ...), so reference-keyed state dicts load with
+``strict=True``.  Tensors are NCHW in ``torch.channels_last``.
 
 In eval mode every 3x3 conv with stride 1 and SAME padding runs as one
 call of :func:`conv3x3_affine_relu_kmajor`, with the conv's bias and the
@@ -25,6 +30,7 @@ torch ops.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
@@ -58,10 +64,12 @@ def fold(conv: Conv2d, bn: BatchNorm2d | None = None):
     return scale, shift
 
 
-def kmajor(conv: Conv2d, dtype):
-    """(Cout, 3, 3, Cin) weights in ``dtype``, the kernel's layout: one
-    copy at most (none for a channels_last f32 weight)."""
-    return conv.weight.to(dtype).permute(0, 2, 3, 1).contiguous()
+def kmajor(conv: Conv2d | torch.Tensor, dtype):
+    """(Cout, 3, 3, Cin) weights in ``dtype``, the kernel's layout, of a
+    conv or of OIHW weights: one copy at most (none for a channels_last
+    f32 weight)."""
+    w = conv.weight if isinstance(conv, nn.Module) else conv
+    return w.to(dtype).permute(0, 2, 3, 1).contiguous()
 
 
 def conv3x3_folded(x, w_km, scale, shift, relu: bool):
@@ -308,3 +316,349 @@ class UpsampleT(nn.Module):
 
     def forward(self, x):
         return self.upsample(x)
+
+
+# DenseUNet's blocks (reference unet_parts.py:346-393).
+
+
+class SingleLevelDensenet(nn.Module):
+    """``num_conv`` steps of Conv3x3 bias -> + every earlier output but its
+    own input -> BN -> ReLU, the reference's ``Single_level_densenet``
+    (unet_parts.py:346-367): dense *additive* skips.
+
+    Eval mode: the first conv has nothing to add and runs with its BN and
+    ReLU fused.  The others add earlier outputs before their BN, so they
+    launch with the bias as the shift and ReLU off, and the adds, the BN
+    and the ReLU stay stock ops, in the JAX order."""
+
+    def __init__(self, filters: int, num_conv: int = 4):
+        super().__init__()
+        self.conv_list = nn.ModuleList(
+            Conv2d(filters, filters, 3, padding=1) for _ in range(num_conv))
+        self.bn_list = nn.ModuleList(
+            BatchNorm2d(filters) for _ in range(num_conv))
+
+    def forward(self, x):
+        outs = [x]
+        for i, (conv, bn) in enumerate(zip(self.conv_list, self.bn_list)):
+            if self.training:
+                t = conv(outs[i])
+            elif i == 0:
+                outs.append(conv_bn_relu_fused(x, conv, bn))
+                continue
+            else:
+                t = conv_bn_relu_fused(outs[i], conv, relu=False)
+            for j in range(i):
+                t = t + outs[j]
+            outs.append(torch.relu(bn(t)))
+        return outs[-1]
+
+
+def down_sample(x):
+    """2x2 max pool returning (pooled, the map before the pool), the
+    reference's ``Down_sample`` (unet_parts.py:370-377; no parameters)."""
+    return F.max_pool2d(x, 2), x
+
+
+class UpsampleNConcat(nn.Module):
+    """ConvTranspose(k4, s2, p1) -> cat[x, skip] -> Conv3x3 bias -> BN ->
+    ReLU, the reference's ``Upsample_n_Concat`` (unet_parts.py:380-393)."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        self.upsample_layer = ConvTranspose2d(filters, filters, 4, stride=2,
+                                              padding=1)
+        self.conv = Conv2d(2 * filters, filters, 3, padding=1)
+        self.bn = BatchNorm2d(filters)
+
+    def forward(self, x, y):
+        x = cat_channels(self.upsample_layer(x), y)
+        if self.training:
+            return torch.relu(self.bn(self.conv(x)))
+        return conv_bn_relu_fused(x, self.conv, self.bn)
+
+
+# FRUNet's blocks (reference unet_parts.py:490-591).
+
+
+class FRConv(nn.Module):
+    """(Conv3x3 no-bias -> BN -> Dropout2d -> LeakyReLU(0.1)) x2, FRUNet's
+    ``conv`` (unet_parts.py:490-507).  The reference builds both convs
+    out_c -> out_c whatever ``in_c`` is; its callers pass in_c == out_c.
+
+    Eval mode: each conv runs with its BN folded and ReLU off (LeakyReLU is
+    not the kernel's and stays a stock op); Dropout2d is the identity."""
+
+    def __init__(self, in_c: int, out_c: int, dp: float = 0.0):
+        super().__init__()
+        layers = []
+        for _ in range(2):
+            layers += [Conv2d(out_c, out_c, 3, padding=1, bias=False),
+                       BatchNorm2d(out_c), nn.Dropout2d(dp),
+                       nn.LeakyReLU(0.1)]
+        self.conv = nn.Sequential(*layers)
+
+    def forward(self, x):
+        if self.training:
+            return self.conv(x)
+        seq = self.conv
+        for k in (0, 4):
+            x = F.leaky_relu(conv_bn_relu_fused(x, seq[k], seq[k + 1],
+                                                relu=False), 0.1)
+        return x
+
+
+class FeatureFuse(nn.Module):
+    """Conv1x1 + Conv3x3 + dilated Conv3x3 (d = 2), all without bias,
+    summed -> BN, the reference's ``feature_fuse`` (unet_parts.py:510-525).
+    Eval mode: the plain 3x3 runs on the kernel with scale 1, shift 0 and
+    ReLU off; the 1x1 and the dilated 3x3 are stock ops."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.conv11 = Conv2d(in_c, out_c, 1, bias=False)
+        self.conv33 = Conv2d(in_c, out_c, 3, padding=1, bias=False)
+        self.conv33_di = Conv2d(in_c, out_c, 3, padding=2, dilation=2,
+                                bias=False)
+        self.norm = BatchNorm2d(out_c)
+
+    def forward(self, x):
+        x2 = (self.conv33(x) if self.training
+              else conv_bn_relu_fused(x, self.conv33, relu=False))
+        return self.norm(self.conv11(x) + x2 + self.conv33_di(x))
+
+
+class FRUp(nn.Module):
+    """ConvTranspose(k2, s2, no bias) -> BN -> LeakyReLU(0.1), FRUNet's
+    ``up`` (unet_parts.py:528-541)."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.up = nn.Sequential(
+            ConvTranspose2d(in_c, out_c, 2, stride=2, bias=False),
+            BatchNorm2d(out_c), nn.LeakyReLU(0.1))
+
+    def forward(self, x):
+        return self.up(x)
+
+
+class FRDown(nn.Module):
+    """Conv(k2, s2, no bias) -> BN -> LeakyReLU(0.1), FRUNet's ``down``
+    (unet_parts.py:544-555)."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.down = nn.Sequential(
+            Conv2d(in_c, out_c, 2, stride=2, bias=False),
+            BatchNorm2d(out_c), nn.LeakyReLU(0.1))
+
+    def forward(self, x):
+        return self.down(x)
+
+
+class FRBlock(nn.Module):
+    """FRUNet's grid node, the reference's ``block`` (unet_parts.py:558-591):
+    FeatureFuse (only where in_c != out_c) -> FRConv, then the optional up
+    and down branches.  Returns x, (x, x_up), (x, x_down) or
+    (x, x_up, x_down).
+
+    The reference also builds a ``fuse`` where in_c == out_c that its
+    forward never applies; this block, like the JAX one, has none, so its
+    state dict lacks those dead keys."""
+
+    def __init__(self, in_c: int, out_c: int, dp: float = 0.0,
+                 is_up: bool = False, is_down: bool = False):
+        super().__init__()
+        self.fuse = FeatureFuse(in_c, out_c) if in_c != out_c else None
+        self.conv = FRConv(out_c, out_c, dp)
+        self.up = FRUp(out_c, out_c // 2) if is_up else None
+        self.down = FRDown(out_c, out_c * 2) if is_down else None
+
+    def forward(self, x):
+        if self.fuse is not None:
+            x = self.fuse(x)
+        x = self.conv(x)
+        branches = [b(x) for b in (self.up, self.down) if b is not None]
+        return (x, *branches) if branches else x
+
+
+# MultiResUNet's blocks (reference unet_parts.py:617-791).
+
+
+class Conv2dBatchnorm(nn.Module):
+    """Conv ("same" padding, bias) -> BN -> optional ReLU, the reference's
+    ``Conv2d_batchnorm`` (unet_parts.py:617-656).  The conv is built with
+    integer padding (k // 2), which holds the same state dict as
+    ``padding="same"`` and which the fused path recognises.  Eval mode: a
+    3x3 runs as one kernel call with its BN folded and its ReLU fused."""
+
+    def __init__(self, num_in_filters: int, num_out_filters: int,
+                 kernel_size: int, activation: str = "relu"):
+        super().__init__()
+        self.relu = activation == "relu"
+        self.conv1 = Conv2d(num_in_filters, num_out_filters, kernel_size,
+                            padding=kernel_size // 2)
+        self.batchnorm = BatchNorm2d(num_out_filters)
+
+    def forward(self, x):
+        if not self.training and _same3x3(self.conv1):
+            return conv_bn_relu_fused(x, self.conv1, self.batchnorm,
+                                      self.relu)
+        x = self.batchnorm(self.conv1(x))
+        return torch.relu(x) if self.relu else x
+
+
+class Multiresblock(nn.Module):
+    """Three chained 3x3 Conv2dBatchnorms (3x3, 5x5 and 7x7 receptive
+    fields), their concat -> BN, + a 1x1 shortcut -> BN -> ReLU, the
+    reference's ``Multiresblock`` (unet_parts.py:659-715).  Widths use the
+    reference's int() truncation of ``num_filters * alpha * {0.167, 0.333,
+    0.5}``."""
+
+    def __init__(self, num_in_channels: int, num_filters: int,
+                 alpha: float = 1.67):
+        super().__init__()
+        w = num_filters * alpha
+        f3, f5, f7 = int(w * 0.167), int(w * 0.333), int(w * 0.5)
+        out_f = f3 + f5 + f7
+        self.shortcut = Conv2dBatchnorm(num_in_channels, out_f, 1,
+                                        activation="None")
+        self.conv_3x3 = Conv2dBatchnorm(num_in_channels, f3, 3)
+        self.conv_5x5 = Conv2dBatchnorm(f3, f5, 3)
+        self.conv_7x7 = Conv2dBatchnorm(f5, f7, 3)
+        self.batch_norm1 = BatchNorm2d(out_f)
+        self.batch_norm2 = BatchNorm2d(out_f)
+
+    def forward(self, x):
+        shortcut = self.shortcut(x)
+        a = self.conv_3x3(x)
+        b = self.conv_5x5(a)
+        c = self.conv_7x7(b)
+        y = self.batch_norm1(cat_channels(a, b, c)) + shortcut
+        return torch.relu(self.batch_norm2(y))
+
+
+class Respath(nn.Module):
+    """A chain of ``respath_length`` residual units along a skip, the
+    reference's ``Respath`` (unet_parts.py:718-791): per unit a 1x1
+    shortcut, a 3x3 Conv2dBatchnorm, then the unit's one BN applied twice,
+    relu(bn(x)) and relu(bn(x + shortcut)), as the reference does.  In
+    train mode that BN updates its running statistics twice per unit."""
+
+    def __init__(self, num_in_filters: int, num_out_filters: int,
+                 respath_length: int):
+        super().__init__()
+        ins = [num_in_filters] + [num_out_filters] * (respath_length - 1)
+        self.shortcuts = nn.ModuleList(
+            Conv2dBatchnorm(c, num_out_filters, 1, activation="None")
+            for c in ins)
+        self.convs = nn.ModuleList(
+            Conv2dBatchnorm(c, num_out_filters, 3) for c in ins)
+        self.bns = nn.ModuleList(BatchNorm2d(num_out_filters) for _ in ins)
+
+    def forward(self, x):
+        for shortcut, conv, bn in zip(self.shortcuts, self.convs, self.bns):
+            s = shortcut(x)
+            x = torch.relu(bn(conv(x)))
+            x = torch.relu(bn(x + s))
+        return x
+
+
+# BCDU-Net's blocks (reference unet_parts.py:794-885).
+
+
+class ConvBlockPlain(nn.Module):
+    """(Conv3x3 bias -> ReLU) x2 without BN, BCDU-Net's ``ConvBlock``
+    (unet_parts.py:794-806).  Eval mode: two kernel calls, each bias as the
+    shift, ReLU fused."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Sequential(
+            Conv2d(in_channels, out_channels, 3, padding=1),
+            nn.ReLU(inplace=True),
+            Conv2d(out_channels, out_channels, 3, padding=1),
+            nn.ReLU(inplace=True),
+        )
+
+    def forward(self, x):
+        if self.training:
+            return self.conv(x)
+        return conv_bn_relu_fused(conv_bn_relu_fused(x, self.conv[0]),
+                                  self.conv[2])
+
+
+class _ConvLSTMCell(nn.Module):
+    """Holds the cell's one conv, (4 * hidden, input + hidden, 3, 3), as
+    the reference's ``ConvLSTM2DCell`` does (key ``cell.conv``)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int):
+        super().__init__()
+        self.conv = Conv2d(input_dim + hidden_dim, 4 * hidden_dim, 3,
+                           padding=1)
+
+
+class ConvLSTM2D(nn.Module):
+    """ConvLSTM over a sequence of NCHW maps, returning the last hidden
+    state, the reference's ``ConvLSTM2D`` (unet_parts.py:809-869): one conv
+    of [x, h] to the gates i, f, o, g; zero initial state;
+    ``go_backwards`` runs the sequence from its last step to its first.
+
+    As in the JAX block, conv([x, h], W) is split along the input axis
+    into conv(x, W[:, :input_dim]) + bias + conv(h, W[:, input_dim:]): the
+    x-half of every step runs as one call on the steps stacked on the
+    batch, and the first step's h-half, whose h is exactly zero, is
+    skipped.  Eval mode: both halves run on the kernel, each folded and
+    re-laid once per call, the x-half with the bias as the shift, the
+    h-half with shift 0, ReLU off; the gate nonlinearities are stock."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 go_backwards: bool = False):
+        super().__init__()
+        self.input_dim = input_dim
+        self.go_backwards = go_backwards
+        self.cell = _ConvLSTMCell(input_dim, hidden_dim)
+
+    def forward(self, *steps):
+        if self.go_backwards:
+            steps = steps[::-1]
+        conv, n = self.cell.conv, self.input_dim
+        w_x, w_h = conv.weight[:, :n], conv.weight[:, n:]
+        xs = channels_last(torch.cat(steps, dim=0))
+        if self.training:
+            dt = xs.dtype
+            gates_x = F.conv2d(xs, w_x.to(dt), conv.bias.to(dt), padding=1)
+
+            def gates_h(h):
+                return F.conv2d(h, w_h.to(dt), padding=1)
+        else:
+            scale, shift = fold(conv)
+            wx_km, wh_km = kmajor(w_x, xs.dtype), kmajor(w_h, xs.dtype)
+            gates_x = conv3x3_folded(xs, wx_km, scale, shift, relu=False)
+            zero = torch.zeros_like(shift)
+
+            def gates_h(h):
+                return conv3x3_folded(h, wh_km, scale, zero, relu=False)
+        for k, gates in enumerate(gates_x.chunk(len(steps))):
+            if k:
+                gates = gates + gates_h(hidden)
+            i, f, o, g = gates.chunk(4, dim=1)
+            i, f, o, g = (torch.sigmoid(i), torch.sigmoid(f),
+                          torch.sigmoid(o), torch.tanh(g))
+            cell = f * cell + i * g if k else i * g
+            hidden = o * torch.tanh(cell)
+        return channels_last(hidden)
+
+
+class UpConvT(nn.Module):
+    """ConvTranspose(k2, s2) -> BN -> ReLU, BCDU-Net's ``UpConv``
+    (unet_parts.py:872-885)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.up = nn.Sequential(
+            ConvTranspose2d(in_channels, out_channels, 2, stride=2),
+            BatchNorm2d(out_channels), nn.ReLU(inplace=True))
+
+    def forward(self, x):
+        return self.up(x)

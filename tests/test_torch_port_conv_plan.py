@@ -118,8 +118,10 @@ def _inputs(b, h, w, cin, cout, seed):
 # (B, H, W, Cin, Cout, relu): boxes spanning images, a ragged W and H,
 # Cin not a multiple of 64, Cout not a multiple of BN, one single tile,
 # and row strips (Cout 64, W >= 128) with a ragged edge; the zoo's Cout 32
-# and Cout 1 under one 64-wide tile, Cin 96 and 160, and SegNet's 19 x 18
-# whole-image bottom.
+# and Cout 1 under one 64-wide tile, Cin 96 and 160, SegNet's 19 x 18
+# whole-image bottom, MultiResUNet's Cin 8 (a 16-byte TMA box) to the odd
+# Cout 17, BCDU-Net's Cout-2 head with ReLU and a ConvLSTM gate conv on the
+# two steps stacked on the batch.
 CASES = [
     (4, 8, 8, 64, 64, True),
     (2, 37, 29, 16, 64, True),
@@ -130,6 +132,9 @@ CASES = [
     (2, 8, 8, 96, 32, True),
     (2, 8, 8, 64, 1, False),
     (1, 19, 18, 160, 64, True),
+    (2, 13, 11, 8, 17, True),
+    (2, 8, 8, 64, 2, True),
+    (4, 8, 8, 256, 512, False),
 ]
 
 
@@ -191,6 +196,8 @@ def test_body_choice():
     bf16, f32 = torch.bfloat16, torch.float32
     assert body(64, bf16) == "wgmma"
     assert body(3, bf16) == "mma_sync"             # UNet's first conv
+    assert body(8, bf16) == "wgmma"                # MultiResUNet's Cin 8
+    assert body(17, bf16) == "mma_sync"            # and its odd widths
     assert body(64, bf16, aligned=False) == "mma_sync"
     assert body(64, f32) == "fma_vec"
     assert body(3, f32) == "fma"

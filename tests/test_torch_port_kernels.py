@@ -200,8 +200,10 @@ PLAN_EDGE_CASES = [
 # (NestedUNet's row 0) and 1 (SegNet's head) under one 64-wide tile, Cin
 # 96/160/192/320/384/768 (NestedUNet's dense nodes, ResUNet's and
 # AttentionUNet's concats), ReLU off (bias as the shift), Cin 3 with ReLU
-# off (ResUNet's input_skip), and whole-image maps: UNet's first and last
-# level at 608 x 576 and SegNet's 19 x 18.
+# off (ResUNet's input_skip), whole-image maps: UNet's first and last
+# level at 608 x 576 and SegNet's 19 x 18; MultiResUNet's truncated widths
+# (odd Cin and Cout on mma_sync, Cin 8 and odd Cout on wgmma), BCDU-Net's
+# Cout-2 head with ReLU and a ConvLSTM gate conv at twice the batch.
 ZOO_CASES = [
     (2, 32, 32, 64, 32, True),
     (2, 32, 32, 96, 32, True),
@@ -216,6 +218,15 @@ ZOO_CASES = [
     (1, 608, 576, 64, 64, True),
     (1, 38, 36, 1024, 512, True),
     (1, 19, 18, 512, 512, True),
+    (2, 32, 32, 3, 8, True),
+    (2, 32, 32, 8, 17, True),
+    (2, 32, 32, 17, 26, True),
+    (2, 16, 16, 35, 53, True),
+    (2, 8, 8, 142, 213, True),
+    (2, 4, 4, 284, 427, True),
+    (2, 16, 16, 128, 17, True),
+    (2, 32, 32, 64, 2, True),
+    (4, 16, 16, 256, 512, False),
 ]
 
 

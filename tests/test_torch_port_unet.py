@@ -106,7 +106,8 @@ def test_pad_or_crop_to_matches_jax():
 
 def test_registry_names():
     assert resolve_model("UNet.UNet") is resolve_model("UNet")
-    for name in ("MCUNet.MCUNet", "BCDUNet.BCDU_net_D3", "NoSuchNet"):
+    for name in ("MCUNet.MCUNet", "BARUNet.BARUNet", "BIARUNet.BIARUNet",
+                 "RetinaLiteNet.TransFuseNet", "NoSuchNet"):
         with pytest.raises(KeyError, match="not ported"):
             create_model(name)
 

@@ -1,7 +1,8 @@
 """The zoo's blocks and layers in the port against the JAX package's (CPU,
 f32): RecurrentBlock's t+1 shared-conv applications, ResidualConv at
-stride 1 and 2, the attention gate, the conv blocks, SegNet's argmax
-pooling with ties, and the nearest and bilinear (align-corners)
+stride 1 and 2, the attention gate, the conv blocks, ConvLSTM2D forwards
+and backwards, MultiResUNet's, DenseUNet's and FRUNet's blocks, SegNet's
+argmax pooling with ties, and the nearest and bilinear (align-corners)
 upsamplings.  Weights cross over through
 ``compat.from_jax.block_state_dict_from_jax``."""
 
@@ -43,21 +44,30 @@ def _pair(cls, jax_args, port_args, inputs, seed):
     return jmod, variables, port.to(memory_format=torch.channels_last).eval()
 
 
+def _assert_outputs_close(got, want, tol):
+    """One output or a tuple of them (FRBlock's branches)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_close_to(to_nhwc(g), w, tol)
+
+
 def _check_both_modes(cls, jmod, variables, port, inputs, monkeypatch):
     """Eval output, then one train-mode forward's output and running
     statistics, against the JAX block (two-pass batch variance)."""
     xs = [jnp.asarray(a) for a in inputs]
     with torch.no_grad():
         got = port(*map(to_port, inputs))
-    assert_close_to(to_nhwc(got), jmod.apply(variables, *xs, train=False),
-                    EVAL_TOL)
+    _assert_outputs_close(got, jmod.apply(variables, *xs, train=False),
+                          EVAL_TOL)
     monkeypatch.setattr(jax_layers, "TRAIN_BN_ONE_PASS_STATS", False)
     want, upd = jmod.apply(variables, *xs, train=True,
                            mutable=["batch_stats"])
     port.train()
     with torch.no_grad():
         got = port(*map(to_port, inputs))
-    assert_close_to(to_nhwc(got), want, TRAIN_TOL)
+    _assert_outputs_close(got, want, TRAIN_TOL)
     new = block_state_dict_from_jax(cls, {
         "params": variables["params"],
         "batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])})
@@ -115,6 +125,12 @@ def test_residual_conv_matches_jax(stride, monkeypatch):
     ("ConvBlockBN", (8, 16), [(2, 8, 6, 8)]),
     ("UpConvBlock", (16, 8), [(2, 4, 5, 16)]),
     ("RRCNNBlock", (3, 8, 2), [(2, 6, 6, 3)]),
+    # int(16 * 1.67 * k) widths 4, 8, 13; two units of one BN applied twice
+    ("Multiresblock", (8, 16), [(2, 8, 8, 8)]),
+    ("Respath", (12, 16, 2), [(2, 8, 8, 12)]),
+    ("SingleLevelDensenet", (16, 4), [(2, 8, 8, 16)]),
+    ("UpsampleNConcat", (16,), [(2, 4, 5, 16), (2, 8, 10, 16)]),
+    ("UpConvT", (16, 8), [(2, 4, 5, 16)]),
 ])
 def test_zoo_blocks_match_jax(cls, args, shapes, monkeypatch):
     inputs = [_x(*s, seed=i) for i, s in enumerate(shapes)]
@@ -122,9 +138,51 @@ def test_zoo_blocks_match_jax(cls, args, shapes, monkeypatch):
     _check_both_modes(cls, jmod, variables, port, inputs, monkeypatch)
 
 
+@pytest.mark.parametrize("in_c,is_up,is_down", [
+    (8, False, False), (8, True, True), (8, True, False),
+    (16, False, True),  # in_c == out_c: no fuse
+])
+def test_fr_block_matches_jax(in_c, is_up, is_down, monkeypatch):
+    x = _x(2, 8, 6, in_c, seed=in_c)
+    args = (in_c, 16, 0.0, is_up, is_down)
+    jmod, variables, port = _pair("FRBlock", args, args, [x], 13)
+    assert (port.fuse is None) == (in_c == 16)
+    _check_both_modes("FRBlock", jmod, variables, port, [x], monkeypatch)
+
+
+@pytest.mark.parametrize("go_backwards", [False, True])
+def test_conv_lstm_matches_jax_in_both_directions(go_backwards, monkeypatch):
+    x = _x(2, 3, 6, 5, 8, seed=11)  # (B, T, H, W, C)
+    jmod = jax_blocks.ConvLSTM2D(8, 4, go_backwards=go_backwards)
+    variables = jax.tree.map(np.asarray,
+                             jmod.init(jax.random.PRNGKey(12), jnp.asarray(x)))
+    want = jmod.apply(variables, jnp.asarray(x))
+    port = blocks.ConvLSTM2D(8, 4, go_backwards=go_backwards)
+    port.load_state_dict(block_state_dict_from_jax("ConvLSTM2D", variables),
+                         strict=True)
+    steps = [to_port(x[:, t]) for t in range(x.shape[1])]
+    batches = []
+    real = blocks.conv3x3_affine_relu_kmajor
+
+    def conv(xh, *a, **k):
+        batches.append(xh.shape[0])
+        return real(xh, *a, **k)
+
+    monkeypatch.setattr(blocks, "conv3x3_affine_relu_kmajor", conv)
+    with torch.no_grad():
+        got = port.eval()(*steps)
+        # the x-half of all 3 steps in one call, then the h-half of steps
+        # 2 and 3 (the first one's h is zero)
+        assert batches == [6, 2, 2]
+        assert_close_to(to_nhwc(got), want, EVAL_TOL)
+        got = port.train()(*steps)
+    assert batches == [6, 2, 2]  # train mode: stock convs only
+    assert_close_to(to_nhwc(got), want, EVAL_TOL)
+
+
 def test_block_bridge_refuses_unknown_blocks():
     with pytest.raises(MappingError, match="no mapping rules"):
-        block_state_dict_from_jax("Multiresblock", {"params": {}})
+        block_state_dict_from_jax("NoSuchBlock", {"params": {}})
 
 
 def _tied():

@@ -1,0 +1,53 @@
+"""The port's FRUNet against the JAX model on the same weights (CPU, f32,
+full width on 2 x 32 x 32 inputs): the weight bridge (no dead ``fuse``
+keys: it loads strict), the eval and train-mode forwards (Dropout2d
+silenced on both sides, LeakyReLU, the five averaged heads), the
+fused-conv sites and the refusal of the unported s2d mode."""
+
+import numpy as np
+import pytest
+
+from .torch_port_common import (
+    check_bridge,
+    check_eval,
+    check_train,
+    jax_model,
+    kernel_calls,
+    port_model,
+)
+
+NAME = "FRUNet.FRUNet"
+
+
+@pytest.fixture(scope="module")
+def zoo():
+    jmodel, variables = jax_model(NAME, seed=100)
+    x = np.random.RandomState(101).rand(2, 32, 32, 3).astype(np.float32)
+    return jmodel, variables, port_model(NAME, variables), x
+
+
+def test_frunet_bridge_equals_torch_mapping(zoo):
+    check_bridge(NAME, zoo[1])
+
+
+def test_frunet_eval_forward_matches_jax(zoo):
+    check_eval(*zoo)
+
+
+def test_frunet_train_forward_and_running_stats_match_jax(zoo, monkeypatch):
+    jmodel, variables, _, x = zoo
+    check_train(NAME, jmodel, variables, x, monkeypatch)
+
+
+def test_frunet_fused_conv_sites(zoo, monkeypatch):
+    # 16 nodes x 2 FRConv convs + 12 FeatureFuse 3x3s; block1_3's fuse
+    # reads Cin = 3
+    assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
+                                                         "wgmma": 43}
+
+
+def test_frunet_s2d_is_not_ported():
+    from jcfszxc_unet_tpu_torch.models import create_model
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        create_model(NAME, s2d=True)

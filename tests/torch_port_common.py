@@ -129,23 +129,38 @@ def check_eval(jmodel, variables, port, x):
     return want
 
 
+def silence_dropout(port):
+    """Put the port's dropout modules in eval mode (the identity) while the
+    rest keeps its mode: dropout masks cannot match across frameworks, so
+    train parity runs JAX under ``ops.layers.dropout_disabled()`` and the
+    port so."""
+    import torch
+
+    for m in port.modules():
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.eval()
+    return port
+
+
 def check_train(name, jmodel, variables, x, monkeypatch):
     """One train-mode forward: the output and every updated running
     statistic against JAX's ``mutable=["batch_stats"]`` apply, with the
     JAX BatchNorm's two-pass variance (its one-pass form trades f32
-    precision for a TPU memory pass)."""
+    precision for a TPU memory pass) and dropout silenced on both
+    sides."""
     import torch
 
     from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
     from jcfszxc_unet_tpu.ops import layers as jax_layers
 
     monkeypatch.setattr(jax_layers, "TRAIN_BN_ONE_PASS_STATS", False)
-    want, upd = jmodel.apply(variables, jnp.asarray(x), train=True,
-                             mutable=["batch_stats"])
+    with jax_layers.dropout_disabled():
+        want, upd = jmodel.apply(variables, jnp.asarray(x), train=True,
+                                 mutable=["batch_stats"])
     new_stats = variables_to_state_dict(name, {
         "params": variables["params"],
         "batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])})
-    port = port_model(name, variables).train()
+    port = silence_dropout(port_model(name, variables).train())
     with torch.no_grad():
         got = port(to_port(x))
     assert_close_to(to_nhwc(got), want, TRAIN_TOL)
