@@ -31,17 +31,21 @@ Phases, each of which must pass:
    128 x 128, 128 -> 64, bf16) with the launch count read around it, then
    the imcol kernel against its plain version there, in f32 at B 8 and on
    a ragged shape, timed beside the plain version, cuDNN and its bound;
-8. zoo eval: ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet,
-   R2AttentionUNet, BCDU_net_D3, BCDU_net_D1, MultiResUNet, DenseUNet and
-   FRUNet at full width (seeded weights, BatchNorm calibrated and
-   perturbed as for UNet) evaluate the same 4 images through the tiled
-   protocol in bf16, with the conv kernel's launches checked per body
-   against each model's count, images/s, the device's idle share, the conv
-   kernel's time per forward beside cuDNN's for the same conv list (each
-   of its shapes, at the eval batch, also checked against the plain
-   version; BCDU's ConvLSTM x-halves at twice the batch), and an f32 check
-   (TF32 off) of each model's forward through the kernels on 2 patches of
-   128^2 against the same model's forward on a CPU copy;
+8. zoo eval: the other 15 models of the zoo (ResUNet, SegNet,
+   NestedUNet, AttentionUNet, R2UNet, R2AttentionUNet, BCDU_net_D3,
+   BCDU_net_D1, MultiResUNet, DenseUNet, FRUNet, BARUNet, BIARUNet, MCUNet
+   and TransFuseNet) at full width (seeded weights, BatchNorm calibrated
+   and perturbed as for UNet, BatchNorm-free biased convs calibrated,
+   logit heads where a model has one) evaluate the same 4 images through
+   the tiled protocol in bf16, with the conv kernel's launches checked per
+   body against each model's count, images/s, the device's idle share and
+   peak allocated memory (TransFuseNet's attention over 4096 tokens, and
+   the attention kernel that ran), the conv kernel's time per forward
+   beside cuDNN's for the same conv list (each of its shapes, at the eval
+   batch, also checked against the plain version; BCDU's ConvLSTM x-halves
+   at twice the batch), and an f32 check (TF32 off) of each model's
+   forward through the kernels on 2 patches of 128^2 against the same
+   model's forward on a CPU copy;
 9. eval protocols: the main path's UNet on the same images through the
    sliding window (patch 256, overlap 0.5), dihedral-8 TTA (tiled 512) and
    whole-image evaluation (padded to a multiple of 32), each with its
@@ -95,7 +99,7 @@ PLAN_EDGE_CASES = [
     (2, 8, 8, 64, 160, False), (2, 8, 8, 256, 320, True),
 ]
 
-# The eleven zoo models of the zoo_eval phase: registry name -> launches
+# The fifteen zoo models of the zoo_eval phase: registry name -> launches
 # of the conv kernel per eval forward, by body (bf16 convs with Cin % 8 !=
 # 0 on mma_sync: Cin = 3, and MultiResUNet's truncated widths).
 ZOO = {
@@ -110,16 +114,28 @@ ZOO = {
     "MultiResUNet.MultiResUNet": {"mma_sync": 25, "wgmma": 12},
     "DenseUNet.DenseUNet": {"wgmma": 40},
     "FRUNet.FRUNet": {"mma_sync": 1, "wgmma": 43},
+    "BARUNet.BARUNet": {"mma_sync": 1, "wgmma": 21},
+    "BIARUNet.BIARUNet": {"mma_sync": 1, "wgmma": 21},
+    "MCUNet.MCUNet": {"mma_sync": 1, "wgmma": 18},
+    "RetinaLiteNet.TransFuseNet": {"mma_sync": 1, "wgmma": 5},
 }
 ZOO_F32_PATCHES, ZOO_F32_HW, ZOO_F32_TOL = 2, 128, 1e-3
-# BCDU-Net's convs have no BatchNorm after them.  Drawn as torch draws by
-# default, each conv keeps a third of its input's variance and each ReLU
-# half of that, so after its ~16 such layers the output is little more
-# than its last bias.  ``build_model`` calibrates these convs as it does
-# the BatchNorms, and they run with their pre-sigmoid head (the train
-# CLI's --logit-head), so that their probabilities vary and the f32 check
-# sees the path.
-ZOO_BN_FREE = ("BCDUNet.BCDU_net_D3", "BCDUNet.BCDU_net_D1")
+# Models with biased convs (and transposed convs) that no BatchNorm
+# follows: BCDU-Net's and TransFuseNet's, and FRUNet's five 1x1 heads.
+# Drawn as torch draws by default, each such conv keeps a third of its
+# input's variance and each ReLU half of that, so after BCDU's ~16 of them
+# the output is little more than its last bias, and FRUNet's averaged
+# heads vary little.  ``build_model`` calibrates these convs as it does
+# the BatchNorms, and every model that has one runs with its pre-sigmoid
+# (BCDU, TransFuseNet) or pre-softmax (BARUNet, BIARUNet, whose softmax
+# over one channel is a constant) head, the train CLI's --logit-head, so
+# that their probabilities vary and the f32 check sees the path.
+ZOO_BN_FREE = ("BCDUNet.BCDU_net_D3", "BCDUNet.BCDU_net_D1", "FRUNet.FRUNet",
+               "RetinaLiteNet.TransFuseNet")
+# Peak allocated memory of one tiled bf16 evaluation (16 patches of 512^2
+# in one chunk) that a model must stay under: TransFuseNet's attention
+# over 64 x 64 = 4096 tokens would hold 2.1 GB of scores if it formed them.
+ZOO_PEAK_BYTES = {"RetinaLiteNet.TransFuseNet": 2e9}
 
 # Protocols of the eval_protocols phase.
 SLIDING_PATCH, SLIDING_OVERLAP, SPATIAL_DIVISOR = 256, 0.5, 32
@@ -131,7 +147,9 @@ TTA_F32_CROP = 256
 # MultiResUNet's truncated widths on mma_sync (odd Cin, odd Cout), its Cin
 # 8 (a 16-byte TMA box) and odd Cout on wgmma, BCDU-Net's Cout-2 head with
 # ReLU and its ConvLSTM gate convs (Cout 4 x hidden) on the two steps
-# stacked on the batch.
+# stacked on the batch; TransFuseNet's Cin 24 and 48 (part of one 64-wide
+# K step) to Cout 16 and 32, its 8 -> 8, 8 -> 16 and 16 -> 32, MCUNet's
+# InceptionA 32 -> 64 and a BABasicBlock's second conv (ReLU off).
 ZOO_CONV_CASES = [
     (2, 64, 64, 3, 32, True), (2, 64, 64, 32, 32, True),
     (2, 64, 64, 96, 32, True), (2, 64, 64, 160, 32, True),
@@ -148,6 +166,10 @@ ZOO_CONV_CASES = [
     (2, 64, 64, 64, 8, True), (2, 64, 64, 64, 2, True),
     (4, 64, 64, 64, 128, False), (4, 32, 32, 128, 256, False),
     (4, 16, 16, 256, 512, False), (2, 16, 16, 128, 512, False),
+    (2, 64, 64, 24, 16, True), (2, 64, 64, 48, 32, True),
+    (2, 64, 64, 8, 8, True), (2, 64, 64, 8, 16, True),
+    (2, 64, 64, 16, 32, True), (2, 64, 64, 32, 64, True),
+    (2, 32, 32, 128, 128, False),
 ]
 # Whole-image maps (608 x 576 padded from 584 x 565) down UNet's levels
 # and SegNet's bottom (19 x 18), batch 1.
@@ -215,42 +237,57 @@ def synthetic_drive(n, h, w, seed):
 
 
 def build_model(device, seed, name="UNet.UNet"):
-    """Full-width model from a seeded generator; each BatchNorm's running
-    statistics are measured on one batch (so activations keep their
-    scale through the layers) and then perturbed, with gamma and beta
-    drawn at random, so the eval-mode fold has work to do.  The models of
-    ``ZOO_BN_FREE`` take their logit head, and on the same batch each of
-    their convs called as a module is rescaled to an output of mean 0 and
-    std 1 per channel: the calibration a BatchNorm gets, folded into the
-    conv's weight and bias."""
+    """Full-width model from a seeded generator; each BatchNorm's (2-D and
+    1-D) running statistics are measured on one batch (so activations
+    keep their scale through the layers) and then perturbed, with gamma
+    and beta drawn at random, so the eval-mode fold has work to do (for a
+    model with a BatchNorm1d the batch's second image is darker).  A
+    model that takes ``logit_head`` gets it.  In the models of
+    ``ZOO_BN_FREE``, on the same batch, each conv and transposed conv
+    with a bias that is called as a module is rescaled to an output of
+    mean 0 and std 1 per channel: the calibration a BatchNorm gets,
+    folded into the conv's weight and bias."""
     import torch
+    from torch import nn
 
-    from jcfszxc_unet_tpu_torch.models import create_model
-    from jcfszxc_unet_tpu_torch.ops.layers import BatchNorm2d, reset_parameters
+    from jcfszxc_unet_tpu_torch.models import create_model, model_takes
+    from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
 
     def unit_output(conv, inputs, y):
         mean, std = y.mean(dim=(0, 2, 3)), y.std(dim=(0, 2, 3)) + 1e-6
-        conv.weight.div_(std[:, None, None, None])
+        out_dim = 1 if isinstance(conv, nn.ConvTranspose2d) else 0
+        conv.weight.div_(std.view([-1 if d == out_dim else 1
+                                   for d in range(4)]))
         conv.bias.sub_(mean).div_(std)
         return (y - mean[:, None, None]) / std[:, None, None]
 
     g = torch.Generator().manual_seed(seed)
-    bn_free = name in ZOO_BN_FREE
-    model = create_model(name, **({"logit_head": True} if bn_free else {}))
+    model = create_model(name, **({"logit_head": True}
+                                  if model_takes(name, "logit_head") else {}))
     reset_parameters(model, g)
     hooks = [m.register_forward_hook(unit_output) for m in model.modules()
-             if bn_free and isinstance(m, torch.nn.Conv2d)]
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+             if name in ZOO_BN_FREE
+             and isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))
+             and m.bias is not None]
+    bns = [m for m in model.modules()
+           if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d))]
     with torch.no_grad():
         for bn in bns:
             bn.weight.copy_(0.5 + torch.rand(bn.num_features, generator=g))
             bn.bias.copy_(0.2 * torch.randn(bn.num_features, generator=g))
     model = model.to(device=device, memory_format=torch.channels_last)
-    calib = torch.rand((2, 3, PATCH, PATCH), generator=g).to(
-        device=device, memory_format=torch.channels_last)
+    calib = torch.rand((2, 3, PATCH, PATCH), generator=g)
+    if any(isinstance(bn, nn.BatchNorm1d) for bn in bns):
+        # A BatchNorm1d normalizes pooled features, which two noise images
+        # barely tell apart: the second one is made darker.
+        calib[1] *= 0.5
+    calib = calib.to(device=device, memory_format=torch.channels_last)
     for bn in bns:
         bn.momentum = 1.0  # running stats := this batch's statistics
     model.train()
+    for m in model.modules():  # no random masks: the seed fixes the model
+        if isinstance(m, (nn.Dropout, nn.Dropout2d)):
+            m.eval()
     with torch.no_grad():
         model(calib)
     for hook in hooks:
@@ -817,9 +854,25 @@ def record_convs(fn):
     return calls
 
 
+# Kernel names of F.scaled_dot_product_attention's backends on the card, in
+# the order they are tested: cuDNN's kernel name holds "flash" too, so it
+# comes first.  The math backend runs plain matmuls.
+SDPA_MARKS = (("cudnn_generated_fort_native_sdpa", "cudnn"),
+              ("flash", "flash"), ("fmha", "efficient"),
+              ("efficient", "efficient"))
+
+
+def sdpa_backend(kernel_name):
+    """The SDPA backend whose kernel is ``kernel_name``, or None."""
+    name = kernel_name.lower()
+    return next((backend for mark, backend in SDPA_MARKS if mark in name),
+                None)
+
+
 def timed_eval(run, n_images):
     """(seconds of one untraced run after the counted one, device busy ms
-    and idle share of one profiled run)."""
+    and idle share of one profiled run, and the attention kernels in
+    it)."""
     import torch
 
     torch.cuda.synchronize()
@@ -833,7 +886,10 @@ def timed_eval(run, n_images):
     return {"eval_seconds": dt, "images_per_s": n_images / dt,
             "device_ms_total": busy, "conv_kernel_device_ms": kernel,
             "device_idle_share": max(0.0, 1.0 - busy / (dt * 1e3)),
-            "top": rows[:12]}
+            "top": rows[:12],
+            "attention_kernels": {
+                r["name"]: sdpa_backend(r["name"]) for r in rows
+                if sdpa_backend(r["name"])}}
 
 
 def launch_counts():
@@ -901,8 +957,11 @@ def phase_zoo_eval(report, state):
                 compute_dtype=torch.bfloat16, device=dev)
 
         reset_counts()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         res = run()
         torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
         launches, bodies = launch_counts()
         for key in launches_sum:
             launches_sum[key] += launches[key]
@@ -928,6 +987,8 @@ def phase_zoo_eval(report, state):
             "prob_mean": float(pm.mean()), "prob_std": float(pm.std()),
             "conv_per_forward": convs,
             "f32_max_abs_dprob": diff, "f32_prob_std": std,
+            "peak_allocated_bytes": peak_bytes,
+            "peak_over_start_bytes": peak_bytes - base_bytes,
             **timed_eval(run, N_IMAGES),
         }
         row["checks"] = {
@@ -944,8 +1005,11 @@ def phase_zoo_eval(report, state):
             # a comparison that a nearly constant output would pass anyway
             "f32_prob_std_over_10x_tol": std >= 10 * ZOO_F32_TOL,
             "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
+            "peak_allocated_under_limit":
+                peak_bytes < ZOO_PEAK_BYTES.get(name, math.inf),
         }
         out[name] = row
+        attention = row["attention_kernels"]
         bad = [c for c, ok in row["checks"].items() if not ok]
         if bad:
             failures.append({name: bad})
@@ -959,7 +1023,11 @@ def phase_zoo_eval(report, state):
               f"({times['flops'] / times['ms'] / 1e9:.1f} TFLOP/s), cuDNN "
               f"{times['library_ms']:.2f} ms, bound {times['bound_ms']:.2f} "
               f"ms, kernel vs plain {times['checks_ok']}/{times['checks']} "
-              f"shapes; f32 vs CPU max |dprob| {diff:.2e}"
+              f"shapes; f32 vs CPU max |dprob| {diff:.2e}, prob std "
+              f"{std:.3e}; peak allocated {peak_bytes / 2**20:.0f} MiB "
+              f"({(peak_bytes - base_bytes) / 2**20:.0f} MiB over the start)"
+              + (f"; attention on {sorted(set(attention.values()))}"
+                 if attention else "")
               + (f"; FAILED {bad}" if bad else ""), flush=True)
         del model, res
         torch.cuda.empty_cache()

@@ -10,9 +10,10 @@ validation pass through the eval-mode kernels, the plateau scheduler,
 best-checkpoint-on-improvement, early stopping, the epoch line,
 ``--metrics-file``, ``--latest-path`` and PNG artifacts.
 
-``--logit-head`` makes a model that ends in a sigmoid (BCDU_net_D3/D1)
-return the head before it, recorded in the checkpoint's ``model_kwargs``;
-other models exit with the list of those that take it.  BCDU models get
+``--logit-head`` makes a model that ends in a sigmoid (BCDU_net_D3/D1,
+TransFuseNet) or in a softmax over one channel (BARUNet, BIARUNet) return
+the head before it, recorded in the checkpoint's ``model_kwargs``; other
+models exit with the list of those that take it.  BCDU models get
 ``N`` = the patch size, as in the JAX CLI.  Not ported yet, refused with a
 message that says so: ``--devices`` > 1, ``--s2d``, ``--profile-dir`` and
 ``--remat``.
@@ -377,7 +378,8 @@ def get_args(argv=None):
                         help="Space-to-depth execution (not ported yet)")
     parser.add_argument("--logit-head", action="store_true",
                         help="Train the models whose forward ends in a "
-                             "sigmoid on their pre-sigmoid head; supported: "
+                             "sigmoid or in a softmax over one channel on "
+                             "the head before it; supported: "
                              + ", ".join(logit_head_capable()))
     parser.add_argument("--latest-path", type=str, default=None,
                         help="Also save the FULL training state (optimizer "

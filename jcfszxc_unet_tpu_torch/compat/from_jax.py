@@ -3,17 +3,19 @@
 Turns a Flax variables tree of the JAX package (``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays) into a state dict
 with the reference's torch key names, which the port's modules load with
-``strict=True``.  The port keeps its own copy of the mapping rules for the
-ported models (UNet, ResUNet, SegNet, NestedUNet, AttentionUNet, R2UNet,
-R2AttentionUNet, BCDU_net_D3/D1, MultiResUNet, DenseUNet, FRUNet),
-independent of the JAX package; the leaf transforms are those of the
-reference interchange:
+``strict=True``.  The port keeps its own copy of the mapping rules for
+all 16 models of the zoo, independent of the JAX package; the leaf
+transforms are those of the reference interchange:
 
   * Conv2d:          flax kernel (kh, kw, I, O) -> torch (O, I, kh, kw)
   * ConvTranspose2d: flax kernel (kh, kw, I, O), spatially flipped ->
                      torch (I, O, kh, kw)
-  * BatchNorm:       scale/bias + batch_stats mean/var -> weight/bias +
+  * Linear:          flax kernel (I, O) -> torch (O, I)
+  * BatchNorm1d/2d:  scale/bias + batch_stats mean/var -> weight/bias +
                      running_mean/running_var, num_batches_tracked = 0
+  * the self-attention: in_proj and out_proj kernels transposed into
+                     ``mha.in_proj_weight`` and ``mha.out_proj.weight``,
+                     their biases as they are
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-LEAF_CLASSES = {"Conv2d", "ConvTranspose2d", "BatchNorm2d"}
+LEAF_CLASSES = {"Conv2d", "ConvTranspose2d", "BatchNorm2d", "BatchNorm1d",
+                "Linear", "MultiHeadSelfAttention"}
 
 # Conv -> BN -> ReLU -> Conv -> BN -> ReLU under one Sequential named
 # ``seq`` (reference DoubleConv, conv_block, UNetPP's private DoubleConv).
@@ -34,7 +37,10 @@ def _double(seq):
             "BatchNorm2d_1": (f"{seq}.4", "BatchNorm2d")}
 
 
-def _respath(seg):
+# A callable child rule takes (segment, the segment's siblings).
+
+
+def _respath(seg, siblings):
     # children named shortcut_i, conv_i, bn_i -> ModuleLists
     kind, i = seg.rsplit("_", 1)
     return {"shortcut": (f"shortcuts.{i}", "Conv2dBatchnorm"),
@@ -42,11 +48,25 @@ def _respath(seg):
             "bn": (f"bns.{i}", "BatchNorm2d")}[kind]
 
 
-def _single_level_densenet(seg):
+def _single_level_densenet(seg, siblings):
     # children Conv2d_i, BatchNorm2d_i -> ModuleLists
     kind, i = seg.rsplit("_", 1)
     return {"Conv2d": (f"conv_list.{i}", "Conv2d"),
             "BatchNorm2d": (f"bn_list.{i}", "BatchNorm2d")}[kind]
+
+
+def _ba_module(seg, siblings):
+    # Linear_0 + BatchNorm1d_0 -> cur_fusion, Linear_i + BatchNorm1d_i ->
+    # pre_fusions.{i-1}, and the last Linear -> generation.1 (after the
+    # generation's ReLU)
+    kind, i = seg.rsplit("_", 1)
+    i = int(i)
+    n_linear = sum(s.startswith("Linear_") for s in siblings)
+    if kind == "Linear" and i == n_linear - 1:
+        return "generation.1", "Linear"
+    at = "cur_fusion" if i == 0 else f"pre_fusions.{i - 1}"
+    return {"Linear": (f"{at}.0", "Linear"),
+            "BatchNorm1d": (f"{at}.1", "BatchNorm1d")}[kind]
 
 
 # Flax child segment -> (torch relative path, class), per block class
@@ -118,6 +138,40 @@ CHILD_RULES: Dict[str, Dict[str, tuple]] = {
     "UpConvT": {"ConvTranspose2d_0": ("up.0",                 # :872-885
                                       "ConvTranspose2d"),
                 "BatchNorm2d_0": ("up.1", "BatchNorm2d")},
+    "BAModule": _ba_module,                                   # :188-224
+    "BABasicBlock": {"Conv2d_0": ("conv1", "Conv2d"),         # :227-275
+                     "BatchNorm2d_0": ("bn1", "BatchNorm2d"),
+                     "Conv2d_1": ("conv2", "Conv2d"),
+                     "BatchNorm2d_1": ("bn2", "BatchNorm2d"),
+                     "BAModule_0": ("ba", "BAModule"),
+                     "Conv2d_2": ("conv3", "Conv2d")},
+    "CBAM": {"ChannelAttentionModule_0": ("channel_attention",  # :278-322
+                                          "ChannelAttentionModule"),
+             "SpatialAttentionModule_0": ("spatial_attention",
+                                          "SpatialAttentionModule")},
+    "ChannelAttentionModule": {"Conv2d_0": ("shared_MLP.0", "Conv2d"),
+                               "Conv2d_1": ("shared_MLP.2", "Conv2d")},
+    "SpatialAttentionModule": {"Conv2d_0": ("conv2d", "Conv2d")},
+    # RetinaLiteNet's private copies (RetinaLiteNet.py:16-68)
+    "PrivateCBAM": {"channel_att": ("channel_att", "PrivateChannelAtt"),
+                    "spatial_att": ("spatial_att", "PrivateSpatialAtt")},
+    "PrivateChannelAtt": {"Conv2d_0": ("shared_mlp.0", "Conv2d"),
+                          "Conv2d_1": ("shared_mlp.2", "Conv2d")},
+    "PrivateSpatialAtt": {"Conv2d_0": ("conv", "Conv2d")},
+    "SEBlock": {"Linear_0": ("fc.0", "Linear"),               # :325-343
+                "Linear_1": ("fc.2", "Linear")},
+    "BasicConv2d": {"Conv2d_0": ("conv", "Conv2d"),           # :396-422
+                    "BatchNorm2d_0": ("bn", "BatchNorm2d")},
+    # InceptionA's children in the JAX order of its four branches
+    "InceptionA": {"BasicConv2d_0": ("b1_2", "BasicConv2d"),
+                   "BasicConv2d_1": ("b2", "BasicConv2d"),
+                   "BasicConv2d_2": ("b3_1", "BasicConv2d"),
+                   "BasicConv2d_3": ("b3_2", "BasicConv2d"),
+                   "BasicConv2d_4": ("b4_1", "BasicConv2d"),
+                   "BasicConv2d_5": ("b4_2", "BasicConv2d"),
+                   "BasicConv2d_6": ("b4_3", "BasicConv2d")},
+    "UpV1": {"ConvTranspose2d_0": ("up", "ConvTranspose2d"),  # :425-451
+             "DoubleConv_0": ("conv", "DoubleConv")},
 }
 
 
@@ -239,6 +293,60 @@ def _root_frunet(seg):
     raise KeyError(seg)
 
 
+def _root_barunet(seg):  # BARUNet and BIARUNet
+    if seg == "Conv1" or seg.startswith("Up_conv"):
+        return seg, "ConvBlockBN"
+    if seg == "Conv_1x1":
+        return seg, "Conv2d"
+    if seg.startswith("Conv"):
+        return seg, "BABasicBlock"
+    if seg.startswith("cbam"):
+        return seg, "CBAM"
+    if seg.startswith("SE"):
+        return seg, "SEBlock"
+    if seg.startswith("Up"):
+        return seg, "UpConvBlock"
+    raise KeyError(seg)
+
+
+def _root_mcunet(seg):
+    if seg == "in_conv":
+        return seg, "DoubleConv"
+    if seg == "down4":
+        return seg, "InceptionA"
+    if seg.startswith("down"):
+        return seg, "Down"
+    if seg.startswith("cbam"):
+        return seg, "CBAM"
+    if seg.startswith("up"):
+        return seg, "UpV1"
+    if seg == "out_conv":
+        return seg, "OutConv"
+    raise KeyError(seg)
+
+
+def _root_transfuse(seg):
+    # conv_blockK = Sequential(conv, ReLU, max-pool, BN); decoder_blockK =
+    # Sequential(convT, ReLU[, conv, ReLU]); decoder_convK = (conv, ReLU)
+    block, _, part = seg.rpartition("_")
+    if block.startswith("conv_block"):
+        return {"conv": (f"{block}.0", "Conv2d"),
+                "bn": (f"{block}.3", "BatchNorm2d")}[part]
+    if seg == "decoder_block3_conv":
+        return "decoder_block3.2", "Conv2d"
+    if seg.startswith("decoder_block"):
+        return f"{seg}.0", "ConvTranspose2d"
+    if seg.startswith("decoder_conv"):
+        return f"{seg}.0", "Conv2d"
+    if seg == "multihead_attention":
+        return seg, "MultiHeadSelfAttention"
+    if seg.startswith("cbam"):
+        return seg, "PrivateCBAM"
+    if seg in ("output_BV", "output_OD"):
+        return seg, "Conv2d"
+    raise KeyError(seg)
+
+
 ROOT_RULES = {
     "UNet.UNet": _root_unet,
     "AttentionUNet.AttentionUNet": _root_attention_unet,
@@ -252,6 +360,10 @@ ROOT_RULES = {
     "MultiResUNet.MultiResUNet": _root_multires,
     "DenseUNet.DenseUNet": _root_denseunet,
     "FRUNet.FRUNet": _root_frunet,
+    "BARUNet.BARUNet": _root_barunet,
+    "BIARUNet.BIARUNet": _root_barunet,
+    "MCUNet.MCUNet": _root_mcunet,
+    "RetinaLiteNet.TransFuseNet": _root_transfuse,
 }
 _ALIASES = {name.split(".")[-1]: name for name in ROOT_RULES}
 
@@ -267,16 +379,18 @@ def state_dict_from_jax(model_name: str, variables: Dict[str, Any]
     model_name = _ALIASES.get(model_name, model_name)
     if model_name not in ROOT_RULES:
         raise MappingError(
-            f"no mapping rules for model {model_name!r} (not ported yet)")
+            f"no mapping rules for model {model_name!r}; known: "
+            f"{sorted(ROOT_RULES)}")
     return _convert(variables, None, ROOT_RULES[model_name], model_name)
 
 
 def block_state_dict_from_jax(block_class: str, variables: Dict[str, Any]
                               ) -> Dict[str, torch.Tensor]:
     """The same for one block of the JAX package (``block_class``: its
-    class name in ``ops/blocks.py``, e.g. ``"ResidualConv"``), keyed as
-    the port's block of that name."""
-    if block_class not in CHILD_RULES:
+    class name in ``ops/blocks.py``, e.g. ``"ResidualConv"``, or a leaf
+    class such as ``"MultiHeadSelfAttention"``), keyed as the port's block
+    of that name."""
+    if block_class not in CHILD_RULES and block_class not in LEAF_CLASSES:
         raise MappingError(f"no mapping rules for block {block_class!r}")
     return _convert(variables, block_class, None, block_class)
 
@@ -293,22 +407,33 @@ def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
         out[key] = torch.from_numpy(np.ascontiguousarray(a))
 
     def leaf(cls, prefix, params, stats):
+        def put(name, arr):
+            emit(f"{prefix}.{name}" if prefix else name, arr)
+
         if cls == "Conv2d":
-            emit(prefix + ".weight",
-                 np.transpose(params["conv"]["kernel"], (3, 2, 0, 1)))
+            put("weight", np.transpose(params["conv"]["kernel"], (3, 2, 0, 1)))
             if "bias" in params["conv"]:
-                emit(prefix + ".bias", params["conv"]["bias"])
+                put("bias", params["conv"]["bias"])
         elif cls == "ConvTranspose2d":
             k = np.asarray(params["conv"]["kernel"])[::-1, ::-1]
-            emit(prefix + ".weight", np.transpose(k, (2, 3, 0, 1)))
+            put("weight", np.transpose(k, (2, 3, 0, 1)))
             if "bias" in params["conv"]:
-                emit(prefix + ".bias", params["conv"]["bias"])
-        else:  # BatchNorm2d
-            emit(prefix + ".weight", params["bn"]["scale"])
-            emit(prefix + ".bias", params["bn"]["bias"])
-            emit(prefix + ".running_mean", stats["bn"]["mean"])
-            emit(prefix + ".running_var", stats["bn"]["var"])
-            emit(prefix + ".num_batches_tracked", np.array(0, np.int64))
+                put("bias", params["conv"]["bias"])
+        elif cls == "Linear":
+            put("weight", np.transpose(params["linear"]["kernel"]))
+            if "bias" in params["linear"]:
+                put("bias", params["linear"]["bias"])
+        elif cls == "MultiHeadSelfAttention":
+            for proj, key in (("in_proj", "in_proj_"),
+                              ("out_proj", "out_proj.")):
+                put(f"mha.{key}weight", np.transpose(params[proj]["kernel"]))
+                put(f"mha.{key}bias", params[proj]["bias"])
+        else:  # BatchNorm1d, BatchNorm2d
+            put("weight", params["bn"]["scale"])
+            put("bias", params["bn"]["bias"])
+            put("running_mean", stats["bn"]["mean"])
+            put("running_var", stats["bn"]["var"])
+            put("num_batches_tracked", np.array(0, np.int64))
 
     def walk(params, stats, cls, prefix):
         """cls None: the model's root rules (the root itself, or a
@@ -319,8 +444,12 @@ def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
         for seg, sub in params.items():
             rules = root if cls is None else CHILD_RULES[cls]
             try:
-                rel, sub_cls = (rules(seg) if callable(rules)
-                                else rules[seg])
+                if cls is None:
+                    rel, sub_cls = rules(seg)
+                elif callable(rules):
+                    rel, sub_cls = rules(seg, list(params))
+                else:
+                    rel, sub_cls = rules[seg]
             except KeyError:
                 raise MappingError(
                     f"no root rule for {seg!r} in {what}" if cls is None else

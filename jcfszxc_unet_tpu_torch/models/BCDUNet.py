@@ -25,16 +25,9 @@ from jcfszxc_unet_tpu_torch.ops.blocks import (
     ConvBlockPlain,
     ConvLSTM2D,
     UpConvT,
-    conv_bn_relu_fused,
+    conv_bn_relu,
 )
 from jcfszxc_unet_tpu_torch.ops.layers import Conv2d, cat_channels
-
-
-def _conv_relu(conv, x):
-    """Conv3x3 bias -> ReLU, fused in eval mode."""
-    if conv.training:
-        return torch.relu(conv(x))
-    return conv_bn_relu_fused(x, conv)
 
 
 class BCDU_net_D3(nn.Module):
@@ -84,19 +77,19 @@ class BCDU_net_D3(nn.Module):
         conv2 = self.conv2(self.pool(conv1))
         conv3 = self.conv3(self.pool(conv2))
         drop3 = self.drop3(conv3)
-        h = _conv_relu(self.conv4, self.pool(conv3))
-        h = self.drop4_1(_conv_relu(self.conv4_1, h))
+        h = conv_bn_relu(self.pool(conv3), self.conv4)
+        h = self.drop4_1(conv_bn_relu(h, self.conv4_1))
         if self.dense_blocks == 3:
             drop4_1 = h
-            h = _conv_relu(self.conv4_2, drop4_1)
-            drop4_2 = self.drop4_2(_conv_relu(self.conv4_2_2, h))
-            h = _conv_relu(self.conv4_3, cat_channels(drop4_2, drop4_1))
-            h = self.drop4_3(_conv_relu(self.conv4_3_2, h))
+            h = conv_bn_relu(drop4_1, self.conv4_2)
+            drop4_2 = self.drop4_2(conv_bn_relu(h, self.conv4_2_2))
+            h = conv_bn_relu(cat_channels(drop4_2, drop4_1), self.conv4_3)
+            h = self.drop4_3(conv_bn_relu(h, self.conv4_3_2))
         h = self.conv6(self.conv_lstm6(drop3, self.up6(h)))
         h = self.conv7(self.conv_lstm7(conv2, self.up7(h)))
         h = self.conv_lstm8(conv1, self.up8(h))
         for k in (0, 2, 4):
-            h = _conv_relu(self.conv8[k], h)
+            h = conv_bn_relu(h, self.conv8[k])
         h = self.conv9(h)
         return h if self.logit_head else torch.sigmoid(h)
 

@@ -1,8 +1,8 @@
 """Model registry of the port, with the JAX package's registry names and
 constructor arguments.
 
-Twelve of the zoo's 16 models are ported; any other name raises a
-``KeyError`` that says so.
+All 16 of the zoo's models are ported, under the JAX names; any other
+name raises a ``KeyError`` that lists them.
 """
 
 from __future__ import annotations
@@ -11,13 +11,17 @@ import inspect
 
 from jcfszxc_unet_tpu_torch.models import (
     AttentionUNet,
+    BARUNet,
     BCDUNet,
+    BIARUNet,
     DenseUNet,
     FRUNet,
+    MCUNet,
     MultiResUNet,
     R2AttentionUNet,
     R2UNet,
     ResUNet,
+    RetinaLiteNet,
     SegNet,
     UNet,
     UNetPP,
@@ -28,14 +32,18 @@ MODEL_REGISTRY = {
     "AttentionUNet.AttentionUNet": AttentionUNet.AttentionUNet,
     "R2UNet.R2UNet": R2UNet.R2UNet,
     "R2AttentionUNet.R2AttentionUNet": R2AttentionUNet.R2AttentionUNet,
+    "BARUNet.BARUNet": BARUNet.BARUNet,
+    "BIARUNet.BIARUNet": BIARUNet.BIARUNet,
+    "DenseUNet.DenseUNet": DenseUNet.DenseUNet,
+    "MCUNet.MCUNet": MCUNet.MCUNet,
     "ResUNet.ResUNet": ResUNet.ResUNet,
+    "FRUNet.FRUNet": FRUNet.FRUNet,
+    "MultiResUNet.MultiResUNet": MultiResUNet.MultiResUNet,
     "SegNet.SegNet": SegNet.SegNet,
-    "UNetPP.NestedUNet": UNetPP.NestedUNet,
     "BCDUNet.BCDU_net_D3": BCDUNet.BCDU_net_D3,
     "BCDUNet.BCDU_net_D1": BCDUNet.BCDU_net_D1,
-    "MultiResUNet.MultiResUNet": MultiResUNet.MultiResUNet,
-    "DenseUNet.DenseUNet": DenseUNet.DenseUNet,
-    "FRUNet.FRUNet": FRUNet.FRUNet,
+    "RetinaLiteNet.TransFuseNet": RetinaLiteNet.TransFuseNet,
+    "UNetPP.NestedUNet": UNetPP.NestedUNet,
 }
 
 # Short aliases: bare class names resolve too.
@@ -49,8 +57,7 @@ def resolve_model(name: str):
     if name in _ALIASES:
         return _ALIASES[name]
     raise KeyError(
-        f"model {name!r} is not ported to PyTorch yet (or is unknown); "
-        f"ported: {sorted(MODEL_REGISTRY)}")
+        f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
 
 
 def registry_name(name: str) -> str:
@@ -70,9 +77,10 @@ def model_takes(name: str, arg: str) -> bool:
 
 
 def logit_head_capable():
-    """Registry names of the ported models that take ``logit_head``: those
-    whose reference forward ends in a sigmoid that training squashes
-    again (BCDUNet.py:144/251).  With it set they return the head before
-    the sigmoid (the train CLI's ``--logit-head``; same parameters)."""
+    """Registry names of the models that take ``logit_head``: those whose
+    reference forward ends in a sigmoid that training squashes again
+    (BCDUNet.py:144/251, RetinaLiteNet.py:198) or in a softmax over one
+    channel (BARUNet.py:83, BIARUNet.py:89).  With it set they return the
+    head before it (the train CLI's ``--logit-head``; same parameters)."""
     return sorted(name for name in MODEL_REGISTRY
                   if model_takes(name, "logit_head"))

@@ -8,20 +8,26 @@
 (:346-363), ``down_sample`` (:366) and ``UpsampleNConcat`` (:372-386),
 FRUNet's ``FRConv``, ``FeatureFuse``, ``FRUp``, ``FRDown`` and ``FRBlock``
 (:495-632), MultiResUNet's ``Conv2dBatchnorm``, ``Multiresblock`` and
-``Respath`` (:635-789) and BCDU-Net's ``ConvBlockPlain`` (:792),
-``ConvLSTM2D`` (:847-900) and ``UpConvT`` (:903).
+``Respath`` (:635-789), BCDU-Net's ``ConvBlockPlain`` (:792),
+``ConvLSTM2D`` (:847-900) and ``UpConvT`` (:903), and the attention
+family's ``BAModule``, ``BABasicBlock``, ``ChannelAttentionModule``,
+``SpatialAttentionModule``, ``CBAM``, ``SEBlock`` (:214-343),
+``BasicConv2d``, ``InceptionA``, ``UpV1`` (:389-451) and
+``MultiHeadSelfAttention`` (:919-957).
 
 Attribute names follow the reference (``double_conv.0``, ``conv.3``,
 ``up.1``, ``RCNN.0``, ``W_g.0``, ``conv_block.5``, ``cell.conv``,
-``shortcuts.0.conv1``, ...), so reference-keyed state dicts load with
+``shortcuts.0.conv1``, ``cur_fusion.0``, ``shared_MLP.2``, ``b4_3``,
+``mha.in_proj_weight``, ...), so reference-keyed state dicts load with
 ``strict=True``.  Tensors are NCHW in ``torch.channels_last``.
 
 In eval mode every 3x3 conv with stride 1 and SAME padding runs as one
 call of :func:`conv3x3_affine_relu_kmajor`, with the conv's bias and the
 BatchNorm after it (if any) folded into a per-channel scale and shift and
 the ReLU after it (if any) fused; on a CUDA tensor that is the
-hand-written kernel.  1x1 convs, transposed convs, strided convs and a
-BatchNorm that comes before its conv run stock torch ops, as the JAX
+hand-written kernel.  1x1 convs, transposed convs, strided convs, a
+BatchNorm that comes before its conv, the attention gates' Linears, 1x1
+MLPs and 7x7 convs and the self-attention run stock torch ops, as the JAX
 package runs them outside Pallas.  The eval-mode forward is for inference:
 no gradient flows through the kernel.  In train mode the blocks run stock
 torch ops.
@@ -37,9 +43,14 @@ from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
     conv3x3_affine_relu_kmajor,
 )
 from jcfszxc_unet_tpu_torch.ops.layers import (
+    BatchNorm1d,
     BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
+    Linear,
+    adaptive_avg_pool_1x1,
+    adaptive_max_pool_1x1,
+    avg_pool2d,
     cat_channels,
     channels_last,
     nhwc,
@@ -91,6 +102,24 @@ def _same3x3(conv: Conv2d) -> bool:
     return (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
             and conv.padding == (1, 1) and conv.dilation == (1, 1)
             and conv.groups == 1)
+
+
+def conv_bn_relu(x, conv: Conv2d, bn: nn.Module | None = None,
+                 relu: bool = True):
+    """Conv -> optional BN -> optional ReLU: one fused call in eval mode
+    where the conv is a 3x3 with stride 1 and SAME padding, stock torch
+    ops otherwise (train mode, 1x1 and strided convs).
+
+    The blocks of the earlier models keep one ``if self.training`` per
+    block instead: their train branch is the reference's whole
+    ``nn.Sequential`` call, and their eval branch chains fused calls that
+    this helper's per-conv test would not shorten."""
+    if not conv.training and _same3x3(conv):
+        return conv_bn_relu_fused(x, conv, bn, relu)
+    y = conv(x)
+    if bn is not None:
+        y = bn(y)
+    return torch.relu(y) if relu else y
 
 
 class DoubleConv(nn.Module):
@@ -501,11 +530,7 @@ class Conv2dBatchnorm(nn.Module):
         self.batchnorm = BatchNorm2d(num_out_filters)
 
     def forward(self, x):
-        if not self.training and _same3x3(self.conv1):
-            return conv_bn_relu_fused(x, self.conv1, self.batchnorm,
-                                      self.relu)
-        x = self.batchnorm(self.conv1(x))
-        return torch.relu(x) if self.relu else x
+        return conv_bn_relu(x, self.conv1, self.batchnorm, self.relu)
 
 
 class Multiresblock(nn.Module):
@@ -662,3 +687,225 @@ class UpConvT(nn.Module):
 
     def forward(self, x):
         return self.up(x)
+
+
+# The attention family's blocks: BARUNet's and BIARUNet's (reference
+# unet_parts.py:188-343), MCUNet's (:396-451) and TransFuseNet's attention
+# (RetinaLiteNet.py:72-80).
+
+
+class BAModule(nn.Module):
+    """Bridge attention, the reference's ``BA_module_resnet``
+    (unet_parts.py:188-224, reduction 16): each GAP-pooled input
+    (N, C, 1, 1) through Linear (no bias) -> BatchNorm1d, summed, then ReLU -> Linear (no bias)
+    -> sigmoid; returns the channel gate (N, C, 1, 1).  Stock ops."""
+
+    def __init__(self, pre_channels, cur_channel: int):
+        super().__init__()
+        red = cur_channel // 16
+
+        def fusion(c):
+            return nn.Sequential(Linear(c, red, bias=False), BatchNorm1d(red))
+
+        self.cur_fusion = fusion(cur_channel)
+        self.pre_fusions = nn.ModuleList(fusion(c) for c in pre_channels)
+        self.generation = nn.Sequential(nn.ReLU(),
+                                        Linear(red, cur_channel, bias=False))
+
+    def forward(self, pre_layers, cur_layer):
+        fused = self.cur_fusion(cur_layer.flatten(1))
+        for fuse, pre in zip(self.pre_fusions, pre_layers):
+            fused = fused + fuse(pre.flatten(1))
+        w = torch.sigmoid(self.generation(fused))
+        return w[:, :, None, None]
+
+
+class BABasicBlock(nn.Module):
+    """Conv3x3 -> BN -> ReLU -> Conv3x3 -> BN, gated by a BAModule over the
+    two convs' pooled outputs, + a 1x1 conv residual with Dropout(0.5) ->
+    ReLU, the reference's ``BABasicBlock`` (unet_parts.py:227-275).
+
+    Stride 1, the only one the models use.  Eval mode: two kernel calls,
+    the first with its BN and ReLU, the second with its BN and ReLU off
+    (the gate and the residual add come after it)."""
+
+    def __init__(self, ch_in: int, ch_out: int):
+        super().__init__()
+        self.conv1 = Conv2d(ch_in, ch_out, 3, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(ch_out)
+        self.conv2 = Conv2d(ch_out, ch_out, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(ch_out)
+        self.ba = BAModule((ch_out,), ch_out)
+        self.conv3 = Conv2d(ch_in, ch_out, 1, bias=False)
+        self.dropout = nn.Dropout(0.5)
+
+    def forward(self, x):
+        out = conv_bn_relu(x, self.conv1, self.bn1)
+        f1 = adaptive_avg_pool_1x1(out)
+        out = conv_bn_relu(out, self.conv2, self.bn2, relu=False)
+        att = self.ba([f1], adaptive_avg_pool_1x1(out))
+        residual = self.dropout(self.conv3(x))
+        return channels_last(torch.relu(out * att + residual))
+
+
+def channel_mlp(channel: int):
+    """CBAM's shared MLP, ratio 16: Conv1x1 (no bias) -> ReLU -> Conv1x1
+    (no bias)."""
+    return nn.Sequential(Conv2d(channel, channel // 16, 1, bias=False),
+                         nn.ReLU(),
+                         Conv2d(channel // 16, channel, 1, bias=False))
+
+
+def channel_attention(mlp, x):
+    """sigmoid(mlp(avg-pool x) + mlp(max-pool x)), (N, C, 1, 1)."""
+    return torch.sigmoid(mlp(adaptive_avg_pool_1x1(x))
+                         + mlp(adaptive_max_pool_1x1(x)))
+
+
+def spatial_attention(conv, x):
+    """sigmoid(conv([mean over C, max over C])), (N, 1, H, W)."""
+    y = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)],
+                  dim=1)
+    return torch.sigmoid(conv(y))
+
+
+class ChannelAttentionModule(nn.Module):
+    """The reference's ``ChannelAttentionModule`` (unet_parts.py:278-294,
+    ratio 16)."""
+
+    def __init__(self, channel: int):
+        super().__init__()
+        self.shared_MLP = channel_mlp(channel)
+
+    def forward(self, x):
+        return channel_attention(self.shared_MLP, x)
+
+
+class SpatialAttentionModule(nn.Module):
+    """The reference's ``SpatialAttentionModule`` (unet_parts.py:297-310):
+    a 7x7 conv, with a bias."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv2d = Conv2d(2, 1, 7, padding=3)
+
+    def forward(self, x):
+        return spatial_attention(self.conv2d, x)
+
+
+class CBAM(nn.Module):
+    """Channel attention times x, then spatial attention times that, the
+    reference's ``CBAM`` (unet_parts.py:313-322).  Stock ops in both
+    modes."""
+
+    def __init__(self, channel: int):
+        super().__init__()
+        self.channel_attention = ChannelAttentionModule(channel)
+        self.spatial_attention = SpatialAttentionModule()
+
+    def forward(self, x):
+        out = self.channel_attention(x) * x
+        return channels_last(self.spatial_attention(out) * out)
+
+
+class SEBlock(nn.Module):
+    """GAP -> Linear down (ratio 16) -> ReLU -> Linear up -> sigmoid,
+    scaling x per channel, the reference's ``se_block``
+    (unet_parts.py:325-343)."""
+
+    def __init__(self, channel: int):
+        super().__init__()
+        self.fc = nn.Sequential(
+            Linear(channel, channel // 16, bias=False), nn.ReLU(),
+            Linear(channel // 16, channel, bias=False), nn.Sigmoid())
+
+    def forward(self, x):
+        y = self.fc(x.mean(dim=(2, 3)))
+        return channels_last(x * y[:, :, None, None])
+
+
+class BasicConv2d(nn.Module):
+    """torchvision's ``BasicConv2d``: Conv (no bias) -> BN (eps 1e-3) ->
+    ReLU, InceptionA's unit (unet_parts.py:396-422).  Eval mode: a 3x3 runs
+    as one kernel call, its BN folded with its own eps."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           padding=padding, bias=False)
+        self.bn = BatchNorm2d(out_channels, eps=1e-3)
+
+    def forward(self, x):
+        return conv_bn_relu(x, self.conv, self.bn)
+
+
+class InceptionA(nn.Module):
+    """Four branches concatenated to 32 + 32 + 64 + 128 = 256 channels at
+    the input's resolution (reference unet_parts.py:396-422): avg-pool 3x3
+    -> 1x1; 1x1; 1x1 -> 3x3; 1x1 -> 3x3 -> 3x3."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.b1_2 = BasicConv2d(in_channels, 32, 1)
+        self.b2 = BasicConv2d(in_channels, 32, 1)
+        self.b3_1 = BasicConv2d(in_channels, 32, 1)
+        self.b3_2 = BasicConv2d(32, 64, 3, padding=1)
+        self.b4_1 = BasicConv2d(in_channels, 32, 1)
+        self.b4_2 = BasicConv2d(32, 64, 3, padding=1)
+        self.b4_3 = BasicConv2d(64, 128, 3, padding=1)
+
+    def forward(self, x):
+        return cat_channels(self.b1_2(avg_pool2d(x, 3, 1, 1)), self.b2(x),
+                            self.b3_2(self.b3_1(x)),
+                            self.b4_3(self.b4_2(self.b4_1(x))))
+
+
+class UpV1(nn.Module):
+    """Bilinear (align corners) x2, or ConvTranspose(k2, s2) -> pad or crop
+    to the skip -> cat[skip, x] -> DoubleConv, the reference's ``Up_v1``
+    (unet_parts.py:425-451).  Behind MCUNet's InceptionA, which keeps the
+    resolution, the "pad" is negative: a center crop."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 bilinear: bool = True):
+        super().__init__()
+        if bilinear:
+            self.up = nn.Upsample(scale_factor=2, mode="bilinear",
+                                  align_corners=True)
+            self.conv = DoubleConv(in_channels, out_channels,
+                                   in_channels // 2)
+        else:
+            self.up = ConvTranspose2d(in_channels, in_channels // 2, 2,
+                                      stride=2)
+            self.conv = DoubleConv(in_channels, out_channels)
+
+    def forward(self, x1, x2):
+        x1 = pad_or_crop_to(self.up(x1), x2.shape[2], x2.shape[3])
+        # a crop is a view in another layout: the concat brings it back
+        return self.conv(cat_channels(x2, x1))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Self-attention of ``torch.nn.MultiheadAttention(batch_first=True)``
+    on (B, L, E), held as ``mha`` (reference RetinaLiteNet.py:72-80, key
+    ``mha.in_proj_weight`` ...).  The forward runs its projections in the
+    input's dtype and the attention through ``F.scaled_dot_product_attention``,
+    which never holds the L x L scores (the JAX block's two einsums do)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.mha = nn.MultiheadAttention(embed_dim, num_heads,
+                                         batch_first=True)
+
+    def forward(self, x):
+        b, n, e = x.shape
+        mha, dt = self.mha, x.dtype
+        qkv = F.linear(x, mha.in_proj_weight.to(dt), mha.in_proj_bias.to(dt))
+        q, k, v = (t.view(b, n, self.num_heads, -1).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        out = F.scaled_dot_product_attention(q, k, v)
+        out = out.transpose(1, 2).reshape(b, n, e)
+        return F.linear(out, mha.out_proj.weight.to(dt),
+                        mha.out_proj.bias.to(dt))

@@ -35,6 +35,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.output_padding, self.groups, self.dilation)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that casts its f32 parameters to the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+# torch's own (eps 1e-5, momentum 0.1), as the JAX layer of that name; on
+# (N, C) activations it never meets the conv kernel, so it needs no fold.
+BatchNorm1d = nn.BatchNorm1d
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with :meth:`folded`."""
 
@@ -108,6 +121,23 @@ def upsample_bilinear(x, scale: int = 2, align_corners: bool = True):
                                        align_corners=align_corners))
 
 
+def avg_pool2d(x, kernel_size: int, stride: int, padding: int):
+    """torch ``F.avg_pool2d`` with count_include_pad=True (its default, as
+    the JAX version), channels_last."""
+    return channels_last(F.avg_pool2d(x, kernel_size, stride, padding,
+                                      count_include_pad=True))
+
+
+def adaptive_avg_pool_1x1(x):
+    """torch nn.AdaptiveAvgPool2d(1): (N, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def adaptive_max_pool_1x1(x):
+    """torch nn.AdaptiveMaxPool2d(1): (N, C, 1, 1)."""
+    return x.amax(dim=(2, 3), keepdim=True)
+
+
 def pad_or_crop_to(x, target_h: int, target_w: int):
     """Center-pad to (target_h, target_w), or center-crop where the target
     is smaller: ``F.pad`` with pads [d//2, d - d//2], negative pads crop
@@ -120,17 +150,25 @@ def pad_or_crop_to(x, target_h: int, target_w: int):
 
 @torch.no_grad()
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every conv's parameters with torch's default initialisation
-    (kaiming-uniform with a = sqrt(5), bias uniform in +-1/sqrt(fan_in)),
-    from ``generator``, so that a seed fixes the model.  BatchNorms get
-    gamma 1, beta 0, running mean 0 and var 1."""
+    """Re-draw every conv's and Linear's parameters with torch's default
+    initialisation (kaiming-uniform with a = sqrt(5), bias uniform in
+    +-1/sqrt(fan_in)), from ``generator``, so that a seed fixes the model.
+    BatchNorms get gamma 1, beta 0, running mean 0 and var 1.  An
+    ``nn.MultiheadAttention`` then gets its own default: in_proj_weight
+    xavier-uniform, in_proj_bias and out_proj.bias zero (its out_proj
+    keeps the Linear draw of its weight)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
                                      generator=generator)
             if m.bias is not None:
                 fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
                 bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             m.reset_parameters()
+    for m in module.modules():
+        if isinstance(m, nn.MultiheadAttention):
+            nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
+            nn.init.zeros_(m.in_proj_bias)
+            nn.init.zeros_(m.out_proj.bias)

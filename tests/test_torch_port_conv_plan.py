@@ -121,7 +121,8 @@ def _inputs(b, h, w, cin, cout, seed):
 # and Cout 1 under one 64-wide tile, Cin 96 and 160, SegNet's 19 x 18
 # whole-image bottom, MultiResUNet's Cin 8 (a 16-byte TMA box) to the odd
 # Cout 17, BCDU-Net's Cout-2 head with ReLU and a ConvLSTM gate conv on the
-# two steps stacked on the batch.
+# two steps stacked on the batch; TransFuseNet's Cin 24 and 48 (part of one
+# 64-channel K step) to Cout 16 and 32, and its 8 -> 8 and 8 -> 16.
 CASES = [
     (4, 8, 8, 64, 64, True),
     (2, 37, 29, 16, 64, True),
@@ -135,6 +136,10 @@ CASES = [
     (2, 13, 11, 8, 17, True),
     (2, 8, 8, 64, 2, True),
     (4, 8, 8, 256, 512, False),
+    (2, 8, 8, 24, 16, True),
+    (2, 8, 8, 48, 32, True),
+    (2, 13, 11, 8, 8, True),
+    (2, 8, 8, 8, 16, True),
 ]
 
 

@@ -203,7 +203,9 @@ PLAN_EDGE_CASES = [
 # off (ResUNet's input_skip), whole-image maps: UNet's first and last
 # level at 608 x 576 and SegNet's 19 x 18; MultiResUNet's truncated widths
 # (odd Cin and Cout on mma_sync, Cin 8 and odd Cout on wgmma), BCDU-Net's
-# Cout-2 head with ReLU and a ConvLSTM gate conv at twice the batch.
+# Cout-2 head with ReLU and a ConvLSTM gate conv at twice the batch;
+# TransFuseNet's Cin 24 and 48 to Cout 16 and 32, 8 -> 8 and 8 -> 16, and
+# BARUNet's second BABasicBlock conv (ReLU off).
 ZOO_CASES = [
     (2, 32, 32, 64, 32, True),
     (2, 32, 32, 96, 32, True),
@@ -227,6 +229,11 @@ ZOO_CASES = [
     (2, 16, 16, 128, 17, True),
     (2, 32, 32, 64, 2, True),
     (4, 16, 16, 256, 512, False),
+    (2, 32, 32, 24, 16, True),
+    (2, 32, 32, 48, 32, True),
+    (2, 64, 64, 8, 8, True),
+    (2, 32, 32, 8, 16, True),
+    (2, 16, 16, 128, 128, False),
 ]
 
 

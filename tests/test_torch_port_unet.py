@@ -43,9 +43,11 @@ def test_state_dict_from_jax_equals_torch_mapping(unet):
 
 
 def test_state_dict_from_jax_refuses_unported_models_and_stray_keys(unet):
+    # every model of the zoo has rules (tests/test_torch_port_zoo_*.py);
+    # an unknown name, or a tree with a child no rule knows, is refused
     _, variables, _ = unet
-    with pytest.raises(MappingError, match="not ported"):
-        state_dict_from_jax("MCUNet.MCUNet", variables)
+    with pytest.raises(MappingError, match="no mapping rules"):
+        state_dict_from_jax("NoSuchNet.NoSuchNet", variables)
     bad = {"params": {**variables["params"], "extra": {}},
            "batch_stats": variables["batch_stats"]}
     with pytest.raises(MappingError, match="extra"):
@@ -105,11 +107,15 @@ def test_pad_or_crop_to_matches_jax():
 
 
 def test_registry_names():
+    from jcfszxc_unet_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    from jcfszxc_unet_tpu_torch.models import MODEL_REGISTRY
+
     assert resolve_model("UNet.UNet") is resolve_model("UNet")
-    for name in ("MCUNet.MCUNet", "BARUNet.BARUNet", "BIARUNet.BIARUNet",
-                 "RetinaLiteNet.TransFuseNet", "NoSuchNet"):
-        with pytest.raises(KeyError, match="not ported"):
-            create_model(name)
+    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
+    for name in JAX_REGISTRY:
+        assert resolve_model(name) is resolve_model(name.split(".")[-1])
+    with pytest.raises(KeyError, match="unknown model 'NoSuchNet'"):
+        create_model("NoSuchNet")
 
 
 def test_checkpoint_roundtrip_and_refusal(unet, tmp_path):

@@ -17,6 +17,7 @@ from .torch_port_common import (
     check_bridge,
     check_eval,
     check_train,
+    jax_apply,
     jax_model,
     kernel_calls,
     port_model,
@@ -59,7 +60,7 @@ def test_bcdu_fused_conv_sites(zoo, monkeypatch):
 def test_bcdu_logit_head_matches_jax_pre_sigmoid_head(zoo):
     name, _, variables, port, x = zoo
     jmodel = jax_create_model(name, logit_head=True)
-    want = np.asarray(jmodel.apply(variables, x, train=False))
+    want = np.asarray(jax_apply(jmodel, variables, x, train=False))
     head = port_model(name, variables, logit_head=True)
     with torch.no_grad():
         got = head(to_port(x))

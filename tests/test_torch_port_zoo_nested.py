@@ -4,7 +4,6 @@ the eval and train-mode forwards (bilinear align-corners upsampling, the
 dense concats), deep supervision, the fused-conv sites and the refusal of
 the unported s2d mode."""
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -15,6 +14,7 @@ from .torch_port_common import (
     check_bridge,
     check_eval,
     check_train,
+    jax_apply,
     jax_model,
     kernel_calls,
     port_model,
@@ -64,7 +64,7 @@ def test_nested_deep_supervision_returns_the_four_heads(zoo):
             "bias": (0.1 * rng.randn(1)).astype(np.float32)}}
     ds = {"params": params, "batch_stats": variables["batch_stats"]}
     jmodel = jax_create_model(NAME, deepsupervision=True)
-    want = jmodel.apply(ds, jax.numpy.asarray(x), train=False)
+    want = jax_apply(jmodel, ds, x, train=False)
     port = port_model(NAME, ds, deepsupervision=True)
     with torch.no_grad():
         got = port(to_port(x))

@@ -5,10 +5,19 @@ weights carried into the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from jcfszxc_unet_tpu.models import create_model as jax_create_model
 from jcfszxc_unet_tpu_torch.compat.from_jax import state_dict_from_jax
 from jcfszxc_unet_tpu_torch.models import create_model
+
+# The tests run in several xdist workers at once (six in ROADMAP.md's
+# tier-1 command).  torch's default of one intra-op thread per core in each
+# worker oversubscribes the cores, and its OpenMP threads spin while they
+# wait: on an 8-core host the zoo files took 296 s under six workers with
+# the default and 59 s with one thread each.  Every worker collects this
+# module, so the setting holds for the whole run.
+torch.set_num_threads(1)
 
 
 def randomize_bn(variables, seed):
@@ -33,6 +42,21 @@ def randomize_bn(variables, seed):
     return tree
 
 
+def jax_init(model, seed, hw):
+    """``model.init`` on a (1, hw, hw, 3) input as one jitted program: XLA
+    compiles the whole init once instead of each op on its own."""
+    return jax.jit(lambda key, x: model.init(key, x, train=False))(
+        jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 3), jnp.float32))
+
+
+def jax_apply(model, variables, x, **kwargs):
+    """``model.apply(variables, x, **kwargs)`` as one jitted program, traced
+    at this call (so under the caller's ``dropout_disabled()`` and BN
+    flags)."""
+    return jax.jit(lambda v, x: model.apply(v, x, **kwargs))(
+        variables, jnp.asarray(x))
+
+
 def jax_unet(seed=0, hw=32):
     """(JAX UNet module, numpy variables) with random BN statistics."""
     model = jax_create_model("UNet.UNet")
@@ -43,8 +67,6 @@ def jax_unet(seed=0, hw=32):
 
 def port_unet(variables):
     """The port's UNet, eval mode, channels_last, with ``variables``."""
-    import torch
-
     model = create_model("UNet.UNet")
     model.load_state_dict(state_dict_from_jax("UNet.UNet", variables),
                           strict=True)
@@ -71,16 +93,12 @@ def jax_model(name, seed=0, hw=32, **kwargs):
     """(JAX module of registry ``name``, numpy variables with random BN
     statistics)."""
     model = jax_create_model(name, **kwargs)
-    variables = model.init(jax.random.PRNGKey(seed),
-                           jnp.zeros((1, hw, hw, 3), jnp.float32), train=False)
-    return model, randomize_bn(variables, seed + 1)
+    return model, randomize_bn(jax_init(model, seed, hw), seed + 1)
 
 
 def port_model(name, variables, **kwargs):
     """The port's model ``name`` with ``variables`` (loaded strict), eval
     mode, channels_last."""
-    import torch
-
     model = create_model(name, **kwargs)
     model.load_state_dict(state_dict_from_jax(name, variables), strict=True)
     return model.to(memory_format=torch.channels_last).eval()
@@ -88,8 +106,6 @@ def port_model(name, variables, **kwargs):
 
 def to_port(x):
     """NHWC numpy -> NCHW channels_last torch view."""
-    import torch
-
     return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
 
 
@@ -119,9 +135,7 @@ def check_bridge(name, variables):
 
 
 def check_eval(jmodel, variables, port, x):
-    import torch
-
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    want = np.asarray(jax_apply(jmodel, variables, x, train=False))
     with torch.no_grad():
         got = port(to_port(x))
     assert got.shape == (x.shape[0], 1, x.shape[1], x.shape[2])
@@ -134,33 +148,29 @@ def silence_dropout(port):
     rest keeps its mode: dropout masks cannot match across frameworks, so
     train parity runs JAX under ``ops.layers.dropout_disabled()`` and the
     port so."""
-    import torch
-
     for m in port.modules():
         if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
             m.eval()
     return port
 
 
-def check_train(name, jmodel, variables, x, monkeypatch):
+def check_train(name, jmodel, variables, x, monkeypatch, **kwargs):
     """One train-mode forward: the output and every updated running
     statistic against JAX's ``mutable=["batch_stats"]`` apply, with the
     JAX BatchNorm's two-pass variance (its one-pass form trades f32
     precision for a TPU memory pass) and dropout silenced on both
-    sides."""
-    import torch
-
+    sides.  ``kwargs``: the port model's, as ``jmodel`` was built."""
     from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
     from jcfszxc_unet_tpu.ops import layers as jax_layers
 
     monkeypatch.setattr(jax_layers, "TRAIN_BN_ONE_PASS_STATS", False)
     with jax_layers.dropout_disabled():
-        want, upd = jmodel.apply(variables, jnp.asarray(x), train=True,
-                                 mutable=["batch_stats"])
+        want, upd = jax_apply(jmodel, variables, x, train=True,
+                              mutable=["batch_stats"])
     new_stats = variables_to_state_dict(name, {
         "params": variables["params"],
         "batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])})
-    port = silence_dropout(port_model(name, variables).train())
+    port = silence_dropout(port_model(name, variables, **kwargs).train())
     with torch.no_grad():
         got = port(to_port(x))
     assert_close_to(to_nhwc(got), want, TRAIN_TOL)
@@ -180,8 +190,6 @@ def kernel_calls(port, x, monkeypatch):
     launch on the card (``conv_plan.plan_conv``).  On the CPU the entry
     runs the plain version; the count is that of the kernel launches the
     same forward makes on a CUDA tensor."""
-    import torch
-
     from jcfszxc_unet_tpu_torch.ops import blocks
     from jcfszxc_unet_tpu_torch.ops.kernels import conv_plan
 
@@ -199,3 +207,48 @@ def kernel_calls(port, x, monkeypatch):
     with torch.no_grad():
         port.eval()(to_port(x))
     return bodies
+
+
+# ---------------------------------------------------------------------------
+# The port's train CLI on a zoo model (tests/test_torch_port_zoo_train.py
+# and the attention family's files).
+# ---------------------------------------------------------------------------
+
+def synthetic_train_h5(root):
+    """The synthetic DRIVE split under ``root``, preprocessed to the h5 file
+    that the train CLI reads; returns its path."""
+    from jcfszxc_unet_tpu.data.preprocess import preprocess_dataset
+
+    from .test_e2e import make_synthetic_drive
+
+    make_synthetic_drive(str(root / "raw"))
+    info = preprocess_dataset(dataset_path=str(root / "raw"),
+                              output_dir=str(root / "data"),
+                              save_method="h5", include_test=False)
+    return info["train"]["output_file"]
+
+
+def check_train_cli(name, train_h5, tmp_path, monkeypatch):
+    """Two steps of one epoch of the port's train CLI on model ``name``
+    (CPU, f32, patch 32): no conv-kernel launch, one finite metrics
+    record, and the best checkpoint reloads with ``strict=True`` under
+    the registry name."""
+    import json
+
+    from jcfszxc_unet_tpu_torch.cli import train as port_cli
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+
+    monkeypatch.chdir(tmp_path)
+    best, metrics = str(tmp_path / "best.pt"), str(tmp_path / "m.jsonl")
+    before = conv_fused.counter.launches
+    port_cli.main(["-d", train_h5, "--device", "cpu", "--model", name,
+                   "-p", "32", "-b", "2", "-s", "2", "--max-epochs", "1",
+                   "--dtype", "float32", "-v", "50", "--save-path", best,
+                   "--metrics-file", metrics])
+    assert conv_fused.counter.launches == before  # plain versions on the CPU
+    (rec,) = [json.loads(line) for line in open(metrics)]
+    assert rec["epoch"] == 1 and rec["skipped_steps"] == 0
+    assert np.isfinite(rec["loss"]) and 0 <= rec["dice"] <= 1
+    model, cfg = load_model(best, device="cpu")  # strict=True
+    assert cfg["model_name"] == name and not model.training
