@@ -52,7 +52,23 @@ Phases, each of which must pass:
    launches, images/s, idle share and conv times (its conv list's shapes
    checked against the plain version as for the zoo), and each checked in
    f32 against the same protocol on a CPU copy (TTA on a 256^2 crop at
-   patch 256, to keep the CPU side short).
+   patch 256, to keep the CPU side short);
+10. serve (after the train path, on its trained UNet): a background
+   checkpoint write (``train.checkpoint.AsyncCheckpointWriter``) holds the
+   weights of its ``submit`` though a train step follows at once, and the
+   host time one save blocks the loop is timed, synchronous against
+   background; the trained weights go out as a port checkpoint, a
+   state-dict ``.pth`` (``compat.torch_export``) and a whole-module
+   ``.pth`` under the reference's class identity, each is read back
+   through ``load_model_any`` and serves 2 synthetic DRIVE-geometry
+   images (one uint8, one uint16 array) through ``cli.predict.predict_arrays``
+   (tiled, patch 512, bf16), with identical maps from the three; the JAX
+   ``.ckpt`` fixture in ``tests/torch_port_data`` is read by the port's
+   msgpack reader and its f32 forward held against the JAX output within
+   1e-3; ``cli.evaluate.evaluate_arrays`` runs on the model read from the
+   module ``.pth``; and the sliding-window, whole-image and TTA modes of
+   ``predict_arrays`` run in bf16 on both images and in f32 on a 256^2 crop
+   against a CPU copy.  Launches are read around each.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -178,6 +194,17 @@ WHOLE_IMAGE_CONV_CASES = [
     for d, cin, cout in ((1, 3, 64), (1, 64, 64), (2, 64, 128), (4, 128, 256),
                          (8, 256, 512), (16, 512, 1024), (16, 1024, 1024),
                          (32, 512, 512))]
+
+# The serve phase: images served per call (one uint8, one uint16), the
+# crop of the f32 checks against a CPU copy (the sliding window at patch
+# 128 on it), saves timed per mode, and the JAX .ckpt fixture with its
+# JAX output (tests/test_torch_port_ckpt_interop.write_jax_fixture).
+SERVE_IMAGES, SERVE_CROP, SERVE_CROP_SLIDING, SERVE_SAVE_REPS = 2, 256, 128, 3
+JAX_FIXTURE = os.path.join(ROOT, "tests", "torch_port_data",
+                           "transfusenet_jax.ckpt")
+JAX_FIXTURE_OUT = os.path.join(ROOT, "tests", "torch_port_data",
+                               "transfusenet_jax_out.npy")
+FIXTURE_TOL = 1e-3
 
 # (spatial size, Cin, Cout) of UNet's 18 3x3 convs in forward order.
 UNET_CONVS = [
@@ -910,19 +937,21 @@ def reset_counts():
     dice_fused.counter.reset()
 
 
-def f32_against_cpu_copy(model, fn):
+def f32_against_cpu_copy(model, fn, **predictor_kwargs):
     """max |dprob| between ``fn(predictor)`` on the card and on a CPU copy
     of ``model``, both f32 (on the CPU the wrappers take their plain
-    versions), and the reference's std."""
+    versions), and the reference's std; ``predictor_kwargs`` go to both
+    predictors."""
     import copy
 
     import torch
 
     from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
 
-    got = fn(Predictor(model, compute_dtype=torch.float32, device="cuda"))
+    got = fn(Predictor(model, compute_dtype=torch.float32, device="cuda",
+                       **predictor_kwargs))
     cpu = Predictor(copy.deepcopy(model).cpu(), compute_dtype=torch.float32,
-                    device="cpu")
+                    device="cpu", **predictor_kwargs)
     want = fn(cpu)
     del cpu
     diff = float((got.cpu() - want).abs().max())
@@ -1286,6 +1315,273 @@ def phase_train_path(report, state):
     profile_train(report, model, images, labels, val)
 
 
+def save_reference_module(model, path):
+    """``torch.save`` of a copy of ``model`` (the port's UNet) as a
+    reference user's whole-module ``.pth`` holds it: an instance of a
+    class ``UNetFamily.UNet.UNet``, registered in ``sys.modules`` for the
+    pickling only."""
+    import types
+
+    import torch
+
+    from jcfszxc_unet_tpu_torch.models import MODEL_REGISTRY
+
+    cls = type("UNet", (MODEL_REGISTRY["UNet.UNet"],),
+               {"__module__": "UNetFamily.UNet", "__qualname__": "UNet"})
+    ref = cls()
+    ref.load_state_dict(model.state_dict())
+    mod = types.ModuleType("UNetFamily.UNet")
+    mod.UNet = cls
+    saved = {n: sys.modules.get(n) for n in ("UNetFamily", "UNetFamily.UNet")}
+    sys.modules["UNetFamily"] = types.ModuleType("UNetFamily")
+    sys.modules["UNetFamily.UNet"] = mod
+    try:
+        torch.save(ref.eval(), path)
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def phase_serve(report, state):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.cli.predict import predict_arrays
+    from jcfszxc_unet_tpu_torch.compat.torch_export import (
+        export_torch_state_dict,
+    )
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+    from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+    from jcfszxc_unet_tpu_torch.train.state import TrainState
+    from jcfszxc_unet_tpu_torch.train.trainer import make_batch_step_fn
+
+    dev = torch.device("cuda")
+    trained = state["train_model"]
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "serve")
+    os.makedirs(out_dir, exist_ok=True)
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0}
+    checks, out = {}, {}
+
+    def counted(fn):
+        """fn() with the kernels' launches read around it (and summed
+        into the serve path's)."""
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts()
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+        return res, launches, bodies
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # 1. The background writer: the file holds the state at submit, though
+    # a train step updates the parameters in place right after it.
+    model = copy.deepcopy(trained).train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(4)
+    imgs = torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3), device=dev,
+                      generator=g)
+    labs = (torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 1),
+                       device=dev, generator=g) > 0.8).float()
+    step = make_batch_step_fn(n_classes=1, compute_dtype=torch.bfloat16)
+    st = TrainState(model, make_optimizer(model.parameters(), 1e-3))
+    snap_path = os.path.join(out_dir, "snapshot.pt")
+    with ckpt.AsyncCheckpointWriter() as writer:
+        writer.submit(ckpt.save_state, snap_path, "UNet.UNet", {},
+                      model.state_dict())
+        step(st, imgs, labs)
+    saved = torch.load(snap_path, weights_only=True)["state_dict"]
+    checks["writer_snapshot_bit_exact"] = sorted(saved) == sorted(before) \
+        and all(torch.equal(saved[k], v.cpu()) for k, v in before.items())
+    checks["writer_step_moved_parameters"] = any(
+        not torch.equal(p.detach(), before[k])
+        for k, p in model.named_parameters())
+    del model, st, before, saved
+
+    # The host time one best-checkpoint save blocks the loop.
+    sync_ms, bg_ms, bg_done_ms = [], [], []
+    for _ in range(SERVE_SAVE_REPS):
+        _, dt = host_s(lambda: ckpt.save_model(snap_path, "UNet.UNet", {},
+                                               trained))
+        sync_ms.append(dt * 1e3)
+    with ckpt.AsyncCheckpointWriter() as writer:
+        for _ in range(SERVE_SAVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            writer.submit(ckpt.save_state, snap_path, "UNet.UNet", {},
+                          trained.state_dict())
+            t1 = time.perf_counter()
+            writer.wait()
+            bg_ms.append((t1 - t0) * 1e3)
+            bg_done_ms.append((time.perf_counter() - t0) * 1e3)
+    out["save_blocking_ms"] = {
+        "sync": sync_ms, "background": bg_ms,
+        "background_until_written": bg_done_ms,
+        "bytes": os.path.getsize(snap_path)}
+    print(f"[serve] one UNet save ({os.path.getsize(snap_path) / 1e6:.1f} "
+          f"MB) blocks the loop: sync "
+          f"{[round(v, 2) for v in sync_ms]} ms, background "
+          f"{[round(v, 2) for v in bg_ms]} ms (written after "
+          f"{[round(v, 2) for v in bg_done_ms]} ms); snapshot bit exact "
+          f"{checks['writer_snapshot_bit_exact']}", flush=True)
+
+    # 2. Every format on the card: the same weights, the same kernels, the
+    # same maps.
+    paths = {fmt: os.path.join(out_dir, name) for fmt, name in (
+        ("port", "unet.pt"), ("pth_state_dict", "unet_state_dict.pth"),
+        ("pth_module", "unet_module.pth"))}
+    ckpt.save_model(paths["port"], "UNet.UNet", {}, trained)
+    export_torch_state_dict(trained, paths["pth_state_dict"])
+    save_reference_module(trained, paths["pth_module"])
+    images, masks, labels = synthetic_drive(SERVE_IMAGES, IMG_H, IMG_W,
+                                            seed=5)
+    raws = [np.round(images[0] * 255).astype(np.uint8),
+            np.round(images[1] * 65535).astype(np.uint16)]
+    n_chunks = SERVE_IMAGES * math.ceil(grid_count(IMG_H, IMG_W, PATCH)
+                                        / INFER_BATCH)
+    want_sd = {k: v.detach() for k, v in trained.state_dict().items()}
+    maps, models = {}, {}
+    for fmt, path in paths.items():
+        (m, cfg), load_s = host_s(lambda: ckpt.load_model_any(path, dev))
+        sd = m.state_dict()
+        pred = Predictor(m, compute_dtype=torch.bfloat16, patch_size=PATCH,
+                         inference_batch_size=INFER_BATCH, device=dev)
+        res, launches, bodies = counted(
+            lambda: predict_arrays(pred, raws, "tiled", PATCH))
+        _, dt = host_s(lambda: predict_arrays(pred, raws, "tiled", PATCH))
+        maps[fmt] = np.stack(res)
+        models[fmt] = m
+        out[fmt] = {"bytes": os.path.getsize(path), "load_ms": load_s * 1e3,
+                    "config": cfg, "launches": launches, "conv_bodies": bodies,
+                    "images_per_s": SERVE_IMAGES / dt}
+        checks[f"{fmt}_same_weights"] = cfg["model_name"] == "UNet.UNet" \
+            and sorted(sd) == sorted(want_sd) \
+            and all(torch.equal(sd[k], v) for k, v in want_sd.items())
+        checks[f"{fmt}_conv_launches_18_per_chunk"] = \
+            launches["conv3x3_affine_relu"] == 18 * n_chunks and bodies == {
+                "wgmma": 17 * n_chunks, "mma_sync": n_chunks}
+        print(f"[serve] {fmt}: load {load_s * 1e3:.1f} ms, tiled bf16 "
+              f"{SERVE_IMAGES / dt:.2f} images/s, launches {launches}",
+              flush=True)
+    ref = maps["port"]
+    checks["maps_shape_finite_in_0_1"] = bool(
+        ref.shape == (SERVE_IMAGES, IMG_H, IMG_W) and np.isfinite(ref).all()
+        and ref.min() >= 0 and ref.max() <= 1)
+    out["max_abs_map_diff"] = {fmt: float(np.abs(m - ref).max())
+                               for fmt, m in maps.items()}
+    checks["three_formats_identical_maps"] = all(
+        v == 0.0 for v in out["max_abs_map_diff"].values())
+    out["prob_std"] = float(ref.std())
+    for fmt in ("port", "pth_state_dict"):
+        del models[fmt]
+    model = models["pth_module"]
+
+    # 3. A real JAX .ckpt, through the port's msgpack reader, in f32.
+    (fm, fcfg), load_s = host_s(lambda: ckpt.load_model_any(JAX_FIXTURE, dev))
+    x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+
+    def fixture_forward():
+        with torch.inference_mode():
+            y = fm(torch.as_tensor(x, device=dev).permute(0, 3, 1, 2))
+        return y.float().permute(0, 2, 3, 1).cpu().numpy()
+
+    got, launches, _ = counted(fixture_forward)
+    want = np.load(JAX_FIXTURE_OUT)
+    diff = float(np.abs(got - want).max())
+    out["jax_fixture"] = {"load_ms": load_s * 1e3, "config": fcfg,
+                          "launches": launches, "max_abs_diff": diff,
+                          "tolerance": FIXTURE_TOL,
+                          "jax_output_std": float(want.std())}
+    checks["jax_fixture_within_1e-3"] = bool(
+        got.shape == want.shape and np.isfinite(diff) and diff <= FIXTURE_TOL)
+    checks["jax_fixture_6_conv_launches"] = \
+        launches["conv3x3_affine_relu"] == 6
+    print(f"[serve] JAX .ckpt fixture: load {load_s * 1e3:.1f} ms, f32 max "
+          f"|d| {diff:.2e} against the JAX output (tolerance {FIXTURE_TOL}), "
+          f"launches {launches}", flush=True)
+    del fm
+
+    # 4. The eval CLI's protocol on the model read from the module .pth.
+    res, launches, _ = counted(lambda: evaluate_arrays(
+        model, images, masks, labels, patch_size=PATCH,
+        inference_batch_size=INFER_BATCH, compute_dtype=torch.bfloat16,
+        device=dev))
+    out["evaluate_arrays"] = {"dice": res["dice"], "auc": res["auc"],
+                              "launches": launches}
+    checks["evaluate_dice_auc_finite"] = all(
+        np.isfinite(v) and 0 <= v <= 1 for v in res["dice"] + res["auc"])
+    checks["evaluate_one_dice_launch"] = launches["dice_sums"] == 1
+    print(f"[serve] evaluate_arrays: dice "
+          f"{[round(d, 4) for d in res['dice']]}, auc "
+          f"{[round(a, 4) for a in res['auc']]}, launches {launches}",
+          flush=True)
+
+    # 5. The other modes, in bf16 on the two images, and in f32 on a crop
+    # against a CPU copy.
+    h0, w0 = IMG_H // 2 - SERVE_CROP // 2, IMG_W // 2 - SERVE_CROP // 2
+    crop = raws[0][h0:h0 + SERVE_CROP, w0:w0 + SERVE_CROP]
+    windows = sliding_windows(IMG_H, IMG_W, SLIDING_PATCH, SLIDING_OVERLAP)
+    modes = {  # (Predictor kwargs, predict_arrays kwargs, forwards, crop's)
+        "sliding": ({}, dict(mode="sliding", patch_size=SLIDING_PATCH,
+                             overlap=SLIDING_OVERLAP),
+                    SERVE_IMAGES * math.ceil(windows / INFER_BATCH),
+                    dict(mode="sliding", patch_size=SERVE_CROP_SLIDING,
+                         overlap=SLIDING_OVERLAP)),
+        "spatial": ({}, dict(mode="spatial"), SERVE_IMAGES,
+                    dict(mode="spatial")),
+        "tiled_tta": ({"tta": True}, dict(mode="tiled", patch_size=PATCH),
+                      8 * n_chunks,
+                      dict(mode="tiled", patch_size=SERVE_CROP)),
+    }
+    for name, (pk, ak, forwards, crop_ak) in modes.items():
+        pred = Predictor(model, compute_dtype=torch.bfloat16,
+                         patch_size=PATCH, inference_batch_size=INFER_BATCH,
+                         device=dev, **pk)
+        res, launches, bodies = counted(lambda: predict_arrays(pred, raws,
+                                                               **ak))
+        _, dt = host_s(lambda: predict_arrays(pred, raws, **ak))
+        res = np.stack(res)
+        diff, std = f32_against_cpu_copy(
+            model, lambda p: torch.as_tensor(np.stack(
+                predict_arrays(p, [crop], **crop_ak))),
+            patch_size=SERVE_CROP, inference_batch_size=INFER_BATCH, **pk)
+        out[name] = {"forwards": forwards, "launches": launches,
+                     "conv_bodies": bodies, "images_per_s": SERVE_IMAGES / dt,
+                     "f32_max_abs_dprob": diff, "f32_prob_std": std}
+        checks[f"{name}_maps_finite_in_0_1"] = bool(
+            res.shape == (SERVE_IMAGES, IMG_H, IMG_W)
+            and np.isfinite(res).all() and res.min() >= 0 and res.max() <= 1)
+        checks[f"{name}_conv_launches_18_per_forward"] = \
+            launches["conv3x3_affine_relu"] == 18 * forwards
+        checks[f"{name}_f32_within_1e-3"] = bool(np.isfinite(diff)
+                                                 and diff <= 1e-3)
+        print(f"[serve] {name}: {forwards} forwards, launches {launches}, "
+              f"{SERVE_IMAGES / dt:.2f} images/s; f32 on a {SERVE_CROP}^2 "
+              f"crop vs CPU max |dprob| {diff:.2e} (std {std:.3e})",
+              flush=True)
+
+    out["launches"] = dict(launches_sum)
+    out["checks"] = checks
+    report["serve"] = out
+    state["serve_launches"] = launches_sum
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"serve checks failed: {bad}")
+
+
 def profile_train(report, model, images, labels, val):
     """Device time by kernel of one train step and of one val pass, and
     the device's idle share against each one's untraced wall time."""
@@ -1487,7 +1783,8 @@ def kernels_line(state):
         by_path = {"eval": row["launches"],
                    "train": state["train_launches"][row["name"]],
                    "zoo": state["zoo_launches"][row["name"]],
-                   "protocols": state["protocol_launches"][row["name"]]}
+                   "protocols": state["protocol_launches"][row["name"]],
+                   "serve": state["serve_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
@@ -1517,7 +1814,7 @@ def main() -> None:
     state = {}
     t_start = time.perf_counter()
     failed = []
-    needs = {"train_val_f32": "train_path"}
+    needs = {"train_val_f32": "train_path", "serve": "train_path"}
     for name, phase in (("build", phase_build),
                         ("main_path", phase_main_path),
                         ("f32_end_to_end", phase_f32_end_to_end),
@@ -1525,6 +1822,7 @@ def main() -> None:
                         ("zoo_eval", phase_zoo_eval),
                         ("eval_protocols", phase_eval_protocols),
                         ("train_path", phase_train_path),
+                        ("serve", phase_serve),
                         ("train_val_f32", phase_train_val_f32),
                         ("probe", phase_probe)):
         if needs.get(name) in failed:

@@ -8,7 +8,9 @@ at ``--overlap``, on ``--num-images`` or ``--image-indices``) and
 dihedral-8 test-time augmentation to the two patch protocols.
 
 ``eval_model`` loads a split and calls :func:`evaluate_arrays`, which works
-on arrays alone, so a caller without an h5 file runs the same code.
+on arrays alone, so a caller without an h5 file runs the same code.  ``-m``
+takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
+(``train.checkpoint.load_model_any``).
 
 ``--s2d`` and ``--devices`` > 1 are not ported yet and exit with a message
 that says so.
@@ -203,8 +205,8 @@ def get_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Predict on full images using the trained model")
     parser.add_argument("--model", "-m", type=str, default="best_model.ckpt",
-                        help="Path to the model checkpoint (the port's "
-                             "torch.save format)")
+                        help="Path to the model checkpoint: the port's, a "
+                             "JAX .ckpt or a reference .pth")
     parser.add_argument("--data-file", "-d", type=str,
                         default="./data/test_eye_dataset.h5",
                         help="Path to the h5 dataset")
@@ -279,10 +281,10 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     os.makedirs("demo", exist_ok=True)
     logging.info(f"Using device: {device}")
-    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model_any
 
     logging.info(f"Loading model from {args.model}")
-    model, _ = load_model(args.model, device=device)
+    model, _ = load_model_any(args.model, device, patch_size=args.patch_size)
     eval_model(
         model=model,
         input_data=args.data_file,

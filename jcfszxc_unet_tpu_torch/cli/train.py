@@ -17,8 +17,14 @@ models exit with the list of those that take it.  BCDU models get
 ``N`` = the patch size, as in the JAX CLI.  Not ported yet, refused with a
 message that says so: ``--devices`` > 1, ``--s2d``, ``--profile-dir`` and
 ``--remat``.
-Checkpoints are written synchronously; ``--sync-checkpoints`` is accepted
-so that JAX command lines parse, and has no effect.
+
+``--load`` takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
+(``train.checkpoint.load_model_any``); ``--resume`` needs a port checkpoint
+(``--latest-path``), since a JAX file's optax state is not mapped to the
+port's RMSprop.  Checkpoints are written in the background
+(``train.checkpoint.AsyncCheckpointWriter``: snapshot on the device at the
+end of the epoch, host copy and disk write on a worker thread);
+``--sync-checkpoints`` writes them on the training loop instead.
 """
 
 from __future__ import annotations
@@ -117,15 +123,18 @@ def train_arrays(model, images, masks, labels, *,
                  visualize: bool = True, latest_path: str | None = None,
                  resume_from: str | None = None, precise_bn: int = 0,
                  augment: bool = False, metrics_file: str | None = None,
-                 device="cuda"):
+                 async_checkpoints: bool = True, device="cuda"):
     """The reference training protocol on arrays: images (N, H, W, C),
     masks and labels (N, H, W), float in [0, 1].
 
     Shuffled val split, FOV-guided random patches, 1/2 BCE + 1/2 Dice,
     clipped RMSprop with the plateau schedule, early stopping on the val
     Dice, best checkpoint on improvement.  ``model`` is trained in place
-    on ``device``.  Returns ``{"best_dice", "history"}``, one history
-    record per epoch (the ``--metrics-file`` fields plus the seconds of
+    on ``device``.  With ``async_checkpoints`` an epoch's checkpoints
+    (best and ``latest_path``) go to the background writer as one
+    submission at the epoch's end; all are on disk when this returns.
+    Returns ``{"best_dice", "history"}``, one history record per epoch
+    (the ``--metrics-file`` fields plus the seconds of
     the train steps and of the validation pass, each ending in a device
     sync).
     """
@@ -205,105 +214,133 @@ def train_arrays(model, images, masks, labels, *,
         seed + DATA_SEED_OFFSET)
     throughput = Throughput()  # steady-state patches/s, first epoch dropped
 
-    while True:
-        epoch += 1
-        if max_epochs is not None and epoch > max_epochs:
-            break
-        _sync(dev)
-        t0 = time.perf_counter()
-        train_metrics = epoch_fn(state, train_images, train_labels,
-                                 train_map_dev, generator)
-        if precise_bn_fn is not None:
-            precise_bn_fn(model, train_images, train_map_dev, generator)
-        _sync(dev)
-        t1 = time.perf_counter()
-        metrics, probs = val_fn(val_imgs, val_labs)
-        dice = float(metrics["dice"])  # syncs
-        t2 = time.perf_counter()
-        epoch_loss = float(train_metrics["epoch_loss"])
-        skipped = int(train_metrics["skipped"])
-        dice_avg = float(metrics["dice_avg"])
-        pps = throughput.tick(steps * batch_size)
+    # An epoch's checkpoints (best, then --latest-path) share one snapshot
+    # of the weights, taken when the epoch's last one is queued; with the
+    # writer that is one submission, so the epoch never waits on a write
+    # of its own.
+    writer = ckpt.AsyncCheckpointWriter() if async_checkpoints else None
+    saves = []  # this epoch's (path, extra)
 
-        dice_history.append(dice)
-        mean_prob = float(probs.mean()) if n_val else None
-        if bn_saturation_signature(dice_history, mean_prob):
-            logging.warning(
-                f"Validation Dice collapsed to {dice:.3f} after reaching "
-                f"{max(dice_history[:-1]):.3f} with the val set's mean "
-                f"sigmoid output at "
-                f"{'n/a' if mean_prob is None else f'{mean_prob:.3f}'} — the "
-                "signature of BN running-statistics lag (eval-mode logit "
-                "saturation; the train-mode forward is still learning)."
-                + ("" if precise_bn else
-                   "  Re-run with --precise-bn 8 to recalibrate the running "
-                   "stats each epoch."))
+    def write_all(jobs, state_dict):
+        for path, extra in jobs:
+            ckpt.save_state(path, model_name, model_kwargs, state_dict, extra)
 
-        lr = get_current_lr(optimizer)
-        new_lr = scheduler.step(dice, lr)
-        if new_lr != lr:
-            set_current_lr(optimizer, new_lr)
-            logging.info(f"Plateau scheduler: lr {lr:.2e} -> {new_lr:.2e}")
-
-        stop = False
-        if dice > best_dice:
-            best_dice = dice
-            patience_counter = 0
-            ckpt.save_model(save_path, model_name, model_kwargs, model)
+    def flush_saves():
+        if not saves:
+            return
+        jobs, saves[:] = list(saves), []
+        if writer is None:
+            write_all(jobs, model.state_dict())
         else:
-            patience_counter += 1
-            print(f"Dice score did not improve. Patience: "
-                  f"{patience_counter}/{early_stopping_patience}")
-            if patience_counter >= early_stopping_patience:
-                print(f"Early stopping triggered after {epoch} epochs. "
-                      f"Best dice score: {best_dice:.4f}")
-                stop = True
+            writer.submit(write_all, jobs, model.state_dict())
 
-        record = {"epoch": epoch, "lr": new_lr, "loss": epoch_loss / steps,
-                  "dice": dice, "dice_avg": dice_avg, "best_dice": best_dice,
-                  "patches_per_sec": pps, "skipped_steps": skipped,
-                  "train_seconds": t1 - t0, "val_seconds": t2 - t1}
-        history.append(record)
-        if stop:
-            break
+    try:
+        while True:
+            epoch += 1
+            if max_epochs is not None and epoch > max_epochs:
+                break
+            _sync(dev)
+            t0 = time.perf_counter()
+            train_metrics = epoch_fn(state, train_images, train_labels,
+                                     train_map_dev, generator)
+            if precise_bn_fn is not None:
+                precise_bn_fn(model, train_images, train_map_dev, generator)
+            _sync(dev)
+            t1 = time.perf_counter()
+            metrics, probs = val_fn(val_imgs, val_labs)
+            dice = float(metrics["dice"])  # syncs
+            t2 = time.perf_counter()
+            epoch_loss = float(train_metrics["epoch_loss"])
+            skipped = int(train_metrics["skipped"])
+            dice_avg = float(metrics["dice_avg"])
+            pps = throughput.tick(steps * batch_size)
 
-        print(f"Epoch {epoch} - "
-              f"LR: {new_lr:.2e} - "
-              f"Loss: {epoch_loss / steps:.4g} - "
-              f"Dice: {dice:.4g} - "
-              f"Avg Dice: {dice_avg:.4g} - "
-              f"Best Dice: {best_dice:.4g}"
-              + ((f" - {pps:.1f} patches/s" if pps < 10 else
-                  f" - {pps:.0f} patches/s") if pps else "")
-              + (f" - skipped {skipped} NaN steps" if skipped else ""))
+            dice_history.append(dice)
+            mean_prob = float(probs.mean()) if n_val else None
+            if bn_saturation_signature(dice_history, mean_prob):
+                logging.warning(
+                    f"Validation Dice collapsed to {dice:.3f} after reaching "
+                    f"{max(dice_history[:-1]):.3f} with the val set's mean "
+                    f"sigmoid output at "
+                    f"{'n/a' if mean_prob is None else f'{mean_prob:.3f}'}"
+                    " — the signature of BN running-statistics lag (eval-mode "
+                    "logit saturation; the train-mode forward is still "
+                    "learning)."
+                    + ("" if precise_bn else
+                       "  Re-run with --precise-bn 8 to recalibrate the "
+                       "running stats each epoch."))
 
-        if latest_path:
-            ckpt.save_model(
-                latest_path, model_name, model_kwargs, model,
-                extra={"optimizer": optimizer.state_dict(),
-                       "progress": {
-                           "epoch": epoch,
-                           "best_dice": best_dice,
-                           "patience_counter": patience_counter,
-                           "scheduler_best": scheduler.best,
-                           "scheduler_bad": scheduler.num_bad_epochs,
-                           "scheduler_cooldown": scheduler.cooldown_counter,
-                       }})
+            lr = get_current_lr(optimizer)
+            new_lr = scheduler.step(dice, lr)
+            if new_lr != lr:
+                set_current_lr(optimizer, new_lr)
+                logging.info(f"Plateau scheduler: lr {lr:.2e} -> {new_lr:.2e}")
 
-        if metrics_file:
-            with open(metrics_file, "a") as f:
-                f.write(json.dumps({k: record[k] for k in (
-                    "epoch", "lr", "loss", "dice", "dice_avg", "best_dice",
-                    "patches_per_sec", "skipped_steps")}) + "\n")
+            stop = False
+            if dice > best_dice:
+                best_dice = dice
+                patience_counter = 0
+                saves.append((save_path, None))
+            else:
+                patience_counter += 1
+                print(f"Dice score did not improve. Patience: "
+                      f"{patience_counter}/{early_stopping_patience}")
+                if patience_counter >= early_stopping_patience:
+                    print(f"Early stopping triggered after {epoch} epochs. "
+                          f"Best dice score: {best_dice:.4f}")
+                    stop = True
 
-        if visualize and n_val:
-            from jcfszxc_unet_tpu_torch.utils.vis import save_triptych
+            record = {"epoch": epoch, "lr": new_lr,
+                      "loss": epoch_loss / steps, "dice": dice,
+                      "dice_avg": dice_avg, "best_dice": best_dice,
+                      "patches_per_sec": pps, "skipped_steps": skipped,
+                      "train_seconds": t1 - t0, "val_seconds": t2 - t1}
+            history.append(record)
+            if stop:
+                break
 
-            sample_num = min(100, val_imgs.shape[0] - 1)
-            save_triptych(val_imgs[sample_num].cpu().numpy(),
-                          probs[sample_num, ..., 0].cpu().numpy(),
-                          val_labs[sample_num, ..., 0].cpu().numpy(),
-                          f"visualizations/{epoch:03d}_{sample_num:03d}.png")
+            print(f"Epoch {epoch} - "
+                  f"LR: {new_lr:.2e} - "
+                  f"Loss: {epoch_loss / steps:.4g} - "
+                  f"Dice: {dice:.4g} - "
+                  f"Avg Dice: {dice_avg:.4g} - "
+                  f"Best Dice: {best_dice:.4g}"
+                  + ((f" - {pps:.1f} patches/s" if pps < 10 else
+                      f" - {pps:.0f} patches/s") if pps else "")
+                  + (f" - skipped {skipped} NaN steps" if skipped else ""))
+
+            if latest_path:
+                saves.append((latest_path, {
+                    "optimizer": optimizer.state_dict(),
+                    "progress": {
+                        "epoch": epoch,
+                        "best_dice": best_dice,
+                        "patience_counter": patience_counter,
+                        "scheduler_best": scheduler.best,
+                        "scheduler_bad": scheduler.num_bad_epochs,
+                        "scheduler_cooldown": scheduler.cooldown_counter,
+                    }}))
+
+            if metrics_file:
+                with open(metrics_file, "a") as f:
+                    f.write(json.dumps({k: record[k] for k in (
+                        "epoch", "lr", "loss", "dice", "dice_avg", "best_dice",
+                        "patches_per_sec", "skipped_steps")}) + "\n")
+
+            if visualize and n_val:
+                from jcfszxc_unet_tpu_torch.utils.vis import save_triptych
+
+                sample_num = min(100, val_imgs.shape[0] - 1)
+                save_triptych(
+                    val_imgs[sample_num].cpu().numpy(),
+                    probs[sample_num, ..., 0].cpu().numpy(),
+                    val_labs[sample_num, ..., 0].cpu().numpy(),
+                    f"visualizations/{epoch:03d}_{sample_num:03d}.png")
+            flush_saves()  # one snapshot, one submission per epoch
+    finally:
+        flush_saves()  # the saves of an epoch that stopped early
+        if writer is not None:
+            writer.close()  # re-raises a failed write; files on disk
     return {"best_dice": best_dice, "history": history}
 
 
@@ -336,7 +373,8 @@ def get_args(argv=None):
     parser.add_argument("--learning-rate", "-l", metavar="LR", type=float,
                         default=1e-6, help="Learning rate", dest="lr")
     parser.add_argument("--load", "-f", type=str, default=False,
-                        help="Load model from a port checkpoint")
+                        help="Load the model from a checkpoint: the port's, "
+                             "a JAX .ckpt or a reference .pth")
     parser.add_argument("--validation", "-v", dest="val", type=float,
                         default=10.0,
                         help="Percent of the data used as validation (0-100)")
@@ -386,16 +424,19 @@ def get_args(argv=None):
                              "+ scheduler + progress) here every epoch")
     parser.add_argument("--resume", type=str, default=None,
                         help="Exact-resume from a --latest-path checkpoint "
-                             "(implies loading its params too)")
+                             "of the port (implies loading its params too)")
     parser.add_argument("--precise-bn", type=int, default=0, metavar="K",
                         help="After each epoch, re-estimate the BN running "
                              "statistics as the mean of pure batch "
                              "statistics over K fresh training batches "
                              "(off by default, not in the reference)")
     parser.add_argument("--sync-checkpoints", action="store_true",
-                        help="No effect: accepted so that JAX command lines "
-                             "parse; the port always writes checkpoints "
-                             "synchronously")
+                        help="Block training on each checkpoint write. "
+                             "Default (background) overlaps the host copy "
+                             "and the disk write with the next epoch, so a "
+                             "hard kill (SIGKILL/OOM) can lose the last "
+                             "epoch's queued best/latest writes; pass this "
+                             "flag for strict durability")
     return parser.parse_args(argv)
 
 
@@ -414,12 +455,18 @@ def main(argv=None):
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
 
+    if args.resume and ckpt.checkpoint_format(args.resume) == "jax":
+        raise SystemExit(
+            f"{args.resume} is a JAX .ckpt: --load takes it, --resume needs "
+            f"a port checkpoint (its optax state is not mapped to RMSprop)")
     if args.resume and not args.load:
         args.load = args.resume  # --resume implies loading params from it
     model = None
     if args.load:
-        model, cfg = ckpt.load_model(args.load, device=device)
-        model_name, model_kwargs = cfg["model_name"], cfg["model_kwargs"]
+        model, cfg = ckpt.load_model_any(args.load, device,
+                                         patch_size=args.patch_size)
+        model_name = cfg["model_name"]
+        model_kwargs = ckpt.port_kwargs(cfg["model_kwargs"])
         logging.info(f"Model loaded from {args.load}")
     else:
         try:
@@ -468,6 +515,7 @@ def main(argv=None):
         precise_bn=args.precise_bn,
         augment=args.augment,
         metrics_file=args.metrics_file,
+        async_checkpoints=not args.sync_checkpoints,
         device=device,
     )
 

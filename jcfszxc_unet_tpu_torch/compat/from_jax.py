@@ -404,7 +404,8 @@ def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
         a = np.asarray(arr)
         if a.dtype != np.int64:
             a = a.astype(np.float32)
-        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+        # (ascontiguousarray alone makes a 0-d array 1-d)
+        out[key] = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
 
     def leaf(cls, prefix, params, stats):
         def put(name, arr):

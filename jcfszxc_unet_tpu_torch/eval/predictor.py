@@ -1,7 +1,8 @@
 """Serving-oriented prediction API, counterpart of
 ``jcfszxc_unet_tpu/eval/predictor.py``:
 
-    p = Predictor.from_checkpoint("best_model.pt")     # on the card
+    p = Predictor.from_checkpoint("best_model.pt")     # on the card; also
+                                                       # a .ckpt or a .pth
     probs = p.predict_images(images_nhwc)              # tiled + stitched
     probs1 = p.predict_full_image(image_hwc)           # sliding window
     probs2 = p.predict_spatial(images_nhwc)            # whole image
@@ -45,10 +46,13 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, path: str, device="cuda", **kwargs
                         ) -> "Predictor":
-        """Build from a port checkpoint (train/checkpoint.py)."""
-        from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+        """Build from a port checkpoint, a JAX ``.ckpt`` or a reference
+        ``.pth`` (``train.checkpoint.load_model_any``; a BCDU model gets
+        ``N`` = ``patch_size``, 512 by default)."""
+        from jcfszxc_unet_tpu_torch.train.checkpoint import load_model_any
 
-        model, _ = load_model(path, device=resolve_device(device))
+        model, _ = load_model_any(path, device=resolve_device(device),
+                                  patch_size=kwargs.get("patch_size", 512))
         return cls(model, device=device, **kwargs)
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports nothing of JAX, Flax, Optax,
-the JAX package or the reference shims at the repository root."""
+msgpack, the JAX package or the reference shims at the repository root."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "jcfszxc_unet_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "jcfszxc_unet_tpu",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "jcfszxc_unet_tpu",
              "UNetFamily", "utils")
 
 
@@ -35,6 +35,12 @@ def _forbidden(name: str) -> bool:
 def test_no_forbidden_import_in_source(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_scan_covers_the_checkpoint_interop_modules():
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"compat/msgpack.py", "compat/torch_import.py",
+            "compat/torch_export.py", "cli/predict.py"} <= scanned
 
 
 def test_package_imports_with_jax_blocked():

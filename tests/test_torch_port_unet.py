@@ -127,11 +127,13 @@ def test_checkpoint_roundtrip_and_refusal(unet, tmp_path):
     assert not model.training
     for k, v in port.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
-    # a JAX msgpack checkpoint is refused with a clear message
+    # load_model reads the port's own file only: a JAX msgpack checkpoint
+    # is refused with a message that names load_model_any, which reads it
     jpath = str(tmp_path / "jax.ckpt")
     jax_ckpt.save_model(jpath, "UNet.UNet", {}, variables["params"],
                         variables["batch_stats"])
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match=r"it is a JAX msgpack \.ckpt\); "
+                                         "load_model_any also reads"):
         load_model(jpath, device="cpu")
 
 

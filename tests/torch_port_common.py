@@ -2,6 +2,8 @@
 and random BatchNorm statistics, drawn with numpy from a seed, and its
 weights carried into the port."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -252,3 +254,69 @@ def check_train_cli(name, train_h5, tmp_path, monkeypatch):
     assert np.isfinite(rec["loss"]) and 0 <= rec["dice"] <= 1
     model, cfg = load_model(best, device="cpu")  # strict=True
     assert cfg["model_name"] == name and not model.training
+
+
+# ---------------------------------------------------------------------------
+# The JAX .ckpt fixture (tests/torch_port_data/): a TransFuseNet written by
+# the JAX package's save_model, and the JAX output on fixture_input().
+# test_torch_port_ckpt_interop.write_jax_fixture rewrites both.
+# ---------------------------------------------------------------------------
+
+DATA_DIR = Path(__file__).resolve().parent / "torch_port_data"
+JAX_FIXTURE = DATA_DIR / "transfusenet_jax.ckpt"
+JAX_FIXTURE_OUT = DATA_DIR / "transfusenet_jax_out.npy"
+FIXTURE_MODEL = "RetinaLiteNet.TransFuseNet"
+
+
+def fixture_input():
+    return np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+
+
+def jax_fixture():
+    """(JAX module, numpy variables, config) of the fixture, read by the
+    JAX package (flax)."""
+    from jcfszxc_unet_tpu.train.checkpoint import load_model as jax_load
+
+    model, variables, config = jax_load(str(JAX_FIXTURE))
+    return model, jax.tree.map(np.asarray, variables), config
+
+
+def random_variables(name, seed=0, hw=32, **kwargs):
+    """(JAX module, numpy variables) of registry ``name`` with the init's
+    shapes and dtypes and values drawn with numpy: no init is compiled or
+    run (for tests that compare trees, not forwards)."""
+    model = jax_create_model(name, **kwargs)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, hw, hw, 3), jnp.float32),
+                           train=False))
+    rng = np.random.RandomState(seed)
+    return model, jax.tree.map(
+        lambda s: (0.5 + rng.rand(*s.shape)).astype(s.dtype), shapes)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def assert_same_tree(got, want):
+    """Same keys, and each leaf of the same dtype, shape and bytes."""
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, np.ndarray | np.generic):
+            w = np.asarray(w)
+            if w.dtype.name == "bfloat16":
+                assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
+                assert g.view(torch.int16).numpy().tobytes() == w.tobytes(), k
+                continue
+            g = np.asarray(g)
+            assert (g.dtype, g.shape) == (w.dtype, w.shape), k
+            assert g.tobytes() == w.tobytes(), k
+        else:
+            assert type(g) is type(w) and g == w, k
