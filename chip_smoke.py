@@ -68,7 +68,24 @@ Phases, each of which must pass:
    1e-3; ``cli.evaluate.evaluate_arrays`` runs on the model read from the
    module ``.pth``; and the sliding-window, whole-image and TTA modes of
    ``predict_arrays`` run in bf16 on both images and in f32 on a 256^2 crop
-   against a CPU copy.  Launches are read around each.
+   against a CPU copy.  Launches are read around each;
+11. fractal (after train_val_f32): ``train.fractal.fractal_train_arrays``
+   (what ``cli.train_demo`` runs) trains full-width UNet (seeded,
+   calibrated BatchNorm) with the fractal extractor on the train path's 8
+   images at the train-demo defaults (batch 32 over levels [8, 16, 8] of
+   128, 84 and 56 pixel windows resized to 128, bf16, lr 1e-6), FOV masks
+   as targets, 25 % validation on 2 whole 584 x 565 images, 2 epochs of 10
+   steps; the launches are read around it (19 conv launches and one Dice
+   launch per validation pass).  Then the same run with synchronous
+   checkpoints, whose epoch 2 gives the step time with no write in flight;
+   in both, the time from the end of epoch 1's steps to the end of epoch
+   2's (validation and epoch 1's save included); ``box_dimension`` on the card against the CPU; the
+   validation's conv list through kernel 1 against the plain version and
+   cuDNN, and kernel 2 at its shape; the f32 validation through the
+   kernels against the plain versions (probabilities and Dice within
+   1e-3, the probabilities' std over 1e-2); one step and one validation
+   pass profiled; the peak memory; and whether this machine has the host
+   readers (PIL, h5py, joblib).
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -81,6 +98,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -101,6 +119,13 @@ INFER_BATCH = 32
 # Train path: the train CLI's defaults, cut to 8 images and 2 x 10 steps.
 TRAIN_IMAGES, TRAIN_PATCH, TRAIN_BATCH, TRAIN_LR = 8, 128, 32, 1e-6
 TRAIN_VAL, TRAIN_STEPS, TRAIN_EPOCHS, VAL_CHUNK = 0.25, 10, 2, 64
+
+# Fractal path: the train-demo CLI's defaults (batch 32, patch 128, bf16,
+# lr 1e-6) on the train path's geometry, 25 % validation (2 whole images),
+# 2 epochs cut from 100 steps to 10.
+FRACTAL_EPOCHS, FRACTAL_STEPS = 2, 10
+FRACTAL_TOL = 1e-3  # f32 validation through the kernels vs plain versions
+FRACTAL_STD_FLOOR = 1e-2  # as zoo_eval's: the f32 check must be able to fail
 
 # Probe path: scripts/tpu_imcol_conv_probe.py's geometry.
 PROBE = dict(b=64, h=128, w=128, cin=128, cout=64)
@@ -1675,6 +1700,326 @@ def phase_train_val_f32(report, state):
             f"train val f32: max |dprob| {dprob}, |ddice| {ddice}")
 
 
+def plain_extractor_forward(ext, x):
+    """The fractal extractor's eval forward built only from kernel 1's
+    plain version and stock torch ops.  x: NCHW; returns NCHW."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_torch,
+    )
+
+    def conv(c, x):
+        return F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype),
+                        padding=c.padding, dilation=c.dilation)
+
+    c1, d1 = ext.fractal_conv1, ext.ms_conv_d1
+    w = torch.cat([c1.weight, d1.weight]).to(x.dtype).permute(2, 3, 1, 0)
+    shift = torch.cat([c1.bias, d1.bias]).float()
+    y = conv3x3_affine_relu_torch(
+        x.permute(0, 2, 3, 1), w.contiguous(), torch.ones_like(shift),
+        shift).permute(0, 3, 1, 2)
+    feats = [y[:, 16:]] + [torch.relu(conv(getattr(ext, f"ms_conv_d{s}"), x))
+                           for s in (2, 4, 8)]
+    f = conv(ext.fractal_conv2, y[:, :16])
+    return conv(ext.fusion_conv, torch.cat(feats + [f], dim=1)) + x
+
+
+def phase_fractal(report, state):
+    """The fractal trainer (``train.fractal.fractal_train_arrays``, what
+    ``cli.train_demo`` runs) on full-width UNet plus the extractor, FOV
+    masks as targets, whole-image validation through both kernels."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
+        dice_from_sums,
+        dice_sums,
+        dice_sums_torch,
+    )
+    from jcfszxc_unet_tpu_torch.data.sampler import sample_centers
+    from jcfszxc_unet_tpu_torch.train.checkpoint import (
+        load_extra,
+        load_model_any,
+    )
+    from jcfszxc_unet_tpu_torch.train.fractal import (
+        VAL_CHUNK,
+        box_dimension,
+        build_fractal_sample_maps,
+        fractal_sample_batch,
+        fractal_sample_indices,
+        fractal_train_arrays,
+        level_sample_counts,
+        make_fractal_step_fn,
+        make_fractal_val_fn,
+    )
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+    from jcfszxc_unet_tpu_torch.train.trainer import split_indices
+    from jcfszxc_unet_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    model = build_model(dev, seed=4)  # calibrated BN, seeded
+    images, masks, _ = synthetic_drive(TRAIN_IMAGES, IMG_H, IMG_W, seed=5)
+    n_val = int(TRAIN_IMAGES * TRAIN_VAL)
+    n_chunks = math.ceil(n_val / VAL_CHUNK)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_path = os.path.join(ckpt_dir, "fractal_best.pt")
+    bundle_path = os.path.join(ckpt_dir, "fractal_bundle.pt")
+    for path in (save_path, bundle_path, save_path + ".sync",
+                 bundle_path + ".sync"):
+        if os.path.exists(path):
+            os.remove(path)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fractal_train_arrays(
+        model, images, masks, model_name="UNet.UNet", steps=FRACTAL_STEPS,
+        batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, val_percent=TRAIN_VAL,
+        patch_size=TRAIN_PATCH, seed=0, compute_dtype=torch.bfloat16,
+        max_epochs=FRACTAL_EPOCHS, visualize=False, save_path=save_path,
+        bundle_path=bundle_path, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bodies = launch_counts()
+    peak_run = torch.cuda.max_memory_allocated()
+    state["fractal_launches"] = launches
+    state["conv_bodies"]["fractal"] = bodies
+    hist, ext = res["history"], res["extractor"]
+
+    # The same run with synchronous checkpoint writes (--sync-checkpoints):
+    # its epoch-2 steps have no background write of epoch 1's checkpoints
+    # in flight, so they give the step metric.
+    t0 = time.perf_counter()
+    sync_res = fractal_train_arrays(
+        build_model(dev, seed=4), images, masks, model_name="UNet.UNet",
+        steps=FRACTAL_STEPS, batch_size=TRAIN_BATCH,
+        learning_rate=TRAIN_LR, val_percent=TRAIN_VAL,
+        patch_size=TRAIN_PATCH, seed=0, compute_dtype=torch.bfloat16,
+        max_epochs=FRACTAL_EPOCHS, visualize=False,
+        save_path=save_path + ".sync", bundle_path=bundle_path + ".sync",
+        async_checkpoints=False, device=dev)
+    sync_wall = time.perf_counter() - t0
+    sync_hist = sync_res["history"]
+    del sync_res
+
+    # The validation images of the run's split (seed 0), on the card.
+    np.random.seed(0)
+    val_idx, train_idx = split_indices(TRAIN_IMAGES, TRAIN_VAL)
+    vi = torch.as_tensor(images[val_idx], device=dev)
+    vm = torch.as_tensor(masks[val_idx, ..., None], device=dev)
+    val_bf16 = make_fractal_val_fn(model, ext, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, probs_bf16 = val_bf16(vi, vm)
+    torch.cuda.synchronize()
+    peak_val = torch.cuda.max_memory_allocated() - base
+
+    # box_dimension on the card against the CPU's, on masks and maps
+    maps = torch.cat([vm[..., 0], probs_bf16[..., 0]])
+    bd_gpu = box_dimension(maps).cpu()
+    bd_cpu = box_dimension(maps.cpu())
+    bd_diff = float((bd_gpu - bd_cpu).abs().max())
+
+    # Kernel 1 on the validation's conv list (checked against the plain
+    # version, timed beside cuDNN), kernel 2 at the validation's shape.
+    convs = conv_list(record_convs(lambda: val_bf16(vi, vm)), torch.bfloat16,
+                      "fractal_val")
+    times = convs["total"]
+    g = torch.Generator(device=dev).manual_seed(8)
+    p = torch.rand((n_val, IMG_H, IMG_W), generator=g, device=dev)
+    t = (torch.rand((n_val, IMG_H, IMG_W), generator=g, device=dev)
+         > 0.5).float()
+    dice_err = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                   for a, b in zip(dice_sums(p, t), dice_sums_torch(p, t)))
+
+    # f32: the validation through the kernels against the plain versions
+    dice_k, probs_k = make_fractal_val_fn(
+        model, ext, compute_dtype=torch.float32)(vi, vm)
+    model.eval()
+    ext.eval()
+    with torch.no_grad():
+        x = vi.permute(0, 3, 1, 2)
+        want = torch.sigmoid(plain_unet_forward(
+            model, plain_extractor_forward(ext, x)).float()
+        ).permute(0, 2, 3, 1)
+    model.train()
+    ext.train()
+    dice_plain = float(dice_from_sums(*dice_sums_torch(
+        (want[..., 0] > 0.5).float(), vm[..., 0])).mean())
+    dprob = float((probs_k - want).abs().max())
+    ddice = abs(float(dice_k) - dice_plain)
+    std = float(want.std())
+
+    # where the time goes: one fractal step and one bf16 validation pass
+    sizes, maps_np = build_fractal_sample_maps(masks[train_idx], TRAIN_PATCH)
+    lmaps = [torch.as_tensor(m, device=dev).long() for m in maps_np]
+    pool = torch.as_tensor(images[train_idx], device=dev)
+    tpool = torch.as_tensor(masks[train_idx, ..., None], device=dev)
+    counts = level_sample_counts(TRAIN_BATCH)
+    opt = make_optimizer(list(model.parameters()) + list(ext.parameters()),
+                         TRAIN_LR)
+    step = make_fractal_step_fn(model, ext, opt,
+                                compute_dtype=torch.bfloat16)
+    gs = torch.Generator(device=dev).manual_seed(9)
+
+    def one_step():
+        imgs, tgts = fractal_sample_batch(
+            pool, tpool, [sample_centers(gs, m, c)
+                          for m, c in zip(lmaps, counts)], sizes, TRAIN_PATCH)
+        return step(imgs, tgts, fractal_sample_indices(gs, TRAIN_BATCH))
+
+    prof = {}
+    for name, fn, reps in (("step", one_step, 5),
+                           ("val_pass", lambda: val_bf16(vi, vm), 3)):
+        wall_ms = host_ms(fn, reps)
+        rows = device_rows(fn, reps=reps)
+        busy = sum(r["device_ms"] for r in rows)
+        prof[name] = {"untraced_wall_ms": wall_ms, "device_ms_total": busy,
+                      "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+                      "top": rows[:25]}
+
+    # utils.profiling.trace (what --profile-dir runs) on the card: its
+    # Chrome trace holds the step's kernels
+    trace_dir = os.path.join(ckpt_dir, "fractal_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with trace(trace_dir):
+        one_step()
+        torch.cuda.synchronize()
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        events = json.load(f)["traceEvents"]
+    trace_kernels = sum(e.get("cat") == "kernel" for e in events)
+
+    readers = {m: importlib.util.find_spec(m) is not None
+               for m in ("PIL", "h5py", "joblib")}
+    # The step metric comes from an epoch with no write in flight; the
+    # checkpoint's cost end to end, from the time between the end of epoch
+    # 1's steps and the end of epoch 2's (validation, epoch 1's save and
+    # epoch 2's steps) in each run.
+    steady = sync_hist[-1]
+    step_ms = steady["train_seconds"] * 1e3 / FRACTAL_STEPS
+    step_ms_write = hist[-1]["train_seconds"] * 1e3 / FRACTAL_STEPS
+
+    def window_ms(h):
+        return (h[-1]["train_end_seconds"] - h[-2]["train_end_seconds"]) * 1e3
+
+    window = {"background": window_ms(hist), "sync": window_ms(sync_hist),
+              "epoch1_saved": hist[0]["best_dice"] > 0.0}
+    reloaded = None
+    if res["best_dice"] > 0.0:
+        reloaded, _ = load_model_any(save_path, dev)
+        extra = load_extra(bundle_path)
+    checks = {
+        "epochs_run": len(hist) == FRACTAL_EPOCHS,
+        "losses_finite": all(math.isfinite(r["loss"]) for r in hist),
+        "no_step_skipped": all(r["skipped_steps"] == 0 for r in hist),
+        "val_dice_finite": all(math.isfinite(r["dice"])
+                               and 0.0 <= r["dice"] <= 1.0 for r in hist),
+        "box_dimension_card_equals_cpu": bd_diff <= 1e-6,
+        "checkpoints_reload": res["best_dice"] == 0.0 or (
+            isinstance(reloaded, torch.nn.Module)
+            and set(extra) == {"extractor", "optimizer"}),
+        "conv_launches_19_per_chunk_per_epoch":
+            launches["conv3x3_affine_relu"]
+            == 19 * n_chunks * FRACTAL_EPOCHS,
+        # the extractor's stacked 3 -> 32 and UNet's 3 -> 64 on mma.sync
+        "conv_bodies_17_wgmma_2_mma_sync_per_chunk": bodies == {
+            "wgmma": 17 * n_chunks * FRACTAL_EPOCHS,
+            "mma_sync": 2 * n_chunks * FRACTAL_EPOCHS},
+        "dice_launched_once_per_val_pass":
+            launches["dice_sums"] == FRACTAL_EPOCHS,
+        "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
+        "dice_kernel_vs_plain": dice_err <= 1e-5,  # as in phase_kernels
+        "f32_probs_within_tol": math.isfinite(dprob) and dprob <= FRACTAL_TOL,
+        "f32_dice_within_tol": ddice <= FRACTAL_TOL,
+        "f32_std_over_floor": std >= FRACTAL_STD_FLOOR,
+        "profiling_trace_has_kernels": trace_kernels > 0,
+    }
+    train_ms = (report.get("train_path", {}).get("steady_ms_per_step"))
+    report["fractal"] = {
+        "model": "UNet.UNet", "n_images": TRAIN_IMAGES, "n_val": n_val,
+        "image_hw": [IMG_H, IMG_W], "patch": TRAIN_PATCH,
+        "batch": TRAIN_BATCH, "levels": counts, "level_patches": sizes,
+        "lr": TRAIN_LR, "steps": FRACTAL_STEPS, "epochs": FRACTAL_EPOCHS,
+        "dtype": "bfloat16", "val_chunk": VAL_CHUNK,
+        "launches": launches, "conv_bodies": bodies, "history": hist,
+        "best_dice": res["best_dice"], "wall_seconds": wall,
+        "wall_seconds_sync_checkpoints": sync_wall,
+        "steady_ms_per_step": step_ms,
+        "ms_per_step_background_write_in_flight": step_ms_write,
+        "epoch1_steps_end_to_epoch2_steps_end_ms": window,
+        "history_sync_checkpoints": sync_hist,
+        "train_path_ms_per_step": train_ms,
+        "steady_val_ms": steady["val_seconds"] * 1e3,
+        "launches_per_val_pass": {"conv3x3_affine_relu": 19 * n_chunks,
+                                  "dice_sums": 1},
+        "peak_allocated_bytes_run": peak_run,
+        "peak_allocated_bytes_val_pass_over_start": peak_val,
+        "box_dimension_max_abs_diff": bd_diff,
+        "conv_per_val_pass": convs, "dice_max_rel_err": dice_err,
+        "f32": {"max_abs_dprob": dprob, "dice_kernels": float(dice_k),
+                "dice_plain": dice_plain, "dice_abs_diff": ddice,
+                "prob_std": std, "tolerance": FRACTAL_TOL,
+                "std_floor": FRACTAL_STD_FLOOR},
+        "profile": prof, "trace_kernel_events": trace_kernels,
+        "host_readers": readers, "checks": checks,
+    }
+    print(f"[fractal] UNet + extractor, {FRACTAL_EPOCHS} epochs x "
+          f"{FRACTAL_STEPS} steps, batch {TRAIN_BATCH} (levels {counts} at "
+          f"{sizes}), patch {TRAIN_PATCH}, bf16; val {n_val} whole "
+          f"{IMG_H}x{IMG_W} images; launches {launches}, bodies {bodies}",
+          flush=True)
+    for r in hist:
+        print(f"[fractal] epoch {r['epoch']}: loss {r['loss']:.5f}, val dice "
+              f"{r['dice']:.4f}, skipped {r['skipped_steps']}, train "
+              f"{r['train_seconds'] * 1e3:.1f} ms, val "
+              f"{r['val_seconds'] * 1e3:.1f} ms", flush=True)
+    print(f"[fractal] end of epoch 1's steps to end of epoch 2's (val, "
+          f"epoch 1's save, epoch 2's steps): {window['sync']:.2f} ms with "
+          f"synchronous checkpoints, {window['background']:.2f} ms with "
+          f"background writes (epoch 1's val "
+          f"{sync_hist[0]['val_seconds'] * 1e3:.2f} / "
+          f"{hist[0]['val_seconds'] * 1e3:.2f} ms); whole run "
+          f"{sync_wall:.3f} / {wall:.3f} s (the background run goes first)",
+          flush=True)
+    print(f"[fractal] steady: {step_ms:.2f} ms per fractal step with no "
+          f"write in flight ({step_ms_write:.2f} while the background writer "
+          f"saves epoch 1's checkpoints; train_path step: "
+          f"{'n/a' if train_ms is None else f'{train_ms:.2f}'} ms), "
+          f"val pass {steady['val_seconds'] * 1e3:.2f} ms; launches per val "
+          f"pass: conv {19 * n_chunks}, dice 1; peak allocated "
+          f"{peak_run / 2**30:.2f} GiB in the run, val pass "
+          f"{peak_val / 2**20:.1f} MiB over its start", flush=True)
+    for name, row in prof.items():
+        print(f"[fractal] profile {name}: device busy "
+              f"{row['device_ms_total']:.2f} ms of "
+              f"{row['untraced_wall_ms']:.2f} ms wall (idle share "
+              f"{row['device_idle_share']:.3f}); top:", flush=True)
+        for r in row["top"][:5]:
+            print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5g} "
+                  f"{r['name']}", flush=True)
+    print(f"[fractal] val conv list ({times['n_convs']} calls): kernel "
+          f"{times['ms']:.2f} ms, plain {times['plain_ms']:.2f} ms, cuDNN "
+          f"{times['library_ms']:.2f} ms, bound {times['bound_ms']:.2f} ms, "
+          f"kernel vs plain {times['checks_ok']}/{times['checks']} shapes; "
+          f"dice vs plain max rel {dice_err:.2e}; box_dimension card vs CPU "
+          f"{bd_diff:.2e}", flush=True)
+    print(f"[fractal] f32 val through the kernels vs plain: max |dprob| "
+          f"{dprob:.3e}, |ddice| {ddice:.3e} (tolerance {FRACTAL_TOL}), prob "
+          f"std {std:.4f} (floor {FRACTAL_STD_FLOOR}); utils.profiling.trace "
+          f"of one step: {trace_kernels} kernel events; host readers on this "
+          f"machine: {readers}", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"fractal checks failed: {bad}")
+
+
 def phase_probe(report, state):
     import torch
     import torch.nn.functional as F
@@ -1784,7 +2129,8 @@ def kernels_line(state):
                    "train": state["train_launches"][row["name"]],
                    "zoo": state["zoo_launches"][row["name"]],
                    "protocols": state["protocol_launches"][row["name"]],
-                   "serve": state["serve_launches"][row["name"]]}
+                   "serve": state["serve_launches"][row["name"]],
+                   "fractal": state["fractal_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
@@ -1824,6 +2170,7 @@ def main() -> None:
                         ("train_path", phase_train_path),
                         ("serve", phase_serve),
                         ("train_val_f32", phase_train_val_f32),
+                        ("fractal", phase_fractal),
                         ("probe", phase_probe)):
         if needs.get(name) in failed:
             failed.append(name)

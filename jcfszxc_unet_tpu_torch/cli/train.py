@@ -15,8 +15,9 @@ TransFuseNet) or in a softmax over one channel (BARUNet, BIARUNet) return
 the head before it, recorded in the checkpoint's ``model_kwargs``; other
 models exit with the list of those that take it.  BCDU models get
 ``N`` = the patch size, as in the JAX CLI.  Not ported yet, refused with a
-message that says so: ``--devices`` > 1, ``--s2d``, ``--profile-dir`` and
-``--remat``.
+message that says so: ``--devices`` > 1, ``--s2d`` and ``--remat``.
+``--profile-dir`` wraps the epoch loop in a ``torch.profiler`` capture
+(``utils.profiling.trace``) and writes a Chrome trace there.
 
 ``--load`` takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
 (``train.checkpoint.load_model_any``); ``--resume`` needs a port checkpoint
@@ -30,6 +31,7 @@ end of the epoch, host copy and disk write on a worker thread);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -68,9 +70,11 @@ from jcfszxc_unet_tpu_torch.train.trainer import (
     make_epoch_fn,
     make_precise_bn_fn,
     make_val_fn,
+    split_indices,
+    sync,
 )
 from jcfszxc_unet_tpu_torch.utils.device import resolve_device
-from jcfszxc_unet_tpu_torch.utils.profiling import Throughput
+from jcfszxc_unet_tpu_torch.utils.profiling import Throughput, trace
 from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 
 DATA_SEED_OFFSET = 0xDA7A  # the sampling generator's seed is seed + this
@@ -97,20 +101,6 @@ def bn_saturation_signature(dice_history, mean_prob=None,
     return True
 
 
-def split_indices(n_samples: int, val_percent: float):
-    """(val_idx, train_idx) by the host RNG protocol of train.py:79: a
-    numpy shuffle right after the seed is set."""
-    n_val = int(n_samples * val_percent)
-    indices = np.arange(n_samples)
-    np.random.shuffle(indices)
-    return indices[:n_val], indices[n_val:]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def train_arrays(model, images, masks, labels, *,
                  model_name: str = "UNet.UNet", model_kwargs=None,
                  steps: int = 100, batch_size: int = 32,
@@ -123,7 +113,8 @@ def train_arrays(model, images, masks, labels, *,
                  visualize: bool = True, latest_path: str | None = None,
                  resume_from: str | None = None, precise_bn: int = 0,
                  augment: bool = False, metrics_file: str | None = None,
-                 async_checkpoints: bool = True, device="cuda"):
+                 async_checkpoints: bool = True,
+                 profile_dir: str | None = None, device="cuda"):
     """The reference training protocol on arrays: images (N, H, W, C),
     masks and labels (N, H, W), float in [0, 1].
 
@@ -136,7 +127,8 @@ def train_arrays(model, images, masks, labels, *,
     Returns ``{"best_dice", "history"}``, one history record per epoch
     (the ``--metrics-file`` fields plus the seconds of
     the train steps and of the validation pass, each ending in a device
-    sync).
+    sync).  With ``profile_dir`` the epoch loop runs under
+    :func:`utils.profiling.trace`, which writes a Chrome trace there.
     """
     dev = resolve_device(device)
     model_kwargs = dict(model_kwargs or {})
@@ -234,18 +226,21 @@ def train_arrays(model, images, masks, labels, *,
         else:
             writer.submit(write_all, jobs, model.state_dict())
 
+    profiling = contextlib.ExitStack()
+    if profile_dir:
+        profiling.enter_context(trace(profile_dir))
     try:
         while True:
             epoch += 1
             if max_epochs is not None and epoch > max_epochs:
                 break
-            _sync(dev)
+            sync(dev)
             t0 = time.perf_counter()
             train_metrics = epoch_fn(state, train_images, train_labels,
                                      train_map_dev, generator)
             if precise_bn_fn is not None:
                 precise_bn_fn(model, train_images, train_map_dev, generator)
-            _sync(dev)
+            sync(dev)
             t1 = time.perf_counter()
             metrics, probs = val_fn(val_imgs, val_labs)
             dice = float(metrics["dice"])  # syncs
@@ -338,6 +333,7 @@ def train_arrays(model, images, masks, labels, *,
                     f"visualizations/{epoch:03d}_{sample_num:03d}.png")
             flush_saves()  # one snapshot, one submission per epoch
     finally:
+        profiling.close()  # the trace is written
         flush_saves()  # the saves of an epoch that stopped early
         if writer is not None:
             writer.close()  # re-raises a failed write; files on disk
@@ -401,7 +397,8 @@ def get_args(argv=None):
     parser.add_argument("--max-epochs", type=int, default=0,
                         help="Optional epoch cap (0 = until early stopping)")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Write a profiler trace here (not ported yet)")
+                        help="Write a torch.profiler (Chrome) trace of the "
+                             "epoch loop here")
     parser.add_argument("--remat", action="store_true",
                         help="Rematerialize activations in the backward "
                              "pass (not ported yet)")
@@ -444,8 +441,7 @@ def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     for flag, on in (("--devices > 1", args.devices > 1),
-                     ("--s2d", args.s2d), ("--profile-dir", args.profile_dir),
-                     ("--remat", args.remat)):
+                     ("--s2d", args.s2d), ("--remat", args.remat)):
         if on:
             raise SystemExit(
                 f"{flag} is not ported to PyTorch yet; the port trains "
@@ -516,6 +512,7 @@ def main(argv=None):
         augment=args.augment,
         metrics_file=args.metrics_file,
         async_checkpoints=not args.sync_checkpoints,
+        profile_dir=args.profile_dir,
         device=device,
     )
 

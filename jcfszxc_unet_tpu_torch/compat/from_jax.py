@@ -4,8 +4,9 @@ Turns a Flax variables tree of the JAX package (``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays) into a state dict
 with the reference's torch key names, which the port's modules load with
 ``strict=True``.  The port keeps its own copy of the mapping rules for
-all 16 models of the zoo, independent of the JAX package; the leaf
-transforms are those of the reference interchange:
+all 16 models of the zoo and the fractal trainer's feature extractor
+(``block_state_dict_from_jax("FractalFeatureExtractor", ...)``),
+independent of the JAX package; the leaf transforms are those of the reference interchange:
 
   * Conv2d:          flax kernel (kh, kw, I, O) -> torch (O, I, kh, kw)
   * ConvTranspose2d: flax kernel (kh, kw, I, O), spatially flipped ->
@@ -172,6 +173,12 @@ CHILD_RULES: Dict[str, Dict[str, tuple]] = {
                    "BasicConv2d_6": ("b4_3", "BasicConv2d")},
     "UpV1": {"ConvTranspose2d_0": ("up", "ConvTranspose2d"),  # :425-451
              "DoubleConv_0": ("conv", "DoubleConv")},
+    # the fractal trainer's input-enhancement CNN (train/fractal.py:48-70),
+    # whose convs the JAX package names explicitly
+    "FractalFeatureExtractor": {
+        name: (name, "Conv2d") for name in (
+            "fractal_conv1", "fractal_conv2", "ms_conv_d1", "ms_conv_d2",
+            "ms_conv_d4", "ms_conv_d8", "fusion_conv")},
 }
 
 

@@ -9,8 +9,10 @@ do with ``dtype=`` and ``param_dtype=float32``.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -172,3 +174,75 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
             nn.init.zeros_(m.in_proj_bias)
             nn.init.zeros_(m.out_proj.bias)
+
+
+def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense (out_size, in_size) align-corners linear-interpolation matrix,
+    in f32: row k holds the weights (1 - f, f) of the two source pixels of
+    output coordinate k * (in - 1) / (out - 1), computed in numpy f32 as the
+    JAX version computes them (``_linear_resize_weights``)."""
+    if out_size == 1:
+        src = np.zeros((1,), np.float32)
+    else:
+        src = np.arange(out_size, dtype=np.float32) * np.float32(
+            (in_size - 1) / (out_size - 1))
+    lo = np.floor(src).astype(np.int32)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (src - lo.astype(np.float32)).astype(np.float32)
+    a = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    np.add.at(a, (rows, lo), 1.0 - frac)
+    np.add.at(a, (rows, hi), frac)
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_resize_tensor(in_size: int, out_size: int, device: torch.device,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_linear_resize_matrix` on ``device``, built and copied once
+    per size pair: a copy from pageable host memory syncs the stream."""
+    return torch.from_numpy(_linear_resize_matrix(in_size, out_size)).to(
+        device, dtype)
+
+
+def resize_linear_align_corners(x, out_h: int, out_w: int):
+    """Bilinear resize with align_corners=True of NHWC ``x`` to (out_h,
+    out_w), as two contractions with constant interpolation matrices (the
+    JAX version's form, whose f32 grid it reproduces).  This is the grid of
+    ``scipy.ndimage.zoom(..., order=1)``, output k at input
+    k * (in - 1) / (out - 1); scipy computes it in f64, so the two differ
+    in the weights' last bits (outputs up to 6.4e-6 apart at 85 -> 128)."""
+    n, h, w, c = x.shape
+    ah = _linear_resize_tensor(h, out_h, x.device, x.dtype)
+    aw = _linear_resize_tensor(w, out_w, x.device, x.dtype)
+    x = torch.einsum("hH,nHwc->nhwc", ah, x)
+    return torch.einsum("wW,nhWc->nhwc", aw, x)
+
+
+def _nearest_align_corners_index(in_size: int, out_size: int) -> np.ndarray:
+    """floor(k * (in - 1) / (out - 1) + 0.5), in f64: scipy's order-0
+    zoom grid.  ``F.interpolate(mode="nearest")`` takes floor(k * in / out),
+    another grid."""
+    if out_size == 1:
+        return np.zeros((1,), np.int64)
+    src = np.arange(out_size, dtype=np.float64) * (
+        (in_size - 1) / (out_size - 1))
+    return np.floor(src + 0.5).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_index_tensor(in_size: int, out_size: int,
+                          device: torch.device) -> torch.Tensor:
+    """:func:`_nearest_align_corners_index` on ``device``, copied once per
+    size pair."""
+    return torch.from_numpy(_nearest_align_corners_index(
+        in_size, out_size)).to(device)
+
+
+def resize_nearest_align_corners(x, out_h: int, out_w: int):
+    """Nearest resize of NHWC ``x`` to (out_h, out_w) matching
+    ``scipy.ndimage.zoom(..., order=0)``: an index gather on the
+    align-corners grid, half rounding up."""
+    n, h, w, c = x.shape
+    x = x.index_select(1, _nearest_index_tensor(h, out_h, x.device))
+    return x.index_select(2, _nearest_index_tensor(w, out_w, x.device))

@@ -42,6 +42,22 @@ from jcfszxc_unet_tpu_torch.train.optim import clip_and_step
 from jcfszxc_unet_tpu_torch.train.state import TrainState
 
 
+def split_indices(n_samples: int, val_percent: float):
+    """(val_idx, train_idx) by the host RNG protocol of train.py:79: a
+    numpy shuffle right after the seed is set."""
+    n_val = int(n_samples * val_percent)
+    indices = np.arange(n_samples)
+    np.random.shuffle(indices)
+    return indices[:n_val], indices[n_val:]
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): the end of
+    a host-clock measurement."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _nchw(batch: torch.Tensor, dtype) -> torch.Tensor:
     """(B, H, W, C) -> NCHW view in channels_last, cast to ``dtype``."""
     return batch.to(dtype).permute(0, 3, 1, 2)

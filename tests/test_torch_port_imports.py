@@ -40,7 +40,10 @@ def test_no_forbidden_import_in_source(path):
 def test_scan_covers_the_checkpoint_interop_modules():
     scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"compat/msgpack.py", "compat/torch_import.py",
-            "compat/torch_export.py", "cli/predict.py"} <= scanned
+            "compat/torch_export.py", "cli/predict.py",
+            # the fractal trainer, preprocessing and profiling
+            "train/fractal.py", "cli/train_demo.py", "cli/preprocess.py",
+            "data/preprocess.py", "utils/profiling.py"} <= scanned
 
 
 def test_package_imports_with_jax_blocked():
