@@ -85,7 +85,24 @@ Phases, each of which must pass:
    kernels against the plain versions (probabilities and Dice within
    1e-3, the probabilities' std over 1e-2); one step and one validation
    pass profiled; the peak memory; and whether this machine has the host
-   readers (PIL, h5py, joblib).
+   readers (PIL, h5py, joblib);
+12. s2d (after fractal): NestedUNet, MultiResUNet and FRUNet, built and
+   calibrated as in zoo_eval and switched to space-to-depth execution
+   (``models.with_kwargs``), evaluate the eval path's 4 images in bf16
+   with their launches checked per body (the plain mode's counts), images/s,
+   idle share and peak memory (one profiled evaluation each), kernel 1 on
+   each model's s2d conv list, cuDNN and the bound (every shape checked
+   against the plain version), each beside zoo_eval's plain run of the
+   same model, and f32 checks of the s2d forward against the plain
+   forward of the same weights and against a CPU copy; then
+   ``train_arrays`` for 2 epochs of 3 steps of FRUNet with ``s2d`` and of
+   UNet with ``remat``; ms per train step and peak memory of FRUNet and
+   MultiResUNet plain and s2d and of UNet without and with remat (batch
+   32, 128^2, bf16); one f32 UNet step with remat against one without
+   (deterministic cuDNN, within 1e-5, each BN counted once); and
+   ``--resume`` from the JAX ``--latest-path`` fixture in
+   ``tests/torch_port_data``: the restored RMSprop state equal to the
+   file's, two steps on the card, and ``train_arrays(resume_from=...)``.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -220,6 +237,30 @@ WHOLE_IMAGE_CONV_CASES = [
                          (8, 256, 512), (16, 512, 1024), (16, 1024, 1024),
                          (32, 512, 512))]
 
+# The s2d phase: the three models with a space-to-depth mode -> launches
+# of the conv kernel per eval forward by body (the plain mode's: an s2d
+# 3x3 is a 3x3 on 4x the channels, FRUNet's FeatureFuse one launch either
+# way); train_arrays steps per epoch of its s2d and remat runs; the JAX
+# --latest-path fixture it resumes from
+# (tests/test_torch_port_remat_resume.write_jax_latest_fixture).
+S2D_MODELS = {
+    "UNetPP.NestedUNet": {"mma_sync": 1, "wgmma": 29},
+    "MultiResUNet.MultiResUNet": {"mma_sync": 25, "wgmma": 12},
+    "FRUNet.FRUNet": {"mma_sync": 1, "wgmma": 43},
+}
+# Since the counts equal the plain mode's, the conv shapes show that a
+# model ran in s2d space: per model, (H, W, Cin, Cout) of convs that only
+# s2d mode makes on a PATCH^2 input (the first conv on the packed
+# 3-channel input; FRUNet's and NestedUNet's 32-wide row as 128 -> 128).
+S2D_ONLY_SHAPES = {
+    "UNetPP.NestedUNet": [(PATCH // 2, PATCH // 2, 12, 128),
+                          (PATCH // 2, PATCH // 2, 128, 128)],
+    "MultiResUNet.MultiResUNet": [(PATCH // 2, PATCH // 2, 12, 32)],
+    "FRUNet.FRUNet": [(PATCH // 2, PATCH // 2, 12, 128),
+                      (PATCH // 2, PATCH // 2, 128, 128)],
+}
+S2D_TRAIN_STEPS = 3
+
 # The serve phase: images served per call (one uint8, one uint16), the
 # crop of the f32 checks against a CPU copy (the sliding window at patch
 # 128 on it), saves timed per mode, and the JAX .ckpt fixture with its
@@ -230,6 +271,8 @@ JAX_FIXTURE = os.path.join(ROOT, "tests", "torch_port_data",
 JAX_FIXTURE_OUT = os.path.join(ROOT, "tests", "torch_port_data",
                                "transfusenet_jax_out.npy")
 FIXTURE_TOL = 1e-3
+JAX_LATEST = os.path.join(ROOT, "tests", "torch_port_data",
+                          "transfusenet_jax_latest.ckpt")
 
 # (spatial size, Cin, Cout) of UNet's 18 3x3 convs in forward order.
 UNET_CONVS = [
@@ -2020,6 +2063,336 @@ def phase_fractal(report, state):
         raise AssertionError(f"fractal checks failed: {bad}")
 
 
+def step_ms_and_peak(model, batch, remat=False, n_warm=1, n_timed=4):
+    """ms per bf16 train step (host clock to a device sync, ``n_timed``
+    steps after ``n_warm``) and peak allocated bytes over the timed steps
+    of ``model`` on one fixed (imgs, labs) batch, and the allocated bytes
+    at their start."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+    from jcfszxc_unet_tpu_torch.train.state import TrainState
+    from jcfszxc_unet_tpu_torch.train.trainer import make_batch_step_fn
+
+    state = TrainState(model.train(), make_optimizer(model.parameters(),
+                                                     TRAIN_LR))
+    step = make_batch_step_fn(n_classes=model.n_classes, remat=remat,
+                              compute_dtype=torch.bfloat16)
+    for _ in range(n_warm):
+        step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        loss, ok = step(state, *batch)
+        if not ok:
+            raise AssertionError("a timed train step was skipped")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    return ms, torch.cuda.max_memory_allocated(), base
+
+
+def phase_s2d(report, state):
+    """Space-to-depth execution (``s2d``) of NestedUNet, MultiResUNet and
+    FRUNet through the entry points (evaluation, ``train_arrays``), the
+    ``--remat`` step and ``--resume`` from a JAX ``.ckpt``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.cli.train import train_arrays
+    from jcfszxc_unet_tpu_torch.compat.from_jax import state_dict_from_jax
+    from jcfszxc_unet_tpu_torch.data.sampler import extract_patches
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+    from jcfszxc_unet_tpu_torch.models import create_model, with_kwargs
+    from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
+    from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+    from jcfszxc_unet_tpu_torch.train.state import TrainState
+    from jcfszxc_unet_tpu_torch.train.trainer import make_batch_step_fn
+
+    dev = torch.device("cuda")
+    images, masks, labels = state["images"], state["masks"], state["labels"]
+    n_patches = grid_count(IMG_H, IMG_W, PATCH) * N_IMAGES
+    batch = min(INFER_BATCH, n_patches)
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0}
+    conv_by_model, out, failures = {}, {"eval": {}}, []
+
+    def counted(fn):
+        """fn() on the s2d path, its launches read around it and summed."""
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts()
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+        return res, launches, bodies
+
+    f32_patches = extract_patches(
+        torch.as_tensor(images[:2], device=dev),
+        np.array([[0, IMG_H // 2, IMG_W // 2], [1, IMG_H // 3, IMG_W // 3]]),
+        ZOO_F32_HW)
+    one_patch = extract_patches(torch.as_tensor(images[:1], device=dev),
+                                np.array([[0, IMG_H // 2, IMG_W // 2]]),
+                                PATCH)
+
+    # 1. Evaluation of the three models in s2d mode, against their plain
+    # mode on the same weights.
+    for k, name in enumerate(S2D_MODELS):
+        plain = build_model(dev, seed=40 + k, name=name)
+        model = with_kwargs(plain, name, {"s2d": True}).eval()
+
+        def run(m):
+            return evaluate_arrays(m, images, masks, labels,
+                                   patch_size=PATCH,
+                                   inference_batch_size=INFER_BATCH,
+                                   compute_dtype=torch.bfloat16, device=dev)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, launches, bodies = counted(lambda: run(model))
+        peak = torch.cuda.max_memory_allocated()
+        conv_by_model[name + " (s2d eval)"] = bodies
+        timed = timed_eval(lambda: run(model), N_IMAGES)
+        calls = record_convs(lambda: bf16_forward(model, one_patch))
+        shapes = {key[1:5] for key in calls}
+        plain_shapes = {key[1:5] for key in record_convs(
+            lambda: bf16_forward(plain, one_patch))}
+        s2d_shapes_seen = (shapes != plain_shapes and all(
+            sh in shapes and sh not in plain_shapes
+            for sh in S2D_ONLY_SHAPES[name]))
+        convs = conv_list({(key[0] * batch, *key[1:]): n
+                           for key, n in calls.items()},
+                          torch.bfloat16, "s2d_chunk", target_ms=10.0)
+        # the plain mode's numbers: zoo_eval's run of the same model
+        zoo = report["zoo_eval"][name]
+        t, tp = convs["total"], zoo["conv_per_forward"]["total"]
+        got = Predictor(model, compute_dtype=torch.float32,
+                        device=dev).predict_patches(f32_patches)
+        want = Predictor(plain, compute_dtype=torch.float32,
+                         device=dev).predict_patches(f32_patches)
+        d_plain = float((got - want).abs().max())
+        d_cpu, std = f32_against_cpu_copy(
+            model, lambda p: p.predict_patches(f32_patches.to(p.device)))
+        want_bodies = {b: n * math.ceil(n_patches / batch)
+                       for b, n in S2D_MODELS[name].items()}
+        pm = res["pred_maps"]
+        peak_plain = zoo["peak_allocated_bytes"]
+        row = {
+            "launches": launches, "conv_bodies": bodies,
+            "expected_conv_bodies": want_bodies, "dice": res["dice"],
+            **timed, "images_per_s_plain": zoo["images_per_s"],
+            "peak_allocated_bytes": peak,
+            "peak_over_start_bytes": peak - base,
+            "peak_allocated_bytes_plain": peak_plain,
+            "conv_per_forward": convs,
+            "f32_max_abs_dprob_vs_plain_mode": d_plain,
+            "f32_max_abs_dprob_vs_cpu": d_cpu, "f32_prob_std": std,
+        }
+        row["checks"] = {
+            "pred_finite_in_0_1": bool(np.isfinite(pm).all() and pm.min() >= 0
+                                       and pm.max() <= 1),
+            "conv_bodies_as_expected": bodies == want_bodies,
+            "s2d_only_conv_shapes_seen": s2d_shapes_seen,
+            "dice_launched": launches["dice_sums"] >= 1,
+            "s2d_conv_list_kernel_vs_plain": t["checks_ok"] == t["checks"],
+            "f32_vs_plain_mode_within_1e-3": d_plain <= ZOO_F32_TOL,
+            "f32_vs_cpu_within_1e-3": d_cpu <= ZOO_F32_TOL,
+            "f32_prob_std_over_10x_tol": std >= 10 * ZOO_F32_TOL,
+        }
+        out["eval"][name] = row
+        bad = [c for c, ok in row["checks"].items() if not ok]
+        if bad:
+            failures.append({name: bad})
+        print(f"[s2d] {name} s2d eval: launches {launches}, bodies {bodies} "
+              f"(expected {want_bodies}); {row['images_per_s']:.2f} images/s"
+              f" (plain mode in zoo_eval {row['images_per_s_plain']:.2f}); "
+              f"device busy {row['device_ms_total']:.2f} ms, idle share "
+              f"{row['device_idle_share']:.3f}, top "
+              f"{[(r['name'][:40], round(r['device_ms'], 2)) for r in row['top'][:4]]}; peak "
+              f"{peak / 2**20:.0f} MiB (plain {peak_plain / 2**20:.0f}); "
+              f"kernel 1 per 16-patch forward: s2d list {t['ms']:.2f} ms "
+              f"({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), plain list "
+              f"{tp['ms']:.2f} ms, cuDNN on the s2d list "
+              f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.2f} ms "
+              f"(s2d ops) / {tp['bound_ms']:.2f} ms (plain ops); kernel vs "
+              f"plain {t['checks_ok']}/{t['checks']} shapes; f32 vs plain "
+              f"mode {d_plain:.2e}, vs CPU {d_cpu:.2e}, std {std:.3e}"
+              + (f"; FAILED {bad}" if bad else ""), flush=True)
+        del plain, model, res
+        torch.cuda.empty_cache()
+
+    # 2. Training: two short epochs of train_arrays with s2d (FRUNet) and
+    # with remat (UNet), then the step's ms and peak memory each way.
+    t_images, t_masks, t_labels = synthetic_drive(TRAIN_IMAGES, IMG_H, IMG_W,
+                                                  seed=5)
+    os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+    runs = {}
+    for name, kwargs, remat in (("FRUNet.FRUNet", {"s2d": True}, False),
+                                ("UNet.UNet", {}, True)):
+        model = create_model(name, **kwargs)
+        reset_parameters(model, torch.Generator().manual_seed(6))
+        res, launches, bodies = counted(lambda: train_arrays(
+            model, t_images, t_masks, t_labels, model_name=name,
+            model_kwargs=kwargs, steps=S2D_TRAIN_STEPS,
+            batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR,
+            val_percent=TRAIN_VAL, patch_size=TRAIN_PATCH, seed=0,
+            save_path=os.path.join(ROOT, "build", "chip_smoke", "s2d.pt"),
+            compute_dtype=torch.bfloat16, max_epochs=TRAIN_EPOCHS,
+            visualize=False, remat=remat, device=dev))
+        hist = res["history"]
+        key = f"{name} ({'remat' if remat else 's2d'} train_arrays)"
+        conv_by_model[key] = bodies
+        runs[key] = {"history": hist, "launches": launches}
+        ok = (len(hist) == TRAIN_EPOCHS
+              and all(math.isfinite(r["loss"]) for r in hist)
+              and all(r["skipped_steps"] == 0 for r in hist)
+              and launches["dice_sums"] >= TRAIN_EPOCHS)
+        if not ok:
+            failures.append({key: hist})
+        print(f"[s2d] train_arrays {key}: losses "
+              f"{[round(r['loss'], 5) for r in hist]}, skipped "
+              f"{[r['skipped_steps'] for r in hist]}, launches {launches}",
+              flush=True)
+        del model
+    g = torch.Generator(device=dev).manual_seed(8)
+    imgs = torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3),
+                      generator=g, device=dev)
+    labs = (torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 1),
+                       generator=g, device=dev) > 0.8).float()
+    steps = {}
+    for name, kwargs, remat in (
+            ("FRUNet.FRUNet", {}, False), ("FRUNet.FRUNet", {"s2d": True},
+                                           False),
+            ("MultiResUNet.MultiResUNet", {}, False),
+            ("MultiResUNet.MultiResUNet", {"s2d": True}, False),
+            ("UNet.UNet", {}, False), ("UNet.UNet", {}, True)):
+        model = create_model(name, **kwargs)
+        reset_parameters(model, torch.Generator().manual_seed(9))
+        model = model.to(device=dev, memory_format=torch.channels_last)
+        ms, peak, base = step_ms_and_peak(model, (imgs, labs), remat=remat)
+        mode = "remat" if remat else ("s2d" if kwargs else "plain")
+        steps[f"{name} {mode}"] = {"ms_per_step": ms, "peak_bytes": peak,
+                                   "peak_over_start_bytes": peak - base}
+        del model
+        torch.cuda.empty_cache()
+    for key, r in steps.items():
+        print(f"[s2d] train step {key} (batch {TRAIN_BATCH}, "
+              f"{TRAIN_PATCH}^2, bf16): {r['ms_per_step']:.2f} ms, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB "
+              f"({r['peak_over_start_bytes'] / 2**30:.3f} over the start)",
+              flush=True)
+
+    # One f32 step with and without remat from the same UNet: parameters,
+    # BN statistics and batch counts agree (BN updated once per step).
+    # RMSprop's first step moves each weight by lr * 10 * sign(grad), so
+    # cuDNN runs deterministic algorithms here: a weight whose gradient is
+    # near 0 would otherwise take either sign in the two runs.
+    base_model = create_model("UNet.UNet")
+    reset_parameters(base_model, torch.Generator().manual_seed(10))
+    after = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            m = copy.deepcopy(base_model).to(
+                device=dev, memory_format=torch.channels_last)
+            st = TrainState(m.train(), make_optimizer(m.parameters(), 1e-4))
+            loss, ok = make_batch_step_fn(n_classes=1, remat=remat)(
+                st, imgs[:8], labs[:8])
+            if not ok:
+                raise AssertionError("the f32 remat comparison step skipped")
+            after.append({k: v.detach().clone()
+                          for k, v in m.state_dict().items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    remat_diff = max(float((after[0][k].double() - after[1][k].double())
+                           .abs().max()) for k in after[0])
+    tracked = {int(v) for k, v in after[1].items()
+               if k.endswith("num_batches_tracked")}
+    if remat_diff > 1e-5 or tracked != {1}:
+        failures.append({"remat_vs_plain": [remat_diff, sorted(tracked)]})
+    print(f"[s2d] remat f32 step vs plain step: max |d state| "
+          f"{remat_diff:.2e} (tolerance 1e-5), num_batches_tracked "
+          f"{sorted(tracked)}", flush=True)
+    del base_model, after
+
+    # 3. --resume from a JAX --latest-path file: the optimizer state the
+    # trainer restores against the file's, then two steps on the card.
+    model, config = ckpt.load_model_any(JAX_LATEST, dev)
+    name = config["model_name"]
+    opt = make_optimizer(model.parameters(), TRAIN_LR)
+    extra = ckpt.resume_state(JAX_LATEST, name, model, opt)
+    opt.load_state_dict(extra["optimizer"])
+    raw = ckpt.read_jax_ckpt(JAX_LATEST)
+    opt_state = ckpt.load_extra(JAX_LATEST)["opt_state"]
+    inner = opt_state["inner_state"]
+    want = {f: state_dict_from_jax(name, {
+        "params": next(e[f] for e in inner.values() if f in e),
+        "batch_stats": raw["batch_stats"]}) for f in ("nu", "trace")}
+    restored_ok = all(
+        torch.equal(opt.state[p]["square_avg"].cpu(), want["nu"][n])
+        and torch.equal(opt.state[p]["momentum_buffer"].cpu(),
+                        want["trace"][n])
+        and opt.state[p]["square_avg"].device == p.device
+        for n, p in model.named_parameters())
+    lr_ok = math.isclose(opt.param_groups[0]["lr"], float(
+        opt_state["hyperparams"]["learning_rate"]))
+    step = make_batch_step_fn(n_classes=1)
+    r_imgs = imgs[:2, :32, :32]
+    r_labs = labs[:2, :32, :32]
+    losses = [step(TrainState(model.train(), opt), r_imgs, r_labs)
+              for _ in range(2)]
+    steps_after = sorted({float(s["step"]) for s in opt.state.values()})
+    crop = (slice(0, 4), slice(IMG_H // 2 - 64, IMG_H // 2 + 64),
+            slice(IMG_W // 2 - 64, IMG_W // 2 + 64))
+    res, launches, bodies = counted(lambda: train_arrays(
+        ckpt.load_model_any(JAX_LATEST, dev)[0], t_images[crop],
+        t_masks[crop], t_labels[crop], model_name=name,
+        model_kwargs=config["model_kwargs"], steps=2, batch_size=2,
+        val_percent=0.5, patch_size=32, seed=0,
+        save_path=os.path.join(ROOT, "build", "chip_smoke", "resumed.pt"),
+        compute_dtype=torch.float32, max_epochs=2, visualize=False,
+        resume_from=JAX_LATEST, device=dev))
+    conv_by_model[f"{name} (resumed train_arrays)"] = bodies
+    resume_ok = (restored_ok and lr_ok
+                 and all(ok and math.isfinite(float(v)) for v, ok in losses)
+                 and steps_after == [2.0, 4.0]
+                 and [r["epoch"] for r in res["history"]] == [2])
+    if not resume_ok:
+        failures.append({"resume": [restored_ok, lr_ok, steps_after,
+                                    res["history"]]})
+    print(f"[s2d] resume from {os.path.basename(JAX_LATEST)} ({name}): "
+          f"RMSprop state equal to the file's {restored_ok}, lr "
+          f"{opt.param_groups[0]['lr']:.1e} ({lr_ok}); two steps on the "
+          f"card, losses {[round(float(v), 5) for v, _ in losses]}, steps "
+          f"{steps_after}; train_arrays(resume_from=...) ran epochs "
+          f"{[r['epoch'] for r in res['history']]}, launches {launches}",
+          flush=True)
+
+    out.update({"train_runs": runs, "train_steps": steps,
+                "remat_f32_max_abs_diff": remat_diff,
+                "resume": {"restored_equal": restored_ok, "lr_ok": lr_ok,
+                           "steps_after": steps_after,
+                           "history": res["history"]}})
+    report["s2d"] = out
+    state["s2d_launches"] = launches_sum
+    state["s2d_conv_launches"] = conv_by_model
+    state["conv_bodies"]["s2d"] = {
+        b: sum(m.get(b, 0) for m in conv_by_model.values())
+        for b in sorted({b for m in conv_by_model.values() for b in m})}
+    by_body = sum(state["conv_bodies"]["s2d"].values())
+    if by_body != launches_sum["conv3x3_affine_relu"]:
+        failures.append({"launches_by_body": [
+            by_body, launches_sum["conv3x3_affine_relu"]]})
+    if failures:
+        raise AssertionError(f"s2d checks failed: {failures}")
+
+
 def phase_probe(report, state):
     import torch
     import torch.nn.functional as F
@@ -2130,12 +2503,14 @@ def kernels_line(state):
                    "zoo": state["zoo_launches"][row["name"]],
                    "protocols": state["protocol_launches"][row["name"]],
                    "serve": state["serve_launches"][row["name"]],
-                   "fractal": state["fractal_launches"][row["name"]]}
+                   "fractal": state["fractal_launches"][row["name"]],
+                   "s2d": state["s2d_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
             row["launches_by_body"] = state["conv_bodies"]
-            row["launches_by_model"] = state["zoo_conv_launches"]
+            row["launches_by_model"] = {**state["zoo_conv_launches"],
+                                        **state["s2d_conv_launches"]}
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {"probe": probe["launches"]}
     return rows + [probe]
@@ -2160,7 +2535,8 @@ def main() -> None:
     state = {}
     t_start = time.perf_counter()
     failed = []
-    needs = {"train_val_f32": "train_path", "serve": "train_path"}
+    needs = {"train_val_f32": "train_path", "serve": "train_path",
+             "s2d": "zoo_eval"}
     for name, phase in (("build", phase_build),
                         ("main_path", phase_main_path),
                         ("f32_end_to_end", phase_f32_end_to_end),
@@ -2171,6 +2547,7 @@ def main() -> None:
                         ("serve", phase_serve),
                         ("train_val_f32", phase_train_val_f32),
                         ("fractal", phase_fractal),
+                        ("s2d", phase_s2d),
                         ("probe", phase_probe)):
         if needs.get(name) in failed:
             failed.append(name)

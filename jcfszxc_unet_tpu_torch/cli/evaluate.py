@@ -12,8 +12,12 @@ on arrays alone, so a caller without an h5 file runs the same code.  ``-m``
 takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
 (``train.checkpoint.load_model_any``).
 
-``--s2d`` and ``--devices`` > 1 are not ported yet and exit with a message
-that says so.
+``--s2d`` evaluates FRUNet, MultiResUNet and NestedUNet in
+space-to-depth execution (``ops/s2d.py``; same parameters): any
+checkpoint of those models can opt in, and one trained with ``--s2d``
+evaluates in that mode without the flag; another model exits naming the
+three.  ``--devices`` > 1 is not ported yet and exits with a message that
+says so.
 """
 
 from __future__ import annotations
@@ -221,7 +225,9 @@ def get_args(argv=None):
                         help="Whole-image forward, padded to a multiple of "
                              "32 (no tiling or stitching; one device)")
     parser.add_argument("--s2d", action="store_true",
-                        help="Space-to-depth execution (not ported yet)")
+                        help="Space-to-depth execution of the narrow blocks "
+                             "(FRUNet, MultiResUNet, NestedUNet; same "
+                             "parameters)")
     parser.add_argument("--sliding-window", action="store_true",
                         help="Use the sliding-window predictor "
                              "(predict_full_image protocol) driven by "
@@ -267,12 +273,9 @@ def get_args(argv=None):
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    for flag, on in (("--s2d", args.s2d),
-                     ("--devices > 1", args.devices > 1)):
-        if on:
-            raise SystemExit(
-                f"{flag} is not ported to PyTorch yet; the port evaluates "
-                f"on one device")
+    if args.devices > 1:
+        raise SystemExit("--devices > 1 is not ported to PyTorch yet; the "
+                         "port evaluates on one device")
     try:
         _check_protocol(args.sliding_window, args.spatial, args.tta)
     except ValueError as e:
@@ -281,10 +284,19 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     os.makedirs("demo", exist_ok=True)
     logging.info(f"Using device: {device}")
-    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model_any
+    from jcfszxc_unet_tpu_torch.train.checkpoint import (
+        load_model_any,
+        opt_in_s2d,
+    )
 
     logging.info(f"Loading model from {args.model}")
-    model, _ = load_model_any(args.model, device, patch_size=args.patch_size)
+    model, config = load_model_any(args.model, device,
+                                   patch_size=args.patch_size)
+    if args.s2d:
+        try:
+            model, _ = opt_in_s2d(model, config)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     eval_model(
         model=model,
         input_data=args.data_file,

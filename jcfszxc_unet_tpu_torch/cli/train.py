@@ -13,16 +13,22 @@ best-checkpoint-on-improvement, early stopping, the epoch line,
 ``--logit-head`` makes a model that ends in a sigmoid (BCDU_net_D3/D1,
 TransFuseNet) or in a softmax over one channel (BARUNet, BIARUNet) return
 the head before it, recorded in the checkpoint's ``model_kwargs``; other
-models exit with the list of those that take it.  BCDU models get
-``N`` = the patch size, as in the JAX CLI.  Not ported yet, refused with a
-message that says so: ``--devices`` > 1, ``--s2d`` and ``--remat``.
+models exit with the list of those that take it.  ``--s2d`` runs the
+narrow blocks of FRUNet, MultiResUNet and NestedUNet in space-to-depth
+space (``ops/s2d.py``; same parameters), recorded in ``model_kwargs`` so
+that evaluation takes the same mode; other models exit with the list of
+those that take it.  ``--remat`` recomputes the train-mode forward's
+activations in the backward (``train.trainer.make_batch_step_fn``).  BCDU
+models get ``N`` = the patch size, as in the JAX CLI.  Not ported yet,
+refused with a message that says so: ``--devices`` > 1.
 ``--profile-dir`` wraps the epoch loop in a ``torch.profiler`` capture
 (``utils.profiling.trace``) and writes a Chrome trace there.
 
 ``--load`` takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
-(``train.checkpoint.load_model_any``); ``--resume`` needs a port checkpoint
-(``--latest-path``), since a JAX file's optax state is not mapped to the
-port's RMSprop.  Checkpoints are written in the background
+(``train.checkpoint.load_model_any``); ``--resume`` takes a
+``--latest-path`` file of the port or of the JAX CLI, whose optax state is
+mapped to the port's RMSprop (``compat/optax_state.py``).  Checkpoints are
+written in the background
 (``train.checkpoint.AsyncCheckpointWriter``: snapshot on the device at the
 end of the epoch, host copy and disk write on a worker thread);
 ``--sync-checkpoints`` writes them on the training loop instead.
@@ -56,6 +62,8 @@ from jcfszxc_unet_tpu_torch.models import (
     logit_head_capable,
     model_takes,
     registry_name,
+    s2d_capable,
+    with_kwargs,
 )
 from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
 from jcfszxc_unet_tpu_torch.train.optim import (
@@ -114,7 +122,8 @@ def train_arrays(model, images, masks, labels, *,
                  resume_from: str | None = None, precise_bn: int = 0,
                  augment: bool = False, metrics_file: str | None = None,
                  async_checkpoints: bool = True,
-                 profile_dir: str | None = None, device="cuda"):
+                 profile_dir: str | None = None, remat: bool = False,
+                 device="cuda"):
     """The reference training protocol on arrays: images (N, H, W, C),
     masks and labels (N, H, W), float in [0, 1].
 
@@ -129,6 +138,10 @@ def train_arrays(model, images, masks, labels, *,
     the train steps and of the validation pass, each ending in a device
     sync).  With ``profile_dir`` the epoch loop runs under
     :func:`utils.profiling.trace`, which writes a Chrome trace there.
+    ``resume_from`` restores the optimizer, the scheduler and the
+    progress from a ``--latest-path`` file of the port or of the JAX
+    package; ``remat`` recomputes the forward's activations in the
+    backward.
     """
     dev = resolve_device(device)
     model_kwargs = dict(model_kwargs or {})
@@ -171,7 +184,7 @@ def train_arrays(model, images, masks, labels, *,
     epoch_fn = make_epoch_fn(
         n_classes=model.n_classes, batch_size=batch_size,
         patch_size=patch_size, steps=steps, compute_dtype=compute_dtype,
-        augment=augment)
+        augment=augment, remat=remat)
     val_fn = make_val_fn(model, compute_dtype=compute_dtype)
     precise_bn_fn = make_precise_bn_fn(
         batch_size=batch_size, patch_size=patch_size, k_batches=precise_bn,
@@ -185,13 +198,14 @@ def train_arrays(model, images, masks, labels, *,
     dice_history = []
     history = []
 
-    # Exact resume from a --latest-path checkpoint: optimizer, scheduler
-    # and progress (the params come from --load).
+    # Exact resume from a --latest-path checkpoint (the port's or a JAX
+    # .ckpt): optimizer, scheduler and progress (the params come from
+    # --load).
     if resume_from:
-        extra = ckpt.load_extra(resume_from)
-        if extra and "optimizer" in extra:
+        extra = ckpt.resume_state(resume_from, model_name, model, optimizer)
+        if extra:
             optimizer.load_state_dict(extra["optimizer"])
-            prog = extra.get("progress", {})
+            prog = extra["progress"]
             epoch = int(prog.get("epoch", 0))
             best_dice = float(prog.get("best_dice", 0.0))
             patience_counter = int(prog.get("patience_counter", 0))
@@ -401,7 +415,8 @@ def get_args(argv=None):
                              "epoch loop here")
     parser.add_argument("--remat", action="store_true",
                         help="Rematerialize activations in the backward "
-                             "pass (not ported yet)")
+                             "pass (checkpoint the whole train-mode "
+                             "forward: less memory, more compute)")
     parser.add_argument("--metrics-file", type=str, default=None,
                         help="Append one JSON object per epoch here "
                              "(machine-readable mirror of the epoch line)")
@@ -410,7 +425,9 @@ def get_args(argv=None):
                              "on training patches (the reference trains "
                              "un-augmented)")
     parser.add_argument("--s2d", action="store_true",
-                        help="Space-to-depth execution (not ported yet)")
+                        help="Space-to-depth execution of the narrow "
+                             "blocks (same parameters); supported: "
+                             + ", ".join(s2d_capable()))
     parser.add_argument("--logit-head", action="store_true",
                         help="Train the models whose forward ends in a "
                              "sigmoid or in a softmax over one channel on "
@@ -421,7 +438,8 @@ def get_args(argv=None):
                              "+ scheduler + progress) here every epoch")
     parser.add_argument("--resume", type=str, default=None,
                         help="Exact-resume from a --latest-path checkpoint "
-                             "of the port (implies loading its params too)")
+                             "of the port or of the JAX CLI (implies "
+                             "loading its params too)")
     parser.add_argument("--precise-bn", type=int, default=0, metavar="K",
                         help="After each epoch, re-estimate the BN running "
                              "statistics as the mean of pure batch "
@@ -440,21 +458,15 @@ def get_args(argv=None):
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    for flag, on in (("--devices > 1", args.devices > 1),
-                     ("--s2d", args.s2d), ("--remat", args.remat)):
-        if on:
-            raise SystemExit(
-                f"{flag} is not ported to PyTorch yet; the port trains "
-                f"{', '.join(sorted(MODEL_REGISTRY))} on one device")
+    if args.devices > 1:
+        raise SystemExit(
+            f"--devices > 1 is not ported to PyTorch yet; the port trains "
+            f"{', '.join(sorted(MODEL_REGISTRY))} on one device")
     device = resolve_device(args.device)
     logging.info(f"Using device: {device}")
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
 
-    if args.resume and ckpt.checkpoint_format(args.resume) == "jax":
-        raise SystemExit(
-            f"{args.resume} is a JAX .ckpt: --load takes it, --resume needs "
-            f"a port checkpoint (its optax state is not mapped to RMSprop)")
     if args.resume and not args.load:
         args.load = args.resume  # --resume implies loading params from it
     model = None
@@ -482,6 +494,15 @@ def main(argv=None):
         model_kwargs["logit_head"] = True
         if model is not None:
             model.logit_head = True
+    if args.s2d and not model_kwargs.get("s2d"):
+        # an execution mode over the same parameters: it composes with
+        # --load and --resume and is recorded for the eval CLI
+        if model_name not in s2d_capable():
+            raise SystemExit(f"--s2d is not supported by {model_name}; "
+                             f"supported: " + ", ".join(s2d_capable()))
+        model_kwargs["s2d"] = True
+        if model is not None:
+            model = with_kwargs(model, model_name, model_kwargs)
     if model is None:
         from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
 
@@ -513,6 +534,7 @@ def main(argv=None):
         metrics_file=args.metrics_file,
         async_checkpoints=not args.sync_checkpoints,
         profile_dir=args.profile_dir,
+        remat=args.remat,
         device=device,
     )
 

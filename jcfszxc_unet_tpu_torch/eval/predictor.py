@@ -44,15 +44,23 @@ class Predictor:
         self._fwd = dihedral_tta(self._forward) if tta else self._forward
 
     @classmethod
-    def from_checkpoint(cls, path: str, device="cuda", **kwargs
-                        ) -> "Predictor":
+    def from_checkpoint(cls, path: str, device="cuda", s2d: bool = False,
+                        **kwargs) -> "Predictor":
         """Build from a port checkpoint, a JAX ``.ckpt`` or a reference
         ``.pth`` (``train.checkpoint.load_model_any``; a BCDU model gets
-        ``N`` = ``patch_size``, 512 by default)."""
-        from jcfszxc_unet_tpu_torch.train.checkpoint import load_model_any
+        ``N`` = ``patch_size``, 512 by default).  ``s2d=True`` opts a
+        FRUNet, MultiResUNet or NestedUNet into space-to-depth execution;
+        a checkpoint that records the mode runs in it anyway."""
+        from jcfszxc_unet_tpu_torch.train.checkpoint import (
+            load_model_any,
+            opt_in_s2d,
+        )
 
-        model, _ = load_model_any(path, device=resolve_device(device),
-                                  patch_size=kwargs.get("patch_size", 512))
+        model, config = load_model_any(
+            path, device=resolve_device(device),
+            patch_size=kwargs.get("patch_size", 512))
+        if s2d:
+            model, _ = opt_in_s2d(model, config)
         return cls(model, device=device, **kwargs)
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:

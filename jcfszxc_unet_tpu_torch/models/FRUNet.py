@@ -5,8 +5,13 @@ heads on full-resolution nodes, averaged.  Logits out.
 
 The reference's top-level ``fuse`` head and the ``fuse`` of every node
 with in_c == out_c are never applied by its forward; this model, like
-the JAX one, leaves them out.  The ``s2d`` execution mode is not ported
-yet.
+the JAX one, leaves them out.
+
+``s2d`` (space-to-depth execution, the JAX model's): the seven nodes of
+the full-resolution 32-channel row run in s2d space (128 channels at half
+the map) where H and W are even; the other rows and the heads run plain.
+Same parameters and, with dropout live, the same Dropout2d masks for one
+RNG state.
 
 Takes and returns NCHW tensors in ``torch.channels_last``.  In eval mode
 the 32 FRConv convs (BN folded, ReLU off, LeakyReLU stock) and the 12
@@ -40,16 +45,15 @@ class FRUNet(nn.Module):
                  feature_scale: int = 2, dropout: float = 0.2,
                  s2d: bool = False):
         super().__init__()
-        if s2d:
-            raise NotImplementedError(
-                "FRUNet's s2d execution mode is not ported to PyTorch yet")
+        self.s2d = s2d
         self.n_channels = num_channels
         self.n_classes = num_classes
         f = [int(v / feature_scale) for v in (64, 128, 256, 512, 1024)]
         for name, mult, level, is_up, is_down in _NODES:
             in_c = num_channels if mult == "in" else f[level] * mult
+            # s2d pays where the channels are narrow: the full-res row
             setattr(self, name, FRBlock(in_c, f[level], dropout, is_up,
-                                        is_down))
+                                        is_down, s2d=s2d and level == 0))
         for i in range(1, 6):
             setattr(self, f"final{i}", Conv2d(f[0], num_classes, 1))
 

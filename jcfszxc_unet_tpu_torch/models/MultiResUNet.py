@@ -2,8 +2,15 @@
 of ``jcfszxc_unet_tpu/models/MultiResUNet.py``: Multiresblocks down and up,
 Respath skips of lengths 4, 3, 2 and 1, and the alpha = 1.67 width
 arithmetic with the reference's int() truncation.  Logits out (a 1x1
-Conv2dBatchnorm, no activation).  The ``s2d`` execution mode is not
-ported yet.
+Conv2dBatchnorm, no activation).
+
+``s2d`` (space-to-depth execution, the JAX model's): where H and W are
+multiples of 4, the narrow first two levels stay resident in s2d space:
+multiresblock1, respath1, multiresblock2, respath2 and, in the decoder,
+multiresblock8 and multiresblock9, with one transform at each true
+boundary (the pools leave s2d by a phase max, the transposed convs'
+outputs are packed before their concat).  Other sizes run plain.  Same
+parameters in both modes.
 
 Takes and returns NCHW tensors in ``torch.channels_last``.  In eval mode
 each of the 37 3x3 Conv2dBatchnorms (27 in the blocks, 10 in the
@@ -22,6 +29,11 @@ from jcfszxc_unet_tpu_torch.ops.blocks import (
     Respath,
 )
 from jcfszxc_unet_tpu_torch.ops.layers import ConvTranspose2d, cat_channels
+from jcfszxc_unet_tpu_torch.ops.s2d import (
+    depth_to_space,
+    maxpool_exit,
+    space_to_depth,
+)
 
 FILTERS = (32, 64, 128, 256, 512)
 
@@ -36,10 +48,7 @@ class MultiResUNet(nn.Module):
     def __init__(self, input_channels: int = 3, num_classes: int = 1,
                  alpha: float = 1.67, s2d: bool = False):
         super().__init__()
-        if s2d:
-            raise NotImplementedError(
-                "MultiResUNet's s2d execution mode is not ported to PyTorch "
-                "yet")
+        self.s2d = s2d
         self.n_channels = input_channels
         self.n_classes = num_classes
         outs = [_mrb_out(f, alpha) for f in FILTERS]
@@ -60,14 +69,29 @@ class MultiResUNet(nn.Module):
                                           activation="None")
 
     def forward(self, x):
+        # s2d: levels 1 and 2 resident in space-to-depth form, %4 so that
+        # level 2's maps are even too (JAX MultiResUNet.py:47-120)
+        use = self.s2d and x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0
+        if use:
+            x = space_to_depth(x)
         skips = []
         for k in range(1, 5):
-            m = getattr(self, f"multiresblock{k}")(x)
-            skips.append(getattr(self, f"respath{k}")(m))
-            x = self.pool(m)
+            resident = use and k <= 2
+            m = getattr(self, f"multiresblock{k}")(x, s2d_io=resident)
+            skips.append(getattr(self, f"respath{k}")(m, s2d_io=resident))
+            if resident:
+                x = maxpool_exit(m)
+                x = space_to_depth(x) if k == 1 else x
+            else:
+                x = self.pool(m)
         x = self.multiresblock5(x)
         for k in range(6, 10):
             u = getattr(self, f"upsample{k}")(x)
+            resident = use and k >= 8
+            if resident:
+                u = space_to_depth(u)
             x = getattr(self, f"multiresblock{k}")(
-                cat_channels(u, skips.pop()))
+                cat_channels(u, skips.pop()), s2d_io=resident)
+            if resident:
+                x = depth_to_space(x)
         return self.conv_final(x)

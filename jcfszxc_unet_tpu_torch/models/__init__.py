@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import inspect
 
+import torch
+
 from jcfszxc_unet_tpu_torch.models import (
     AttentionUNet,
     BARUNet,
@@ -84,3 +86,23 @@ def logit_head_capable():
     head before it (the train CLI's ``--logit-head``; same parameters)."""
     return sorted(name for name in MODEL_REGISTRY
                   if model_takes(name, "logit_head"))
+
+
+def s2d_capable():
+    """Registry names of the models that take ``s2d``, the space-to-depth
+    execution of their narrow-channel blocks (``ops/s2d.py``): FRUNet,
+    MultiResUNet and NestedUNet (the train and eval CLIs' ``--s2d``; same
+    parameters)."""
+    return sorted(name for name in MODEL_REGISTRY
+                  if model_takes(name, "s2d"))
+
+
+def with_kwargs(model, name: str, kwargs):
+    """Model ``name`` built with ``kwargs`` and holding ``model``'s state
+    dict (loaded strict), on its device, in its mode, channels_last: a
+    change of execution mode (``s2d``) over the same parameters."""
+    device = next(model.parameters()).device
+    with torch.device(device):
+        new = create_model(name, **kwargs)
+    new.load_state_dict(model.state_dict(), strict=True)
+    return new.to(memory_format=torch.channels_last).train(model.training)

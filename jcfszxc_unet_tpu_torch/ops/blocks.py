@@ -31,6 +31,14 @@ MLPs and 7x7 convs and the self-attention run stock torch ops, as the JAX
 package runs them outside Pallas.  The eval-mode forward is for inference:
 no gradient flows through the kernel.  In train mode the blocks run stock
 torch ops.
+
+FRUNet's and MultiResUNet's blocks also run in space-to-depth space
+(``ops/s2d.py``), as the JAX blocks' ``s2d``/``s2d_io`` do: the same
+parameters applied to the (B, 4C, H/2, W/2) form, where each 3x3 (also
+the dilated one) has an s2d 3x3 that goes to the kernel the same way
+(:func:`conv_bn_relu_fused_s2d`), BatchNorm runs per original channel
+(``BatchNorm2d.s2d``) and Dropout2d drops original channels
+(:func:`dropout2d_s2d`).
 """
 
 from __future__ import annotations
@@ -56,6 +64,11 @@ from jcfszxc_unet_tpu_torch.ops.layers import (
     nhwc,
     pad_or_crop_to,
     upsample_nearest,
+)
+from jcfszxc_unet_tpu_torch.ops.s2d import (
+    depth_to_space,
+    expand_vector,
+    space_to_depth,
 )
 
 
@@ -98,6 +111,17 @@ def conv_bn_relu_fused(x, conv: Conv2d, bn: BatchNorm2d | None = None,
     return conv3x3_folded(x, kmajor(conv, x.dtype), scale, shift, relu)
 
 
+def conv_bn_relu_fused_s2d(x, conv: Conv2d, bn: BatchNorm2d | None = None,
+                           relu: bool = True):
+    """:func:`conv_bn_relu_fused` in space-to-depth space: ``x`` is the s2d
+    form (B, 4 Cin, H/2, W/2) and the conv's s2d kernel is a SAME 3x3
+    (from a 3x3, a dilated 3x3 or a 5x5), (4 Cout, 4 Cin, 3, 3); the fold's
+    scale and shift repeat 4x.  One kernel call; returns the s2d output."""
+    scale, shift = fold(conv, bn)
+    return conv3x3_folded(x, kmajor(conv.s2d_weight(x.dtype), x.dtype),
+                          expand_vector(scale), expand_vector(shift), relu)
+
+
 def _same3x3(conv: Conv2d) -> bool:
     return (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
             and conv.padding == (1, 1) and conv.dilation == (1, 1)
@@ -105,21 +129,46 @@ def _same3x3(conv: Conv2d) -> bool:
 
 
 def conv_bn_relu(x, conv: Conv2d, bn: nn.Module | None = None,
-                 relu: bool = True):
+                 relu: bool = True, s2d: bool = False):
     """Conv -> optional BN -> optional ReLU: one fused call in eval mode
     where the conv is a 3x3 with stride 1 and SAME padding, stock torch
-    ops otherwise (train mode, 1x1 and strided convs).
+    ops otherwise (train mode, 1x1 and strided convs).  ``s2d``: ``x`` and
+    the result are space-to-depth tensors, and a conv with a 3x3 s2d form
+    fuses the same way (:func:`conv_bn_relu_fused_s2d`).
 
     The blocks of the earlier models keep one ``if self.training`` per
     block instead: their train branch is the reference's whole
     ``nn.Sequential`` call, and their eval branch chains fused calls that
     this helper's per-conv test would not shorten."""
+    if s2d:
+        if not conv.training and conv.kernel_size[0] > 1:
+            return conv_bn_relu_fused_s2d(x, conv, bn, relu)
+        y = conv.s2d(x)
+        if bn is not None:
+            y = bn.s2d(y)
+        return torch.relu(y) if relu else y
     if not conv.training and _same3x3(conv):
         return conv_bn_relu_fused(x, conv, bn, relu)
     y = conv(x)
     if bn is not None:
         y = bn(y)
     return torch.relu(y) if relu else y
+
+
+def dropout2d_s2d(drop: nn.Dropout2d, x):
+    """``drop`` (Dropout2d) on the s2d form of a map: whole ORIGINAL
+    channels drop, their 4 phases together.  Feature dropout of the (B, C,
+    4, h, w) view draws a (B, C) mask, the draw the plain Dropout2d makes
+    on (B, C, H, W), so one RNG state gives the same mask in both modes;
+    Dropout2d on the s2d tensor would drop single phases."""
+    b, c4, h, w = x.shape
+    y = F.dropout3d(x.view(b, c4 // 4, 4, h, w), drop.p, drop.training)
+    return channels_last(y.reshape(b, c4, h, w))
+
+
+def even_hw(x) -> bool:
+    """H and W of NCHW ``x`` both even: a map that has an s2d form."""
+    return x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
 
 
 class DoubleConv(nn.Module):
@@ -416,7 +465,10 @@ class FRConv(nn.Module):
     out_c -> out_c whatever ``in_c`` is; its callers pass in_c == out_c.
 
     Eval mode: each conv runs with its BN folded and ReLU off (LeakyReLU is
-    not the kernel's and stays a stock op); Dropout2d is the identity."""
+    not the kernel's and stays a stock op); Dropout2d is the identity.
+    ``forward(x, s2d=True)`` takes and returns the s2d form: the same
+    convs through their s2d kernels (eval: fused), the BNs per original
+    channel and Dropout2d per original channel (:func:`dropout2d_s2d`)."""
 
     def __init__(self, in_c: int, out_c: int, dp: float = 0.0):
         super().__init__()
@@ -427,13 +479,16 @@ class FRConv(nn.Module):
                        nn.LeakyReLU(0.1)]
         self.conv = nn.Sequential(*layers)
 
-    def forward(self, x):
-        if self.training:
-            return self.conv(x)
+    def forward(self, x, s2d: bool = False):
         seq = self.conv
+        if self.training and not s2d:
+            return seq(x)
         for k in (0, 4):
-            x = F.leaky_relu(conv_bn_relu_fused(x, seq[k], seq[k + 1],
-                                                relu=False), 0.1)
+            if not self.training:
+                x = conv_bn_relu(x, seq[k], seq[k + 1], relu=False, s2d=s2d)
+            else:
+                x = dropout2d_s2d(seq[k + 2], seq[k + 1].s2d(seq[k].s2d(x)))
+            x = F.leaky_relu(x, 0.1)
         return x
 
 
@@ -441,7 +496,13 @@ class FeatureFuse(nn.Module):
     """Conv1x1 + Conv3x3 + dilated Conv3x3 (d = 2), all without bias,
     summed -> BN, the reference's ``feature_fuse`` (unet_parts.py:510-525).
     Eval mode: the plain 3x3 runs on the kernel with scale 1, shift 0 and
-    ReLU off; the 1x1 and the dilated 3x3 are stock ops."""
+    ReLU off; the 1x1 and the dilated 3x3 are stock ops.
+
+    ``forward(x, s2d=True)`` takes and returns the s2d form.  There the
+    three convs' s2d kernels are all SAME on the same input (the 1x1's a
+    1x1, the other two 3x3s), so eval mode sums them (the 1x1 at the 3x3's
+    centre tap), in f32, and runs the sum with the BN folded in as one
+    kernel call."""
 
     def __init__(self, in_c: int, out_c: int):
         super().__init__()
@@ -451,7 +512,23 @@ class FeatureFuse(nn.Module):
                                 bias=False)
         self.norm = BatchNorm2d(out_c)
 
-    def forward(self, x):
+    def s2d_weight(self) -> torch.Tensor:
+        """The three convs' s2d kernels summed, (4 out_c, 4 in_c, 3, 3),
+        f32."""
+        f32 = torch.float32
+        return (F.pad(self.conv11.s2d_weight(f32), [1, 1, 1, 1])
+                + self.conv33.s2d_weight(f32)
+                + self.conv33_di.s2d_weight(f32))
+
+    def forward(self, x, s2d: bool = False):
+        if s2d:
+            if not self.training:
+                scale, shift = self.norm.folded()
+                return conv3x3_folded(
+                    x, kmajor(self.s2d_weight(), x.dtype),
+                    expand_vector(scale), expand_vector(shift), relu=False)
+            return self.norm.s2d(self.conv11.s2d(x) + self.conv33.s2d(x)
+                                 + self.conv33_di.s2d(x))
         x2 = (self.conv33(x) if self.training
               else conv_bn_relu_fused(x, self.conv33, relu=False))
         return self.norm(self.conv11(x) + x2 + self.conv33_di(x))
@@ -493,20 +570,31 @@ class FRBlock(nn.Module):
 
     The reference also builds a ``fuse`` where in_c == out_c that its
     forward never applies; this block, like the JAX one, has none, so its
-    state dict lacks those dead keys."""
+    state dict lacks those dead keys.
+
+    ``s2d``: FeatureFuse and FRConv run on the input's space-to-depth form
+    where its H and W are even (else plain, as the JAX block falls back),
+    and the branches take the unpacked output."""
 
     def __init__(self, in_c: int, out_c: int, dp: float = 0.0,
-                 is_up: bool = False, is_down: bool = False):
+                 is_up: bool = False, is_down: bool = False,
+                 s2d: bool = False):
         super().__init__()
+        self.s2d = s2d
         self.fuse = FeatureFuse(in_c, out_c) if in_c != out_c else None
         self.conv = FRConv(out_c, out_c, dp)
         self.up = FRUp(out_c, out_c // 2) if is_up else None
         self.down = FRDown(out_c, out_c * 2) if is_down else None
 
     def forward(self, x):
+        use_s2d = self.s2d and even_hw(x)
+        if use_s2d:
+            x = space_to_depth(x)
         if self.fuse is not None:
-            x = self.fuse(x)
-        x = self.conv(x)
+            x = self.fuse(x, s2d=use_s2d)
+        x = self.conv(x, s2d=use_s2d)
+        if use_s2d:
+            x = depth_to_space(x)
         branches = [b(x) for b in (self.up, self.down) if b is not None]
         return (x, *branches) if branches else x
 
@@ -519,7 +607,10 @@ class Conv2dBatchnorm(nn.Module):
     ``Conv2d_batchnorm`` (unet_parts.py:617-656).  The conv is built with
     integer padding (k // 2), which holds the same state dict as
     ``padding="same"`` and which the fused path recognises.  Eval mode: a
-    3x3 runs as one kernel call with its BN folded and its ReLU fused."""
+    3x3 runs as one kernel call with its BN folded and its ReLU fused.
+    ``forward(x, s2d=True)``: the same on space-to-depth input and output
+    (a 3x3 through its s2d kernel, still one call in eval mode; a 1x1 as a
+    stock 1x1 conv on 4x the channels)."""
 
     def __init__(self, num_in_filters: int, num_out_filters: int,
                  kernel_size: int, activation: str = "relu"):
@@ -529,8 +620,8 @@ class Conv2dBatchnorm(nn.Module):
                             padding=kernel_size // 2)
         self.batchnorm = BatchNorm2d(num_out_filters)
 
-    def forward(self, x):
-        return conv_bn_relu(x, self.conv1, self.batchnorm, self.relu)
+    def forward(self, x, s2d: bool = False):
+        return conv_bn_relu(x, self.conv1, self.batchnorm, self.relu, s2d)
 
 
 class Multiresblock(nn.Module):
@@ -538,7 +629,12 @@ class Multiresblock(nn.Module):
     fields), their concat -> BN, + a 1x1 shortcut -> BN -> ReLU, the
     reference's ``Multiresblock`` (unet_parts.py:659-715).  Widths use the
     reference's int() truncation of ``num_filters * alpha * {0.167, 0.333,
-    0.5}``."""
+    0.5}``.
+
+    ``forward(x, s2d_io=True)``: space-to-depth execution, the JAX block's
+    persistent form, whose input and output are s2d tensors (the model
+    owns the transforms).  The concat needs no change: in the c-major
+    layout it is the s2d form of the plain concat."""
 
     def __init__(self, num_in_channels: int, num_filters: int,
                  alpha: float = 1.67):
@@ -554,13 +650,14 @@ class Multiresblock(nn.Module):
         self.batch_norm1 = BatchNorm2d(out_f)
         self.batch_norm2 = BatchNorm2d(out_f)
 
-    def forward(self, x):
-        shortcut = self.shortcut(x)
-        a = self.conv_3x3(x)
-        b = self.conv_5x5(a)
-        c = self.conv_7x7(b)
-        y = self.batch_norm1(cat_channels(a, b, c)) + shortcut
-        return torch.relu(self.batch_norm2(y))
+    def forward(self, x, s2d_io: bool = False):
+        shortcut = self.shortcut(x, s2d_io)
+        a = self.conv_3x3(x, s2d_io)
+        b = self.conv_5x5(a, s2d_io)
+        c = self.conv_7x7(b, s2d_io)
+        bn1, bn2 = ((self.batch_norm1.s2d, self.batch_norm2.s2d) if s2d_io
+                    else (self.batch_norm1, self.batch_norm2))
+        return torch.relu(bn2(bn1(cat_channels(a, b, c)) + shortcut))
 
 
 class Respath(nn.Module):
@@ -568,7 +665,9 @@ class Respath(nn.Module):
     reference's ``Respath`` (unet_parts.py:718-791): per unit a 1x1
     shortcut, a 3x3 Conv2dBatchnorm, then the unit's one BN applied twice,
     relu(bn(x)) and relu(bn(x + shortcut)), as the reference does.  In
-    train mode that BN updates its running statistics twice per unit."""
+    train mode that BN updates its running statistics twice per unit.
+    ``forward(x, s2d_io=True)`` as for :class:`Multiresblock`: the whole
+    chain stays in s2d space."""
 
     def __init__(self, num_in_filters: int, num_out_filters: int,
                  respath_length: int):
@@ -581,11 +680,12 @@ class Respath(nn.Module):
             Conv2dBatchnorm(c, num_out_filters, 3) for c in ins)
         self.bns = nn.ModuleList(BatchNorm2d(num_out_filters) for _ in ins)
 
-    def forward(self, x):
+    def forward(self, x, s2d_io: bool = False):
         for shortcut, conv, bn in zip(self.shortcuts, self.convs, self.bns):
-            s = shortcut(x)
-            x = torch.relu(bn(conv(x)))
-            x = torch.relu(bn(x + s))
+            norm = bn.s2d if s2d_io else bn
+            s = shortcut(x, s2d_io)
+            x = torch.relu(norm(conv(x, s2d_io)))
+            x = torch.relu(norm(x + s))
         return x
 
 

@@ -19,11 +19,48 @@ from torch import nn
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its f32 parameters to the input's dtype."""
+    """``nn.Conv2d`` that casts its f32 parameters to the input's dtype.
+
+    :meth:`s2d` applies the same parameters in space-to-depth space
+    (``ops/s2d.py``), the JAX layer's ``s2d_space=True``."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+    def s2d_weight(self, dtype) -> torch.Tensor:
+        """The s2d-space OIHW weights (4 Cout, 4 Cin, k', k') in ``dtype``,
+        differentiable in :attr:`weight` (a gather: exact in any dtype).
+        Only a conv with an odd square kernel, stride 1, dilation 1 or 2,
+        groups 1 and SAME padding has an s2d form; any other raises
+        ``ValueError``."""
+        from jcfszxc_unet_tpu_torch.ops.s2d import s2d_kernel
+
+        kh, kw = self.kernel_size
+        if kh != kw or kh % 2 == 0:
+            raise ValueError(
+                f"s2d conv needs an odd square kernel, got {kh}x{kw}")
+        dh, dw = self.dilation
+        if (self.groups != 1 or self.stride != (1, 1) or dh != dw
+                or dh > 2):
+            raise ValueError(
+                "s2d conv requires stride 1, dilation 1 or 2, groups 1")
+        if self.padding not in ("same", (kh // 2 * dh, kw // 2 * dw)):
+            raise ValueError("s2d conv requires SAME-equivalent padding")
+        return s2d_kernel(self.weight, dh).to(dtype)
+
+    def s2d(self, x):
+        """The conv on s2d input (B, 4 Cin, H/2, W/2), or on a list of s2d
+        parts whose channels sum to 4 Cin (concatenated: in the c-major
+        layout that is the s2d form of the concat); returns the s2d output
+        (B, 4 Cout, H/2, W/2), channels_last."""
+        from jcfszxc_unet_tpu_torch.ops.s2d import conv_s2d, expand_vector
+
+        if isinstance(x, (tuple, list)):
+            x = cat_channels(*x) if len(x) > 1 else x[0]
+        bias = (None if self.bias is None
+                else expand_vector(self.bias).to(x.dtype))
+        return conv_s2d(x, self.s2d_weight(x.dtype), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -60,6 +97,32 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
         return scale, shift
+
+    def s2d(self, x):
+        """The BatchNorm of the original channels on an s2d tensor (B, 4C,
+        h, w) (the JAX layer's ``phase_groups=4``): statistics and running
+        statistics per ORIGINAL channel over the batch, the 4 phases and
+        the map, with torch's unbiased running variance over that count,
+        as on the unpacked map.  The (B, C, 4, h, w) view goes through
+        ``F.batch_norm`` with this module's train/eval logic; a stock
+        ``BatchNorm2d(4C)`` would hold other parameters and statistics."""
+        b, c4, h, w = x.shape
+        if c4 != 4 * self.num_features:
+            raise ValueError(f"s2d BatchNorm of {self.num_features} channels "
+                             f"got {c4} (expected {4 * self.num_features})")
+        momentum = 0.0 if self.momentum is None else self.momentum
+        if self.training and self.track_running_stats:
+            self.num_batches_tracked.add_(1)
+            if self.momentum is None:  # cumulative moving average
+                momentum = 1.0 / float(self.num_batches_tracked)
+        use_batch = self.training or self.running_mean is None
+        track = not self.training or self.track_running_stats
+        y = F.batch_norm(
+            x.view(b, self.num_features, 4, h, w),
+            self.running_mean if track else None,
+            self.running_var if track else None,
+            self.weight, self.bias, use_batch, momentum, self.eps)
+        return channels_last(y.reshape(b, c4, h, w))
 
 
 def channels_last(x):

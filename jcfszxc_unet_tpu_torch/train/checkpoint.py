@@ -18,14 +18,14 @@ exactly one reader, which raises if it fails:
 * a reference ``.pth``: a whole pickled module, a bare state dict or a
   ``{"model_state_dict": ...}`` bundle (``compat/torch_import.py``).
 
-:func:`load_extra` reads the port's file only: exact resume needs the
-port's optimizer state.
+:func:`load_extra` reads the ``extra`` of the port's file and of a JAX
+``.ckpt``: a JAX ``--latest-path`` file's optax state is mapped to the
+port's RMSprop by ``compat/optax_state.py`` (:func:`resume_state`).
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
@@ -43,15 +43,18 @@ from jcfszxc_unet_tpu_torch.compat.torch_import import (
     read_pth,
     state_dict_of,
 )
-from jcfszxc_unet_tpu_torch.models import model_takes
+from jcfszxc_unet_tpu_torch.models import (
+    model_takes,
+    s2d_capable,
+    with_kwargs,
+)
 from jcfszxc_unet_tpu_torch.utils.device import resolve_device
 
 _KEYS = {"model_name", "model_kwargs", "state_dict"}
 
-# JAX model kwargs that are not architecture: the compute dtype (the
-# port's is an argument of its entry points) and space-to-depth execution
-# (same parameter tree; the port's models refuse it).
-_JAX_ONLY_KWARGS = ("dtype", "s2d")
+# JAX model kwargs that the port's models do not take: the compute dtype
+# (the port's is an argument of its entry points).
+_JAX_ONLY_KWARGS = ("dtype",)
 
 
 def _map_tensors(fn, tree):
@@ -122,8 +125,7 @@ def checkpoint_format(path: str) -> str:
 def _refuse(path: str, why: str):
     return ValueError(
         f"{path} is not a checkpoint of the PyTorch port ({why}); "
-        f"load_model_any also reads JAX .ckpt and reference .pth files, "
-        f"and --resume needs a port checkpoint")
+        f"load_model_any also reads JAX .ckpt and reference .pth files")
 
 
 def _load(path: str) -> Dict[str, Any]:
@@ -136,9 +138,36 @@ def _load(path: str) -> Dict[str, Any]:
 
 
 def load_extra(path: str) -> Optional[Dict[str, Any]]:
-    """The ``extra`` dict of a port checkpoint (tensors on the CPU), or
-    None when it was saved without one."""
+    """The ``extra`` dict of a port checkpoint (tensors on the CPU) or of a
+    JAX ``.ckpt`` (numpy leaves, f32 for bf16 ones), or None when it was
+    saved without one."""
+    if checkpoint_format(path) == "jax":
+        extra = read_jax_ckpt(path).get("extra")
+        return None if extra is None else _f32_numpy(extra)
     return _load(path).get("extra")
+
+
+def resume_state(path: str, model_name: str, model: nn.Module,
+                 optimizer: torch.optim.Optimizer
+                 ) -> Optional[Dict[str, Any]]:
+    """``{"optimizer": state dict, "progress": {...}}`` for an exact resume
+    of ``model`` and ``optimizer`` from a ``--latest-path`` file: the
+    port's own, or a JAX ``.ckpt`` whose optax state is mapped by
+    ``compat.optax_state.rmsprop_state_dict``.  None when the file holds
+    no optimizer state."""
+    from jcfszxc_unet_tpu_torch.compat.optax_state import rmsprop_state_dict
+
+    extra = load_extra(path)
+    if not extra:
+        return None
+    if "opt_state" in extra:
+        return {"optimizer": rmsprop_state_dict(
+                    model_name, extra["opt_state"], model, optimizer),
+                "progress": extra.get("progress", {})}
+    if "optimizer" in extra:
+        return {"optimizer": extra["optimizer"],
+                "progress": extra.get("progress", {})}
+    return None
 
 
 def _ready(model: nn.Module, device) -> nn.Module:
@@ -185,6 +214,8 @@ def _f32_numpy(tree):
         return {k: _f32_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):  # bf16 leaves
         return tree.float().numpy()
+    if isinstance(tree, str):
+        return tree
     return np.asarray(tree)
 
 
@@ -193,17 +224,14 @@ def load_jax_ckpt(path: str, device="cuda"
     """Rebuild (model, config) from a JAX msgpack ``.ckpt`` (JAX
     ``load_model``): the port's model of the recorded name and kwargs,
     with ``compat.from_jax.state_dict_from_jax`` of its ``params`` and
-    ``batch_stats`` loaded ``strict=True``.  ``s2d`` (an execution mode
-    over the same parameters, which the port's models refuse) and
-    ``dtype`` are left out of the model's kwargs; ``config`` is the
-    file's.  An optax ``opt_state`` in ``extra`` is not read."""
+    ``batch_stats`` loaded ``strict=True``.  The recorded kwargs go to
+    the model, ``s2d`` (space-to-depth execution over the same
+    parameters) included, all but ``dtype``; ``config`` is the file's.
+    An optax ``opt_state`` in ``extra`` is read by :func:`resume_state`."""
     device = resolve_device(device)
     payload = read_jax_ckpt(path)
     config = payload["config"]
     name, kwargs = config["model_name"], dict(config["model_kwargs"])
-    if kwargs.get("s2d"):
-        logging.info(f"{path}: loading {name} without s2d (a JAX execution "
-                     f"mode over the same parameters)")
     variables = {"params": _f32_numpy(payload["params"]),
                  "batch_stats": _f32_numpy(payload.get("batch_stats", {}))}
     model = model_from_state_dict(name, state_dict_from_jax(name, variables),
@@ -219,20 +247,39 @@ def load_model_any(path: str, device="cuda", patch_size: int = 64
     channels_last, on ``device`` (the card unless the caller asks for the
     CPU).  A ``.pth``'s model is named by its pickled class or, for a
     bare state dict or bundle, by its keys and shapes; BCDU models get
-    ``N = patch_size``."""
+    ``N = patch_size``.  A checkpoint that records ``s2d`` runs in that
+    mode (:func:`opt_in_s2d` switches another one)."""
     device = resolve_device(device)
     if checkpoint_format(path) == "jax":
-        return load_jax_ckpt(path, device)
-    obj = read_pth(path)
-    if isinstance(obj, dict) and _KEYS <= set(obj):
-        model, config = _port_model(obj, device)
+        model, config = load_jax_ckpt(path, device)
     else:
-        sd = state_dict_of(obj)
-        name = model_name_of(obj) or infer_model_name(sd)
-        kwargs = {"N": patch_size} if model_takes(name, "N") else {}
-        model = model_from_state_dict(name, sd, kwargs, device)
-        config = {"model_name": name, "model_kwargs": kwargs}
+        obj = read_pth(path)
+        if isinstance(obj, dict) and _KEYS <= set(obj):
+            model, config = _port_model(obj, device)
+        else:
+            sd = state_dict_of(obj)
+            name = model_name_of(obj) or infer_model_name(sd)
+            kwargs = {"N": patch_size} if model_takes(name, "N") else {}
+            model = model_from_state_dict(name, sd, kwargs, device)
+            config = {"model_name": name, "model_kwargs": kwargs}
     return _ready(model, device), config
+
+
+def opt_in_s2d(model: nn.Module, config: Dict[str, Any]
+               ) -> Tuple[nn.Module, Dict[str, Any]]:
+    """(model, config) of a loaded checkpoint in space-to-depth execution,
+    an execution mode over the same parameters (JAX evaluate.py's
+    ``--s2d``); unchanged when the config records it already.  Raises
+    ``ValueError`` naming the models that have the mode for another."""
+    name, kwargs = config["model_name"], config["model_kwargs"]
+    if kwargs.get("s2d"):
+        return model, config
+    if name not in s2d_capable():
+        raise ValueError(f"--s2d is not supported by {name}; supported: "
+                         + ", ".join(s2d_capable()))
+    kwargs = {**kwargs, "s2d": True}
+    return (with_kwargs(model, name, port_kwargs(kwargs)),
+            {"model_name": name, "model_kwargs": kwargs})
 
 
 # ---------------------------------------------------------------------------

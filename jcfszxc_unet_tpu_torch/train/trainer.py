@@ -13,6 +13,12 @@ What differs in mechanism from the JAX package:
     state stay as they were, while
     the BatchNorm running statistics keep the update that the forward
     already made, as in the JAX package and the reference.
+  * ``remat`` (JAX ``jax.checkpoint`` of the whole train-mode forward)
+    is ``torch.utils.checkpoint`` of the whole forward, non-reentrant,
+    with the RNG state preserved so that dropout draws the same masks
+    again.  The recomputation updates clones of the BatchNorm buffers
+    (:func:`frozen_running_stats`), so running statistics and
+    ``num_batches_tracked`` move once per step, as in JAX.
   * Validation runs the eval-mode forward in chunks under
     ``torch.no_grad()``: every DoubleConv conv goes through the
     ``conv3x3_affine_relu`` kernel with its BatchNorm folded in, and both
@@ -24,11 +30,13 @@ Models take NCHW tensors in ``torch.channels_last``; batches stay NHWC
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from jcfszxc_unet_tpu_torch.data.sampler import (
     augment_batch,
@@ -63,17 +71,53 @@ def _nchw(batch: torch.Tensor, dtype) -> torch.Tensor:
     return batch.to(dtype).permute(0, 3, 1, 2)
 
 
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Inside, every BatchNorm that tracks running statistics updates
+    clones of its ``running_mean``, ``running_var`` and
+    ``num_batches_tracked``, which are dropped at the exit: the
+    recomputation of a checkpointed forward normalizes by its batch
+    statistics as the first pass did, without a second update."""
+    saved = []
+    for m in model.modules():
+        if (isinstance(m, nn.modules.batchnorm._BatchNorm)
+                and m.track_running_stats):
+            bufs = {k: getattr(m, k) for k in (
+                "running_mean", "running_var", "num_batches_tracked")}
+            saved.append((m, bufs))
+            for k, v in bufs.items():
+                setattr(m, k, v.clone())
+    try:
+        yield
+    finally:
+        for m, bufs in saved:
+            for k, v in bufs.items():
+                setattr(m, k, v)
+
+
 def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
-                       clip_norm: float = 1.0) -> Callable:
+                       clip_norm: float = 1.0, remat: bool = False
+                       ) -> Callable:
     """The per-batch update ``(state, imgs, labs) -> (loss, ok)``:
     train-mode forward, 1/2 BCE + 1/2 Dice, backward, clip by global norm,
     RMSprop.  ``loss`` is a 0-d f32 tensor (0 when skipped); ``ok`` is
-    False when the loss was not finite and the update was skipped."""
+    False when the loss was not finite and the update was skipped.
+    ``remat``: the forward's activations are recomputed in the backward
+    instead of kept (see the module doc)."""
+
+    def forward(model, x):
+        if not remat:
+            return model(x)
+        return checkpoint(
+            model, x, use_reentrant=False, preserve_rng_state=True,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                frozen_running_stats(model)))
 
     def train_step(state: TrainState, imgs: torch.Tensor, labs: torch.Tensor):
         model, opt = state.model, state.optimizer
         model.train()
-        logits = model(_nchw(imgs, compute_dtype)).permute(0, 2, 3, 1)
+        logits = forward(model, _nchw(imgs, compute_dtype)).permute(
+            0, 2, 3, 1)
         loss, _, _ = combined_loss(logits, labs, n_classes)
         state.step += 1
         opt.zero_grad(set_to_none=True)
@@ -91,15 +135,15 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
 
 def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
                   steps: int, compute_dtype=torch.float32,
-                  augment: bool = False) -> Callable:
+                  augment: bool = False, remat: bool = False) -> Callable:
     """``(state, images, labels, sample_map, generator) -> {"epoch_loss",
     "skipped"}``: ``steps`` steps on batches drawn from ``generator``.
     ``epoch_loss`` is the sum of the kept losses (a 0-d tensor): skipped
     steps add nothing, the caller still divides by ``steps``
     (train.py:303, 392).  ``augment`` adds a random dihedral-8 element per
-    sample."""
+    sample; ``remat`` is :func:`make_batch_step_fn`'s."""
     batch_step = make_batch_step_fn(n_classes=n_classes,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, remat=remat)
 
     def epoch_fn(state, images, labels, sample_map, generator):
         total = torch.zeros((), device=images.device)

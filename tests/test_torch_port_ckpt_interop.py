@@ -13,7 +13,6 @@ modules pickled under the reference's class identity
 """
 
 import json
-import logging
 import sys
 import types
 
@@ -30,7 +29,6 @@ from jcfszxc_unet_tpu.compat.torch_import import variables_from_state_dict
 from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
 from jcfszxc_unet_tpu.train.checkpoint import load_model_any as jax_load_any
 from jcfszxc_unet_tpu.train.checkpoint import save_model as jax_save_model
-from jcfszxc_unet_tpu_torch.cli import train as port_train_cli
 from jcfszxc_unet_tpu_torch.compat import torch_export, torch_import
 from jcfszxc_unet_tpu_torch.compat.from_jax import state_dict_from_jax
 from jcfszxc_unet_tpu_torch.models import MODEL_REGISTRY
@@ -112,16 +110,15 @@ def test_jax_ckpt_forward_matches_jax(fixture):
     assert_close_to(got, want, EVAL_TOL)
 
 
-def test_jax_ckpt_with_s2d_loads_without_it(tmp_path, caplog):
+def test_jax_ckpt_with_s2d_loads_with_it(tmp_path):
     name = "MultiResUNet.MultiResUNet"
     _, variables = random_variables(name)
     path = str(tmp_path / "mres.ckpt")
     jax_save_model(path, name, {"s2d": True}, variables["params"],
                    variables["batch_stats"])
-    with caplog.at_level(logging.INFO):
-        model, config = ckpt.load_model_any(path, device="cpu")
-    assert config["model_kwargs"] == {"s2d": True}  # as the file has it
-    assert any("without s2d" in r.message for r in caplog.records)
+    model, config = ckpt.load_model_any(path, device="cpu")
+    assert config["model_kwargs"] == {"s2d": True}
+    assert model.s2d  # the execution mode the file records
     want = state_dict_from_jax(name, variables)
     got = model.state_dict()
     assert sorted(got) == sorted(want)
@@ -129,10 +126,23 @@ def test_jax_ckpt_with_s2d_loads_without_it(tmp_path, caplog):
         assert torch.equal(got[k], v), k
 
 
-def test_resume_refuses_a_jax_ckpt():
-    with pytest.raises(SystemExit, match="--load takes it, --resume needs "
-                                         "a port checkpoint"):
-        port_train_cli.main(["--resume", str(JAX_FIXTURE), "--device", "cpu"])
+def test_resume_takes_a_jax_ckpt():
+    """A JAX .ckpt resumes: a --save-path file holds no optimizer state
+    (its weights are --load's), a --latest-path file's optax state maps to
+    RMSprop (tests/test_torch_port_remat_resume.py holds the values)."""
+    from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
+
+    from .torch_port_common import DATA_DIR
+
+    model, config = ckpt.load_model_any(str(JAX_FIXTURE), device="cpu")
+    opt = make_optimizer(model.parameters(), 1e-6)
+    assert ckpt.resume_state(str(JAX_FIXTURE), config["model_name"], model,
+                             opt) is None
+    extra = ckpt.resume_state(str(DATA_DIR / "transfusenet_jax_latest.ckpt"),
+                              config["model_name"], model, opt)
+    opt.load_state_dict(extra["optimizer"])
+    assert len(opt.state) == len(list(model.parameters()))
+    assert int(extra["progress"]["epoch"]) == 1
 
 
 def test_a_file_of_no_known_format_raises(tmp_path):

@@ -123,6 +123,13 @@ def _inputs(b, h, w, cin, cout, seed):
 # Cout 17, BCDU-Net's Cout-2 head with ReLU and a ConvLSTM gate conv on the
 # two steps stacked on the batch; TransFuseNet's Cin 24 and 48 (part of one
 # 64-channel K step) to Cout 16 and 32, and its 8 -> 8 and 8 -> 16.
+# Space-to-depth execution (4x the channels at half the map): FRUNet's
+# 32 -> 32 row as 128 -> 128 with ReLU off, its FeatureFuse 64 -> 32 as
+# 256 -> 128, on rows of 256 pixels as at a 512^2 patch; NestedUNet's row-0
+# nodes 160 -> 32 as 640 -> 128 and row-1 ones 64 -> 64 as 256 -> 256 and
+# 320 -> 64 as 1280 -> 256; MultiResUNet's Cin 32 (8 -> 17 as 32 -> 68)
+# and Cin 128 (its Respath 32 -> 32 as 128 -> 128, and 64 -> 8 as
+# 256 -> 32).
 CASES = [
     (4, 8, 8, 64, 64, True),
     (2, 37, 29, 16, 64, True),
@@ -140,6 +147,14 @@ CASES = [
     (2, 8, 8, 48, 32, True),
     (2, 13, 11, 8, 8, True),
     (2, 8, 8, 8, 16, True),
+    (1, 2, 256, 128, 128, False),
+    (2, 8, 8, 256, 128, False),
+    (1, 8, 8, 640, 128, True),
+    (2, 8, 8, 256, 256, True),
+    (1, 4, 8, 1280, 256, True),
+    (2, 13, 11, 32, 68, True),
+    (2, 8, 8, 128, 128, True),
+    (2, 8, 8, 256, 32, True),
 ]
 
 

@@ -1,7 +1,7 @@
 """The port's evaluation slice end to end against the JAX package (CPU, f32):
 tiled prediction, eval_model on an h5 split, the metrics, the CLI (its
-three protocols and their refused combinations), and the rule that a CUDA
-default never falls back to the CPU.
+three protocols and their refused combinations, ``--s2d``), and the rule
+that a CUDA default never falls back to the CPU.
 
 The split holds 2 images of 64 x 48; patch 32 gives 6 overlapping patches
 per image and inference batch 5 leaves a short tail chunk.
@@ -207,9 +207,64 @@ def test_cli_runs_the_tiled_protocol(setup, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--s2d"], ["--devices", "2"]])
-def test_cli_refuses_unported_protocols(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        port_cli.main(["--device", "cpu", *flag])
+def test_cli_refuses_unported_protocols(setup, tmp_path, flag):
+    # --s2d is ported for the three models that have the mode; UNet's
+    # checkpoint is refused with their names
+    ckpt = str(tmp_path / "unet.pt")
+    save_model(ckpt, "UNet.UNet", {}, setup["port"])
+    match = ("not supported by UNet.UNet; supported: FRUNet.FRUNet, "
+             "MultiResUNet.MultiResUNet, UNetPP.NestedUNet"
+             if flag == ["--s2d"] else "not ported")
+    with pytest.raises(SystemExit, match=match):
+        port_cli.main(["-m", ckpt, "-d", setup["h5"], "--device", "cpu",
+                       *flag])
+
+
+def test_cli_and_predictor_evaluate_in_s2d(setup, tmp_path, monkeypatch):
+    """NestedUNet: ``--s2d`` on a plain checkpoint, and a checkpoint that
+    records ``s2d`` without the flag, give the plain evaluation's metrics;
+    ``Predictor.from_checkpoint(s2d=True)`` gives the JAX s2d model's
+    tiled maps."""
+    from jcfszxc_unet_tpu.models import create_model as jax_create_model
+
+    from .torch_port_common import jax_init, port_model, randomize_bn
+
+    monkeypatch.chdir(tmp_path)
+    name = "UNetPP.NestedUNet"
+    jmodel = jax_create_model(name, s2d=True)
+    variables = randomize_bn(jax_init(jmodel, 4, PATCH), 5)
+    port = port_model(name, variables)
+    plain_ckpt, s2d_ckpt = str(tmp_path / "n.pt"), str(tmp_path / "n2.pt")
+    save_model(plain_ckpt, name, {}, port)
+    save_model(s2d_ckpt, name, {"s2d": True}, port)
+    recs = []
+    for ckpt, flags in ((plain_ckpt, []), (plain_ckpt, ["--s2d"]),
+                        (s2d_ckpt, [])):
+        out_json = str(tmp_path / f"m{len(recs)}.json")
+        port_cli.main(["-m", ckpt, "-d", setup["h5"], "-p", str(PATCH),
+                       "--inference-batch-size", str(BATCH), "--dtype",
+                       "float32", "--device", "cpu", "-o",
+                       str(tmp_path / "preds"), "--metrics-json", out_json,
+                       *flags])
+        recs.append(json.loads(open(out_json).read()))
+    for rec in recs[1:]:
+        np.testing.assert_allclose(rec["per_image_dice"],
+                                   recs[0]["per_image_dice"], atol=1e-6)
+        np.testing.assert_allclose(rec["mean_auc"], recs[0]["mean_auc"],
+                                   atol=1e-6)
+    pred = Predictor.from_checkpoint(
+        plain_ckpt, device="cpu", s2d=True, compute_dtype=torch.float32,
+        patch_size=PATCH, inference_batch_size=BATCH)
+    assert pred.model.s2d
+
+    def jax_forward(batch):
+        return jax.nn.sigmoid(jmodel.apply(variables, batch, train=False))
+
+    want = np.asarray(jax_tiled_predict(jax_forward,
+                                        jnp.asarray(setup["images"]), PATCH,
+                                        BATCH))
+    np.testing.assert_allclose(pred.predict_images(setup["images"]).numpy(),
+                               want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("flags,kwargs", [

@@ -43,7 +43,9 @@ def test_scan_covers_the_checkpoint_interop_modules():
             "compat/torch_export.py", "cli/predict.py",
             # the fractal trainer, preprocessing and profiling
             "train/fractal.py", "cli/train_demo.py", "cli/preprocess.py",
-            "data/preprocess.py", "utils/profiling.py"} <= scanned
+            "data/preprocess.py", "utils/profiling.py",
+            # space-to-depth execution and the optax state of JAX resumes
+            "ops/s2d.py", "compat/optax_state.py"} <= scanned
 
 
 def test_package_imports_with_jax_blocked():

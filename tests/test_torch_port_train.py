@@ -527,17 +527,58 @@ def test_train_cli_end_to_end(train_h5, tmp_path, monkeypatch, capsys):
     assert load_extra(latest)["progress"]["epoch"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--s2d"], ["--logit-head"], ["--remat"],
-                                  ["--s2d", "--profile-dir", "trace"],
+@pytest.mark.parametrize("flag", [["--s2d"], ["--logit-head"],
+                                  ["--devices", "2", "--profile-dir", "trace"],
                                   ["--devices", "2"]])
 def test_train_cli_refuses_unported_flags(flag):
-    # --logit-head is ported; UNet's forward already returns logits.
+    # --logit-head and --s2d are ported; UNet has neither a sigmoid head
+    # nor an s2d mode, and each refusal names the models that take it.
     # --profile-dir is ported (tests/test_torch_port_profiling.py) and lets
     # no unported flag through.
-    match = ("not supported by UNet.UNet.*BCDU_net_D1"
-             if flag == ["--logit-head"] else "not ported")
+    match = {"--logit-head": "not supported by UNet.UNet.*BCDU_net_D1",
+             "--s2d": "not supported by UNet.UNet; supported: FRUNet.FRUNet, "
+                      "MultiResUNet.MultiResUNet, UNetPP.NestedUNet"}.get(
+        flag[0], "not ported")
     with pytest.raises(SystemExit, match=match):
         port_cli.main(["--device", "cpu", *flag])
+
+
+def test_train_cli_trains_in_s2d_under_the_profiler(train_h5, tmp_path,
+                                                     monkeypatch):
+    """--s2d on FRUNet with --profile-dir: two steps, ``s2d`` recorded in
+    the checkpoint, which reloads (strict) in s2d mode, and a trace."""
+    monkeypatch.chdir(tmp_path)
+    best, metrics = str(tmp_path / "fr.pt"), str(tmp_path / "m.jsonl")
+    port_cli.main(["-d", train_h5, "--device", "cpu", "--model",
+                   "FRUNet.FRUNet", "--s2d", "-p", "32", "-b", "2", "-s", "2",
+                   "--max-epochs", "1", "--dtype", "float32", "-v", "50",
+                   "--save-path", best, "--metrics-file", metrics,
+                   "--profile-dir", str(tmp_path / "trace")])
+    (rec,) = [json.loads(line) for line in open(metrics)]
+    assert rec["skipped_steps"] == 0 and np.isfinite(rec["loss"])
+    model, cfg = load_model(best, device="cpu")
+    assert cfg == {"model_name": "FRUNet.FRUNet",
+                   "model_kwargs": {"s2d": True}}
+    assert model.s2d and model.block1_3.s2d and not model.block2_2.s2d
+    assert list((tmp_path / "trace").glob("trace_*.json"))
+
+
+def test_train_cli_trains_with_remat(train_h5, tmp_path, monkeypatch):
+    """--remat: the same epoch as without it (the loss and the val Dice
+    of one seeded epoch agree), in f32 on the CPU."""
+    monkeypatch.chdir(tmp_path)
+    recs = []
+    for flags in ([], ["--remat"]):
+        metrics = str(tmp_path / f"m{len(recs)}.jsonl")
+        port_cli.main(["-d", train_h5, "--device", "cpu", "-p", "32", "-b",
+                       "2", "-s", "2", "--max-epochs", "1", "--dtype",
+                       "float32", "-v", "50", "--save-path",
+                       str(tmp_path / "u.pt"), "--metrics-file", metrics,
+                       *flags])
+        recs.append(json.loads(open(metrics).read()))
+    assert recs[1]["skipped_steps"] == 0
+    np.testing.assert_allclose(recs[1]["loss"], recs[0]["loss"], rtol=1e-5)
+    np.testing.assert_allclose(recs[1]["dice"], recs[0]["dice"], atol=1e-4)
 
 
 def test_train_arrays_defaults_to_cuda():

@@ -2,7 +2,8 @@
 full width on 2 x 32 x 32 inputs): the weight bridge (no dead ``fuse``
 keys: it loads strict), the eval and train-mode forwards (Dropout2d
 silenced on both sides, LeakyReLU, the five averaged heads), the
-fused-conv sites and the refusal of the unported s2d mode."""
+fused-conv sites, and that the s2d mode builds (its parity is
+tests/test_torch_port_s2d_models.py's) and UNet refuses it."""
 
 import numpy as np
 import pytest
@@ -46,8 +47,9 @@ def test_frunet_fused_conv_sites(zoo, monkeypatch):
                                                          "wgmma": 43}
 
 
-def test_frunet_s2d_is_not_ported():
-    from jcfszxc_unet_tpu_torch.models import create_model
+def test_frunet_s2d_builds_and_unet_refuses_it():
+    from jcfszxc_unet_tpu_torch.models import create_model, s2d_capable
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_model(NAME, s2d=True)
+    assert create_model(NAME, s2d=True).s2d and NAME in s2d_capable()
+    with pytest.raises(TypeError, match="s2d"):
+        create_model("UNet.UNet", s2d=True)

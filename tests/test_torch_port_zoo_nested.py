@@ -1,8 +1,9 @@
 """The port's NestedUNet (UNet++) against the JAX model on the same
 weights (CPU, f32, full width on 2 x 32 x 32 inputs): the weight bridge,
 the eval and train-mode forwards (bilinear align-corners upsampling, the
-dense concats), deep supervision, the fused-conv sites and the refusal of
-the unported s2d mode."""
+dense concats), deep supervision, the fused-conv sites, and that the s2d
+mode builds (its parity is tests/test_torch_port_s2d_models.py's) and
+UNet refuses it."""
 
 import numpy as np
 import pytest
@@ -73,8 +74,9 @@ def test_nested_deep_supervision_returns_the_four_heads(zoo):
         assert_close_to(to_nhwc(g), np.asarray(w), EVAL_TOL)
 
 
-def test_nested_s2d_is_not_ported():
-    from jcfszxc_unet_tpu_torch.models import create_model
+def test_nested_s2d_builds_and_unet_refuses_it():
+    from jcfszxc_unet_tpu_torch.models import create_model, s2d_capable
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_model(NAME, s2d=True)
+    assert create_model(NAME, s2d=True).s2d and NAME in s2d_capable()
+    with pytest.raises(TypeError, match="s2d"):
+        create_model("UNet.UNet", s2d=True)

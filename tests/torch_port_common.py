@@ -156,12 +156,13 @@ def silence_dropout(port):
     return port
 
 
-def check_train(name, jmodel, variables, x, monkeypatch, **kwargs):
-    """One train-mode forward: the output and every updated running
-    statistic against JAX's ``mutable=["batch_stats"]`` apply, with the
-    JAX BatchNorm's two-pass variance (its one-pass form trades f32
-    precision for a TPU memory pass) and dropout silenced on both
-    sides.  ``kwargs``: the port model's, as ``jmodel`` was built."""
+def check_train(name, jmodel, variables, x, monkeypatch, tol=TRAIN_TOL,
+                **kwargs):
+    """One train-mode forward: the output (within ``tol``) and every
+    updated running statistic against JAX's ``mutable=["batch_stats"]``
+    apply, with the JAX BatchNorm's two-pass variance (its one-pass form
+    trades f32 precision for a TPU memory pass) and dropout silenced on
+    both sides.  ``kwargs``: the port model's, as ``jmodel`` was built."""
     from jcfszxc_unet_tpu.compat.torch_mapping import variables_to_state_dict
     from jcfszxc_unet_tpu.ops import layers as jax_layers
 
@@ -175,7 +176,7 @@ def check_train(name, jmodel, variables, x, monkeypatch, **kwargs):
     port = silence_dropout(port_model(name, variables, **kwargs).train())
     with torch.no_grad():
         got = port(to_port(x))
-    assert_close_to(to_nhwc(got), want, TRAIN_TOL)
+    assert_close_to(to_nhwc(got), want, tol)
     sd, loaded = port.state_dict(), state_dict_from_jax(name, variables)
     stats = [k for k in new_stats if k.endswith(("running_mean",
                                                  "running_var"))]
@@ -186,12 +187,13 @@ def check_train(name, jmodel, variables, x, monkeypatch, **kwargs):
         assert not np.array_equal(new_stats[k], loaded[k].numpy())
 
 
-def kernel_calls(port, x, monkeypatch):
+def kernel_calls(port, x, monkeypatch, shapes=None):
     """Eval forward of ``port`` on ``x`` (NHWC numpy) counting the calls of
     the fused conv entry by the body a bf16 call of that shape would
     launch on the card (``conv_plan.plan_conv``).  On the CPU the entry
     runs the plain version; the count is that of the kernel launches the
-    same forward makes on a CUDA tensor."""
+    same forward makes on a CUDA tensor.  ``shapes``, a dict, receives the
+    count of each call's (H, W, Cin, Cout)."""
     from jcfszxc_unet_tpu_torch.ops import blocks
     from jcfszxc_unet_tpu_torch.ops.kernels import conv_plan
 
@@ -203,6 +205,9 @@ def kernel_calls(port, x, monkeypatch):
         body = conv_plan.plan_conv(b, h, w, cin, w_km.shape[0],
                                    torch.bfloat16, True).body
         bodies[body] = bodies.get(body, 0) + 1
+        if shapes is not None:
+            key = (h, w, cin, w_km.shape[0])
+            shapes[key] = shapes.get(key, 0) + 1
         return real(xh, w_km, scale, shift, relu)
 
     monkeypatch.setattr(blocks, "conv3x3_affine_relu_kmajor", counting)
