@@ -102,7 +102,25 @@ Phases, each of which must pass:
    (deterministic cuDNN, within 1e-5, each BN counted once); and
    ``--resume`` from the JAX ``--latest-path`` fixture in
    ``tests/torch_port_data``: the restored RMSprop state equal to the
-   file's, two steps on the card, and ``train_arrays(resume_from=...)``.
+   file's, two steps on the card, and ``train_arrays(resume_from=...)``;
+13. export (after s2d): ``eval.export.export_checkpoint`` at its defaults
+   (batch 32, patch 512, bf16) on a port checkpoint of the seeded,
+   calibrated full-width UNet, with the export's seconds and the
+   artifact's bytes; the artifact loaded by ``load_exported`` in a fresh
+   process (``python3 chip_smoke.py --export-child DIR``) that imports
+   only torch and the port, run on 32 patches of 512^2 (8 synthetic
+   DRIVE-geometry images) with 18 kernel-1 launches per call, its
+   probabilities within 1e-3 of the eager ``Predictor``'s and its
+   images/s beside the eager forward's (timed in that process, in
+   turns); in f32 with TF32 off on 2 patches of 128^2, the program within
+   1e-5 of the eager forward and within 1e-3 of the forward built from
+   the plain versions; SegNet, TransFuseNet and FRUNet and NestedUNet in
+   s2d mode exported at batch 2 of 128^2 in f32, each within 1e-5 of its
+   eager forward with its launch count, and each s2d model's eager
+   forward after its export equal to the one before it (the selector's
+   cache stays real); and the host microseconds per conv call of UNet's
+   18 through the ``jcfszxc_unet`` operator and through the direct
+   launch (``scripts/op_dispatch_cost.py``).
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -988,21 +1006,32 @@ def timed_eval(run, n_images):
 
 
 def launch_counts():
-    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+    """The three kernels' launches since :func:`reset_counts`, and kernel
+    1's by body."""
+    from jcfszxc_unet_tpu_torch.ops.kernels import (
+        conv_fused,
+        conv_imcol,
+        dice_fused,
+    )
 
     return ({"conv3x3_affine_relu": conv_fused.counter.launches,
-             "dice_sums": dice_fused.counter.launches},
+             "dice_sums": dice_fused.counter.launches,
+             "conv3x3_relu_imcol": conv_imcol.counter.launches},
             dict(conv_fused.counter.bodies))
 
 
 def reset_counts():
     import torch
 
-    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, dice_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels import (
+        conv_fused,
+        conv_imcol,
+        dice_fused,
+    )
 
     torch.cuda.synchronize()
-    conv_fused.counter.reset()
-    dice_fused.counter.reset()
+    for kernel in (conv_fused, dice_fused, conv_imcol):
+        kernel.counter.reset()
 
 
 def f32_against_cpu_copy(model, fn, **predictor_kwargs):
@@ -2361,7 +2390,9 @@ def phase_s2d(report, state):
     conv_by_model[f"{name} (resumed train_arrays)"] = bodies
     resume_ok = (restored_ok and lr_ok
                  and all(ok and math.isfinite(float(v)) for v, ok in losses)
-                 and steps_after == [2.0, 4.0]
+                 # 2 + 2 steps for every parameter: the unused output_OD
+                 # head steps with a zero gradient, as optax steps it
+                 and steps_after == [4.0]
                  and [r["epoch"] for r in res["history"]] == [2])
     if not resume_ok:
         failures.append({"resume": [restored_ok, lr_ok, steps_after,
@@ -2391,6 +2422,264 @@ def phase_s2d(report, state):
             by_body, launches_sum["conv3x3_affine_relu"]]})
     if failures:
         raise AssertionError(f"s2d checks failed: {failures}")
+
+
+# The export phase: the serving artifact of export_checkpoint's defaults
+# (batch 32, patch 512, bf16) on 8 synthetic DRIVE-geometry images (32
+# patches of 512^2), loaded in a fresh process; the f32 check's patches;
+# the other models exported at batch 2 of 128^2 in f32, with their kernel-1
+# launches per call of the exported program (EXPORT_MODELS: registry name,
+# s2d, launches); the bf16 tolerance against the eager Predictor (the same
+# kernels with the same plans: 0 expected) and the f32 one (summation
+# order only).
+EXPORT_IMAGES, EXPORT_BATCH = 8, 32
+EXPORT_F32_PATCHES, EXPORT_F32_HW, EXPORT_F32_TOL = 2, 128, 1e-5
+EXPORT_BF16_TOL = 1e-3
+EXPORT_MODELS = [("SegNet.SegNet", False, 26),
+                 ("RetinaLiteNet.TransFuseNet", False, 6),
+                 ("FRUNet.FRUNet", True, 44),
+                 ("UNetPP.NestedUNet", True, 30)]
+EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
+EXPORT_BLOCKED = ("jax", "jaxlib", "flax", "jcfszxc_unet_tpu")
+
+
+def export_child(workdir: str) -> None:
+    """``python3 chip_smoke.py --export-child DIR``: load ``DIR/unet.pt2``
+    in this fresh process (torch and the port only), run it on
+    ``DIR/patches.npy`` in bf16 and save its probabilities, time it against
+    the eager ``Predictor`` of ``DIR/unet.pt`` in turns, and print one JSON
+    line of the results."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.eval.export import load_exported
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "unet.pt2"), "rb") as f:
+        fn = load_exported(f.read())
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.load(os.path.join(workdir, "patches.npy"))).to(
+        "cuda", torch.bfloat16)
+    fn(x)
+    reset_counts()
+    y = fn(x)
+    torch.cuda.synchronize()
+    launches, bodies = launch_counts()
+    np.save(os.path.join(workdir, "probs.npy"), y.float().cpu().numpy())
+    eager = Predictor.from_checkpoint(os.path.join(workdir, "unet.pt"),
+                                      device="cuda", patch_size=PATCH,
+                                      inference_batch_size=EXPORT_BATCH)
+    times = {"program": [], "eager": []}
+    for name in ("program", "eager", "eager", "program"):
+        run = fn if name == "program" else eager.predict_patches
+        times[name].append(host_ms(lambda: run(x), reps=5))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in EXPORT_BLOCKED)
+    print(json.dumps({"load_s": load_s, "launches": launches,
+                      "bodies": bodies, "ms_per_call": times,
+                      "modules_not_allowed": loaded,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def phase_export(report, state):
+    """``eval.export``: export_checkpoint at its defaults on the full-width
+    UNet, the artifact loaded in a fresh process, f32 checks, four more
+    models, the s2d cache after an export, and the host cost of the
+    operator dispatch."""
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.data.sampler import (
+        build_grid_sample_map,
+        extract_patches,
+    )
+    from jcfszxc_unet_tpu_torch.eval.export import (
+        export_checkpoint,
+        export_forward,
+        export_program,
+        load_exported,
+    )
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+    from jcfszxc_unet_tpu_torch.models import with_kwargs
+    from jcfszxc_unet_tpu_torch.ops import s2d
+    from jcfszxc_unet_tpu_torch.scripts import op_dispatch_cost
+    from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    out = {"checks": {}}
+    checks = out["checks"]
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0,
+                    "conv3x3_relu_imcol": 0}
+
+    def counted(fn):
+        """fn() on the export path (a loaded program), its launches read
+        around it and summed."""
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts()
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+        return res, launches, bodies
+
+    try:
+        # 1. export_checkpoint at its defaults on the full-width UNet.
+        model = build_model(dev, seed=60)
+        ckpt_path = os.path.join(EXPORT_DIR, "unet.pt")
+        art = os.path.join(EXPORT_DIR, "unet.pt2")
+        ckpt.save_model(ckpt_path, "UNet.UNet", {}, model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_checkpoint(ckpt_path, art, batch_size=EXPORT_BATCH,
+                          patch_size=PATCH, compute_dtype=torch.bfloat16,
+                          device="cuda")
+        out["export_seconds"] = time.perf_counter() - t0
+        out["artifact_bytes"] = os.path.getsize(art)
+        images, _, _ = synthetic_drive(EXPORT_IMAGES, IMG_H, IMG_W, seed=61)
+        centers = build_grid_sample_map(EXPORT_IMAGES, IMG_H, IMG_W,
+                                        PATCH // 2)
+        patches = extract_patches(torch.as_tensor(images, device=dev),
+                                  centers, PATCH)
+        checks["patches_32"] = patches.shape[0] == EXPORT_BATCH
+        np.save(os.path.join(EXPORT_DIR, "patches.npy"),
+                patches.cpu().numpy())
+
+        # 2. Load in a fresh process: torch and the port only.
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--export-child",
+             EXPORT_DIR], capture_output=True, text=True, timeout=300,
+            cwd=ROOT)
+        out["child_seconds"] = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise RuntimeError(f"export child failed:\n{child.stderr[-4000:]}")
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        out["child"] = res
+        for key in launches_sum:  # the child's one counted program call
+            launches_sum[key] += res["launches"][key]
+        eager = Predictor(model, compute_dtype=torch.bfloat16,
+                          patch_size=PATCH, inference_batch_size=EXPORT_BATCH,
+                          device="cuda")
+        want = eager.predict_patches(patches.to(torch.bfloat16))
+        got = torch.from_numpy(np.load(os.path.join(EXPORT_DIR,
+                                                    "probs.npy"))).to(dev)
+        out["bf16_max_abs_dprob"] = float((got - want).abs().max())
+        out["bf16_prob_std"] = float(want.std())
+        checks["child_without_jax"] = res["modules_not_allowed"] == []
+        checks["child_18_launches_per_call"] = res["launches"] == {
+            "conv3x3_affine_relu": 18, "dice_sums": 0,
+            "conv3x3_relu_imcol": 0}
+        checks["child_bodies_17_wgmma_1_mma_sync"] = res["bodies"] == {
+            "wgmma": 17, "mma_sync": 1}
+        checks["bf16_within_1e-3_of_eager"] = (
+            out["bf16_max_abs_dprob"] <= EXPORT_BF16_TOL)
+        ms = {k: sum(v) / len(v) for k, v in res["ms_per_call"].items()}
+        out["images_per_s"] = {k: EXPORT_IMAGES / (v / 1e3)
+                               for k, v in ms.items()}
+        del got, want
+
+        # 3. f32, TF32 off: the program against the eager forward and the
+        # forward built from the plain versions.
+        f32 = patches[:EXPORT_F32_PATCHES, :EXPORT_F32_HW,
+                      :EXPORT_F32_HW].float().contiguous()
+        fn = load_exported(export_forward(
+            model, EXPORT_F32_PATCHES, EXPORT_F32_HW,
+            compute_dtype=torch.float32, device="cuda"))
+        got, launches, _ = counted(lambda: fn(f32))
+        eager_f32 = Predictor(model, compute_dtype=torch.float32,
+                              device="cuda").predict_patches(f32)
+        with torch.inference_mode():
+            plain = torch.sigmoid(plain_unet_forward(
+                model, f32.permute(0, 3, 1, 2)).float()).permute(0, 2, 3, 1)
+        out["f32"] = {"max_abs_dprob_eager": float((got - eager_f32).abs()
+                                                   .max()),
+                      "max_abs_dprob_plain": float((got - plain).abs().max()),
+                      "prob_std": float(plain.std()),
+                      "launches": launches["conv3x3_affine_relu"]}
+        checks["f32_within_1e-5_of_eager"] = (
+            out["f32"]["max_abs_dprob_eager"] <= EXPORT_F32_TOL)
+        checks["f32_within_1e-3_of_plain"] = (
+            out["f32"]["max_abs_dprob_plain"] <= 1e-3)
+        checks["f32_18_launches"] = out["f32"]["launches"] == 18
+        del model, eager, fn
+
+        # 4. Other models at batch 2 of 128^2 in f32; each s2d model's
+        # eager forward after its export equal to the one before it.
+        out["models"] = {}
+        for k, (name, s2d_mode, n_conv) in enumerate(EXPORT_MODELS):
+            m = build_model(dev, seed=62 + k, name=name)
+            if s2d_mode:
+                m = with_kwargs(m, name, {"s2d": True}).eval()
+            pred = Predictor(m, compute_dtype=torch.float32, device="cuda")
+            before = pred.predict_patches(f32)
+            if s2d_mode:
+                s2d._selector_tensor.cache_clear()
+            t0 = time.perf_counter()
+            program = export_program(m, EXPORT_F32_PATCHES, EXPORT_F32_HW,
+                                     compute_dtype=torch.float32,
+                                     device="cuda").module()
+            seconds = time.perf_counter() - t0
+
+            def run_program():
+                with torch.inference_mode():
+                    return program(f32)
+
+            got, launches, _ = counted(run_program)
+            after = pred.predict_patches(f32)
+            row = {"s2d": s2d_mode, "export_seconds": seconds,
+                   "launches": launches["conv3x3_affine_relu"],
+                   "max_abs_dprob_eager": float((got - before).abs().max()),
+                   "prob_std": float(before.std()),
+                   "eager_after_export_max_abs_diff": float(
+                       (after - before).abs().max())}
+            ok = (row["launches"] == n_conv
+                  and row["max_abs_dprob_eager"] <= EXPORT_F32_TOL)
+            if s2d_mode:  # the selector's cache stayed real: the same maps
+                row["eager_after_export_equal"] = bool(
+                    type(after) is torch.Tensor and torch.equal(after, before))
+                ok = ok and row["eager_after_export_equal"]
+            out["models"][name + (" (s2d)" if s2d_mode else "")] = row
+            checks[f"{name}{' s2d' if s2d_mode else ''}_ok"] = ok
+            del m, pred, program
+
+        # 5. Host cost of the operator dispatch against the direct launch.
+        out["dispatch_us_per_call"] = op_dispatch_cost.measure(passes=120)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    state["export_launches"] = launches_sum
+    report["export"] = out
+    print(f"[export] export_checkpoint UNet B{EXPORT_BATCH} {PATCH}^2 bf16: "
+          f"{out['export_seconds']:.2f} s, {out['artifact_bytes']} bytes; "
+          f"child (torch + port) load {res['load_s']:.2f} s, "
+          f"{res['launches']['conv3x3_affine_relu']} conv launches per "
+          f"call {res['bodies']}; "
+          f"max |dprob| vs eager {out['bf16_max_abs_dprob']:.3e}", flush=True)
+    print(f"[export] images/s program {out['images_per_s']['program']:.2f} "
+          f"vs eager {out['images_per_s']['eager']:.2f}; f32 vs eager "
+          f"{out['f32']['max_abs_dprob_eager']:.3e}, vs plain "
+          f"{out['f32']['max_abs_dprob_plain']:.3e}", flush=True)
+    for name, row in out["models"].items():
+        print(f"[export] {name}: {row['launches']} launches, f32 vs eager "
+              f"{row['max_abs_dprob_eager']:.3e} (std "
+              f"{row['prob_std']:.3f}), eager after export vs before "
+              f"{row['eager_after_export_max_abs_diff']:.3e}"
+              + (f" (equal {row['eager_after_export_equal']})"
+                 if row["s2d"] else ""), flush=True)
+    d = out["dispatch_us_per_call"]
+    print("[export] host us per conv call (UNet's 18; median, and the "
+          "medians of its two blocks): " + "; ".join(
+              f"{mode} " + ", ".join(
+                  f"{v} {d[mode][v]:.1f} "
+                  f"({'/'.join(f'{b:.1f}' for b in d[mode]['blocks'][v])})"
+                  for v in ("direct", "library"))
+              for mode in ("inference_mode", "no_grad")), flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"export checks failed: {bad}")
 
 
 def phase_probe(report, state):
@@ -2504,7 +2793,8 @@ def kernels_line(state):
                    "protocols": state["protocol_launches"][row["name"]],
                    "serve": state["serve_launches"][row["name"]],
                    "fractal": state["fractal_launches"][row["name"]],
-                   "s2d": state["s2d_launches"][row["name"]]}
+                   "s2d": state["s2d_launches"][row["name"]],
+                   "export": state["export_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
@@ -2512,11 +2802,17 @@ def kernels_line(state):
             row["launches_by_model"] = {**state["zoo_conv_launches"],
                                         **state["s2d_conv_launches"]}
     probe = dict(state["kernels_probe"])
-    probe["launches_by_path"] = {"probe": probe["launches"]}
+    probe["launches_by_path"] = {
+        "probe": probe["launches"],
+        "export": state["export_launches"]["conv3x3_relu_imcol"]}
+    probe["launches"] = sum(probe["launches_by_path"].values())
     return rows + [probe]
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--export-child"]:
+        export_child(sys.argv[2])
+        return
     sys.path.insert(0, ROOT)
     import torch
 
@@ -2548,6 +2844,7 @@ def main() -> None:
                         ("train_val_f32", phase_train_val_f32),
                         ("fractal", phase_fractal),
                         ("s2d", phase_s2d),
+                        ("export", phase_export),
                         ("probe", phase_probe)):
         if needs.get(name) in failed:
             failed.append(name)

@@ -30,6 +30,17 @@ from jcfszxc_unet_tpu_torch.eval.tiling import (
 from jcfszxc_unet_tpu_torch.utils.device import resolve_device
 
 
+def sigmoid_forward(model: nn.Module, batch: torch.Tensor,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, H, W, C) contiguous images -> (B, H, W, 1) float32
+    probabilities: the NCHW ``channels_last`` view of ``batch`` in
+    ``compute_dtype``, the model, a sigmoid in f32, back to NHWC.  The
+    forward that :class:`Predictor` serves and that ``eval/export.py``
+    exports (JAX ``export_forward``'s closure)."""
+    x = batch.permute(0, 3, 1, 2).to(compute_dtype)  # channels_last
+    return torch.sigmoid(model(x).float()).permute(0, 2, 3, 1)
+
+
 class Predictor:
     def __init__(self, model: nn.Module, compute_dtype=torch.bfloat16,
                  patch_size: int = 512, inference_batch_size: int = 32,
@@ -65,9 +76,8 @@ class Predictor:
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) contiguous images -> (B, H, W, 1) float32
-        probabilities."""
-        x = batch.permute(0, 3, 1, 2).to(self.compute_dtype)  # channels_last
-        return torch.sigmoid(self.model(x).float()).permute(0, 2, 3, 1)
+        probabilities (:func:`sigmoid_forward`)."""
+        return sigmoid_forward(self.model, batch, self.compute_dtype)
 
     def _as_images(self, images) -> torch.Tensor:
         return torch.as_tensor(images, device=self.device).contiguous()

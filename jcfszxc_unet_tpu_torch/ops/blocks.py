@@ -29,8 +29,8 @@ hand-written kernel.  1x1 convs, transposed convs, strided convs, a
 BatchNorm that comes before its conv, the attention gates' Linears, 1x1
 MLPs and 7x7 convs and the self-attention run stock torch ops, as the JAX
 package runs them outside Pallas.  The eval-mode forward is for inference:
-no gradient flows through the kernel.  In train mode the blocks run stock
-torch ops.
+a backward through the kernel's operator raises.  In train mode the
+blocks run stock torch ops.
 
 FRUNet's and MultiResUNet's blocks also run in space-to-depth space
 (``ops/s2d.py``), as the JAX blocks' ``s2d``/``s2d_io`` do: the same

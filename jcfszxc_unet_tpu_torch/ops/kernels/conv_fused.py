@@ -23,8 +23,10 @@ that its products stay f32.  :func:`conv_plan.plan_conv` picks the body
 and the tile from the dtype, the shapes and the alignment.
 
 :func:`conv3x3_affine_relu_torch` is the plain PyTorch version.  The
-wrappers take it only for tensors on the CPU; for a CUDA tensor they
-launch the kernel or raise.
+wrappers check their inputs and call the ``jcfszxc_unet::conv3x3_affine_relu``
+operator (``library.py``), which takes the plain version only for tensors
+on the CPU; for a CUDA tensor it launches the kernel (:func:`launch` with
+:func:`plan_for`'s plan) or raises.
 """
 
 from __future__ import annotations
@@ -104,11 +106,17 @@ def launch(x, w_km, scale, shift, relu: bool, plan: conv_plan.ConvPlan):
 
 
 def plan_for(x, w_km) -> conv_plan.ConvPlan:
-    """The plan :func:`conv3x3_affine_relu_kmajor` launches with."""
+    """The plan the operator's CUDA implementation launches with (it reads
+    the operands' alignment, so CUDA tensors only)."""
     b, h, wd, cin = x.shape
     aligned = x.data_ptr() % 16 == 0 and w_km.data_ptr() % 16 == 0
     return conv_plan.plan_conv(b, h, wd, cin, w_km.shape[0], x.dtype, aligned,
                                conv_plan.sm_count(x.device))
+
+
+def _check_device(x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
 
 
 def conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu: bool = True):
@@ -119,12 +127,9 @@ def conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu: bool = True):
     _validate(x, w_km, scale, shift)
     if not w_km.is_contiguous():
         raise ValueError("w must be contiguous (Cout, 3, 3, Cin)")
-    if x.device.type == "cpu":
-        return conv3x3_affine_relu_torch(x, w_km.permute(1, 2, 3, 0), scale,
-                                         shift, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return launch(x, w_km, scale, shift, relu, plan_for(x, w_km))
+    _check_device(x)
+    return torch.ops.jcfszxc_unet.conv3x3_affine_relu.default(
+        x, w_km, scale, shift, relu)
 
 
 def conv3x3_affine_relu(x, w, scale, shift, relu: bool = True):
@@ -138,9 +143,6 @@ def conv3x3_affine_relu(x, w, scale, shift, relu: bool = True):
     _validate(x, w.permute(3, 0, 1, 2), scale, shift)
     if not w.is_contiguous():
         raise ValueError("w must be contiguous (3, 3, Cin, Cout)")
-    if x.device.type == "cpu":
-        return conv3x3_affine_relu_torch(x, w, scale, shift, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    w_km = w.permute(3, 0, 1, 2).contiguous()
-    return launch(x, w_km, scale, shift, relu, plan_for(x, w_km))
+    _check_device(x)
+    return torch.ops.jcfszxc_unet.conv3x3_affine_relu.default(
+        x, w.permute(3, 0, 1, 2).contiguous(), scale, shift, relu)

@@ -22,8 +22,11 @@ takes it.  f32 runs on FMAs so that its products stay f32.  The padded
 copy adds bytes outside the kernel.
 
 :func:`conv3x3_relu_imcol_torch` is the plain PyTorch version, the same
-arithmetic as the probe's kernel.  The wrapper takes it only for tensors
-on the CPU; for a CUDA tensor it launches the kernel or raises.
+arithmetic as the probe's kernel.  The wrapper checks its inputs, pads
+them and calls the ``jcfszxc_unet::conv3x3_relu_imcol`` operator
+(``library.py``) on the padded operands, which takes the plain version
+only for tensors on the CPU; for a CUDA tensor it launches the kernel
+(:func:`launch`) or raises.
 """
 
 from __future__ import annotations
@@ -89,28 +92,26 @@ def pad_inputs(x, w):
 
 def conv3x3_relu_imcol_padded(xp, wt):
     """The kernel alone on operands made by :func:`pad_inputs` (CUDA
-    tensors).  Returns (B, H, W, Cout) in ``xp.dtype``."""
+    tensors; the operator's CUDA implementation also checks their 16-byte
+    alignment).  Returns (B, H, W, Cout) in ``xp.dtype``."""
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     if xp.dim() != 4 or wt.dim() != 2 or xp.shape[3] % 8:
         raise ValueError(
             f"expected xp (B,H+2,W+2,C) with C % 8 == 0 and wt (Cout, 9*C), "
             f"got {tuple(xp.shape)} and {tuple(wt.shape)}")
-    b, hp, wp, c8 = xp.shape
-    cout = wt.shape[0]
+    c8 = xp.shape[3]
     if wt.shape[1] != 9 * c8:
         raise ValueError(f"wt has {wt.shape[1]} columns, expected {9 * c8}")
     if xp.dtype not in _DTYPE_CODES or wt.dtype != xp.dtype:
         raise TypeError(f"xp and wt must share float32 or bfloat16, got "
                         f"{xp.dtype} and {wt.dtype}")
     for name, t in (("xp", xp), ("wt", wt)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
         if t.device != xp.device:
             raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
-    plan = conv_plan.plan_conv(b, hp - 2, wp - 2, c8, cout, xp.dtype, True,
-                               conv_plan.sm_count(xp.device), imcol=True)
-    return launch(xp, wt, plan)
+    return torch.ops.jcfszxc_unet.conv3x3_relu_imcol.default(xp, wt)
 
 
 def launch(xp, wt, plan: conv_plan.ConvPlan):
@@ -140,8 +141,7 @@ def conv3x3_relu_imcol(x, w):
     same dtype.  Any B, H, W and Cin.
     """
     _validate(x, w)
-    if x.device.type == "cpu":
-        return conv3x3_relu_imcol_torch(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
-    return conv3x3_relu_imcol_padded(*pad_inputs(x, w))
+    return torch.ops.jcfszxc_unet.conv3x3_relu_imcol.default(
+        *pad_inputs(x, w))

@@ -9,9 +9,10 @@ It is bound by bytes (two f32 reads per pixel).  Pass 1 reduces
 (sample, chunk) tiles to partial sums, pass 2 adds each sample's partials
 in a fixed order: no atomics, so the sums do not change from run to run.
 
-:func:`dice_sums_torch` is the plain PyTorch version.  The wrapper takes
-it only for tensors on the CPU; for a CUDA tensor it launches the kernel
-or raises.
+:func:`dice_sums_torch` is the plain PyTorch version.  The wrapper checks
+its inputs and calls the ``jcfszxc_unet::dice_sums`` operator
+(``library.py``), which takes the plain version only for tensors on the
+CPU; for a CUDA tensor it launches the kernel (:func:`launch`) or raises.
 """
 
 from __future__ import annotations
@@ -48,10 +49,14 @@ def dice_sums(probs, target):
         raise ValueError("probs and target must be contiguous")
     if probs.device != target.device:
         raise ValueError("probs and target lie on different devices")
-    if probs.device.type == "cpu":
-        return dice_sums_torch(probs, target)
-    if probs.device.type != "cuda":
+    if probs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {probs.device}")
+    return torch.ops.jcfszxc_unet.dice_sums.default(probs, target)
+
+
+def launch(probs, target):
+    """The kernel on checked CUDA maps (the CUDA implementation of the
+    ``dice_sums`` operator); raises on any error the launch returns."""
     lib = build.load_library()
     b, h, w = probs.shape
     hw = h * w

@@ -239,6 +239,30 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.out_proj.bias)
 
 
+def trace_safe_cache(maxsize: int):
+    """``functools.lru_cache`` for functions that build a constant tensor
+    (an interpolation matrix, an index, a selector), bypassed while
+    ``torch.export`` or ``torch.compile`` traces
+    (``torch.compiler.is_compiling()``): a tensor made while tracing is a
+    fake one, which must never reach a later eager call, and built anew
+    there it enters the traced program as a constant of its own.  A
+    cached tensor is made outside inference mode, so that one first built
+    by an evaluation serves training too."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            if torch.compiler.is_compiling():
+                return fn(*args)
+            with torch.inference_mode(False):
+                return cached(*args)
+
+        call.cache_clear = cached.cache_clear
+        return call
+    return wrap
+
+
 def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     """Dense (out_size, in_size) align-corners linear-interpolation matrix,
     in f32: row k holds the weights (1 - f, f) of the two source pixels of
@@ -259,7 +283,7 @@ def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return a
 
 
-@functools.lru_cache(maxsize=64)
+@trace_safe_cache(maxsize=64)
 def _linear_resize_tensor(in_size: int, out_size: int, device: torch.device,
                           dtype: torch.dtype) -> torch.Tensor:
     """:func:`_linear_resize_matrix` on ``device``, built and copied once
@@ -293,7 +317,7 @@ def _nearest_align_corners_index(in_size: int, out_size: int) -> np.ndarray:
     return np.floor(src + 0.5).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=64)
+@trace_safe_cache(maxsize=64)
 def _nearest_index_tensor(in_size: int, out_size: int,
                           device: torch.device) -> torch.Tensor:
     """:func:`_nearest_align_corners_index` on ``device``, copied once per

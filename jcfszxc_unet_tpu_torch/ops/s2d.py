@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from jcfszxc_unet_tpu_torch.ops.layers import (
     channels_last,
     nhwc,
+    trace_safe_cache,
     upsample_bilinear,
 )
 
@@ -90,14 +91,12 @@ def _selector(k: int, dilation: int = 1) -> np.ndarray:
     return sel
 
 
-@functools.lru_cache(maxsize=64)
+@trace_safe_cache(maxsize=64)
 def _selector_tensor(k: int, dilation: int, device: torch.device,
                      dtype: torch.dtype) -> torch.Tensor:
     """:func:`_selector` on ``device``, copied there once: a copy from
-    pageable host memory syncs the stream.  Made outside inference mode,
-    so that a tensor first cached by an evaluation serves training too."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_selector(k, dilation)).to(device, dtype)
+    pageable host memory syncs the stream."""
+    return torch.from_numpy(_selector(k, dilation)).to(device, dtype)
 
 
 def s2d_kernel(w: torch.Tensor, dilation: int = 1) -> torch.Tensor:

@@ -15,11 +15,11 @@ What differs in mechanism from the JAX package:
     and skips the update, as the port's trainer does; the JAX step selects
     the old state.  Parameters and optimizer state agree.
   * Validation runs the eval-mode forward of the extractor and the model
-    on whole images in chunks under ``torch.no_grad()``: the extractor's
-    two undilated 3x3 convs (one launch, their weights stacked) and every
-    stride-1 3x3 conv of the model go through the ``conv3x3_affine_relu``
-    kernel, and the Dice through one ``dice_sums`` launch.  The train step
-    runs stock ops.
+    on whole images in chunks under ``torch.inference_mode()``: the
+    extractor's two undilated 3x3 convs (one launch, their weights
+    stacked) and every stride-1 3x3 conv of the model go through the
+    ``conv3x3_affine_relu`` kernel, and the Dice through one ``dice_sums``
+    launch.  The train step runs stock ops.
 
 Reference quirks kept, as in the JAX package: the FOV *masks* are the
 training targets and the validation truth; FractalLoss's Dice is the
@@ -352,7 +352,7 @@ def make_fractal_val_fn(model: nn.Module, extractor: nn.Module, *,
     ``dice_coeff(..., reduce_batch_first=False)``).  Both modules are put
     back in the mode they were in."""
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def val_fn(images: torch.Tensor, masks: torch.Tensor):
         modes = (model.training, extractor.training)
         model.eval()

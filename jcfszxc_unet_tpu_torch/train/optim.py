@@ -32,10 +32,18 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float,
 def clip_and_step(optimizer: torch.optim.Optimizer,
                   clip_norm: Optional[float] = 1.0) -> None:
     """Clip all gradients of ``optimizer``'s parameters by global norm,
-    then take one optimizer step."""
+    then take one optimizer step.
+
+    A parameter that took no gradient (``.grad`` None: TransFuseNet's
+    unused ``output_OD`` head) gets a zero one first, so that its weight
+    decay and its RMS and momentum state move as optax's chain moves them:
+    torch's RMSprop skips a parameter without a gradient, optax steps
+    every leaf."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     if clip_norm is not None:
-        params = [p for group in optimizer.param_groups
-                  for p in group["params"] if p.grad is not None]
         torch.nn.utils.clip_grad_norm_(params, clip_norm)
     optimizer.step()
 

@@ -20,9 +20,11 @@ What differs in mechanism from the JAX package:
     (:func:`frozen_running_stats`), so running statistics and
     ``num_batches_tracked`` move once per step, as in JAX.
   * Validation runs the eval-mode forward in chunks under
-    ``torch.no_grad()``: every DoubleConv conv goes through the
+    ``torch.inference_mode()``: every DoubleConv conv goes through the
     ``conv3x3_affine_relu`` kernel with its BatchNorm folded in, and both
-    Dice scores through the ``dice_sums`` kernel.
+    Dice scores through the ``dice_sums`` kernel.  Inference mode skips
+    the operators' autograd kernel, which ``no_grad`` would run in Python
+    on every call.
 
 Models take NCHW tensors in ``torch.channels_last``; batches stay NHWC
 (the JAX layout) and are permuted into that form without a copy.
@@ -218,7 +220,7 @@ def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
     ``p <= 0.5`` against ``1 - labels``, ``dice_avg`` their mean.  The
     model is put back in the mode it was in."""
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def val_fn(val_imgs: torch.Tensor, val_labs: torch.Tensor):
         if val_imgs.shape[0] == 0:
             # Empty split: zeros, as the JAX package (the reference would

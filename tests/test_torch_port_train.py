@@ -51,7 +51,7 @@ from jcfszxc_unet_tpu_torch.train.trainer import (
 )
 
 from .test_e2e import make_synthetic_drive
-from .torch_port_common import jax_unet, port_unet
+from .torch_port_common import jax_model, jax_unet, port_model, port_unet
 
 SZ, B, STEPS, LR = 32, 2, 3, 1e-6  # as tests/test_train_step_torch_parity.py
 
@@ -177,6 +177,41 @@ def test_five_rmsprop_updates_match_optax():
     assert get_current_lr(opt) == lr
     set_current_lr(opt, 3e-3)
     assert get_current_lr(opt) == 3e-3
+
+
+def test_rmsprop_steps_transfusenets_unused_head_as_optax():
+    """One clipped RMSprop step of TransFuseNet from transplanted weights
+    (f32, lr 1e-3) on JAX's gradients, where the unused ``output_OD`` head
+    has none: optax steps it by weight decay (a zero gradient), and so
+    does the port (``clip_and_step`` gives it a zero gradient), within
+    1e-6; every other parameter too."""
+    name = "RetinaLiteNet.TransFuseNet"
+    _, variables = jax_model(name, seed=0, hw=32)
+    params = variables["params"]
+    rng = np.random.RandomState(7)
+    grads = jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32),
+                         params)
+    grads["output_OD"] = jax.tree.map(np.zeros_like, grads["output_OD"])
+    tx = jax_make_optimizer(1e-3)
+    updates, _ = tx.update(grads, tx.init(params), params)
+    moved = jax.tree.map(np.asarray, optax.apply_updates(params, updates))
+    stats = variables["batch_stats"]
+    want = state_dict_from_jax(name, {"params": moved, "batch_stats": stats})
+    g = state_dict_from_jax(name, {"params": grads, "batch_stats": stats})
+    port = port_model(name, variables)
+    before = {k: p.detach().clone() for k, p in port.named_parameters()}
+    opt = make_optimizer(port.parameters(), 1e-3)
+    for k, p in port.named_parameters():
+        p.grad = None if k.startswith("output_OD.") else g[k].clone()
+    clip_and_step(opt, 1.0)
+    head = [k for k, _ in port.named_parameters()
+            if k.startswith("output_OD.")]
+    assert head == ["output_OD.weight", "output_OD.bias"]
+    for k, p in port.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(),
+                                   rtol=0, atol=1e-6, err_msg=k)
+    for k in head:  # it moved, as optax moves it
+        assert not torch.equal(port.get_parameter(k).detach(), before[k])
 
 
 def test_plateau_scheduler_matches_jax_exactly():

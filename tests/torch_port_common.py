@@ -267,6 +267,7 @@ def check_train_cli(name, train_h5, tmp_path, monkeypatch):
 # test_torch_port_ckpt_interop.write_jax_fixture rewrites both.
 # ---------------------------------------------------------------------------
 
+REPO_ROOT = Path(__file__).resolve().parents[1]
 DATA_DIR = Path(__file__).resolve().parent / "torch_port_data"
 JAX_FIXTURE = DATA_DIR / "transfusenet_jax.ckpt"
 JAX_FIXTURE_OUT = DATA_DIR / "transfusenet_jax_out.npy"
@@ -325,3 +326,55 @@ def assert_same_tree(got, want):
             assert g.tobytes() == w.tobytes(), k
         else:
             assert type(g) is type(w) and g == w, k
+
+
+# ---------------------------------------------------------------------------
+# Export (tests/test_torch_port_export.py, tests/test_torch_port_ops_library.py):
+# kernel-1 operator nodes of each model's exported forward.
+# ---------------------------------------------------------------------------
+
+# The loaded or exported program against the eager forward: the same ops
+# on the same inputs (0.0 was seen on every model).
+EXPORT_TOL = 1e-6
+
+
+def kernel_nodes(program):
+    """The ``jcfszxc_unet.conv3x3_affine_relu`` nodes of an exported
+    program's graph."""
+    from jcfszxc_unet_tpu_torch.ops.kernels import library
+
+    return [n for n in program.graph.nodes
+            if n.target is library.ops.conv3x3_affine_relu.default]
+
+
+def check_export_graph(name, monkeypatch, s2d=False, seed=0):
+    """``eval.export.export_program`` of the port's model ``name`` (seeded
+    torch init, its logit head where it has one, BCDU's N = 32; f32, batch
+    2 of 32^2, on the CPU): one kernel-1 operator node per kernel call of
+    the eager forward (:func:`kernel_calls`), the model's count, and the
+    program's output within EXPORT_TOL of the eager sigmoid forward.
+    Returns the program."""
+    from jcfszxc_unet_tpu_torch.eval.export import export_program
+    from jcfszxc_unet_tpu_torch.eval.predictor import sigmoid_forward
+    from jcfszxc_unet_tpu_torch.models import model_takes
+    from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
+
+    kwargs = {"s2d": True} if s2d else {}
+    if model_takes(name, "logit_head"):
+        kwargs["logit_head"] = True
+    if model_takes(name, "N"):
+        kwargs["N"] = 32
+    model = create_model(name, **kwargs)
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    x = np.random.RandomState(seed).rand(2, 32, 32, 3).astype(np.float32)
+    program = export_program(model, 2, 32, compute_dtype=torch.float32,
+                             device="cpu")
+    calls = sum(kernel_calls(model, x, monkeypatch).values())
+    assert len(kernel_nodes(program)) == calls
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        got = program.module()(xt)
+        want = sigmoid_forward(model, xt, torch.float32)
+    assert got.shape == (2, 32, 32, 1) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= EXPORT_TOL
+    return program
