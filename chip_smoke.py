@@ -120,7 +120,24 @@ Phases, each of which must pass:
    forward after its export equal to the one before it (the selector's
    cache stays real); and the host microseconds per conv call of UNet's
    18 through the ``jcfszxc_unet`` operator and through the direct
-   launch (``scripts/op_dispatch_cost.py``).
+   launch (``scripts/op_dispatch_cost.py``);
+14. multi_device (after probe): 2 ranks of the port's data-parallel
+   path, spawned by ``parallel.spawn``, on ``cuda:0`` over gloo, passed by
+   name and printed (NCCL refuses two ranks on one card; with two cards
+   visible, NCCL and one card a rank), against the port in this process:
+   full-width UNet (seed 2) for 3 f32 steps (TF32 off) at global batch
+   32, 128^2, on seeded batches of the train path's images (losses within
+   1e-4 relative, step-1 BN running statistics within rtol 1e-4 / atol
+   1e-6, parameters within rtol 1e-3 / atol 5e-5, the ranks' parameters
+   bit-identical); the main path's UNet and images through the tiled
+   protocol with the patch grid split over the ranks, f32 (within 1e-5)
+   and bf16 (per-image Dice within 1e-3); ``train_arrays`` in bf16 for 2
+   epochs of 5 steps with validation (rank 0 alone writes the checkpoint,
+   which loads strict; the last validation pass's gathered probabilities
+   bit-identical on every rank and within MULTI_VAL_DPROB of the port's
+   validation in one process with the trained weights; the val Dice equal
+   on every rank).  The kernels' launches are read in the ranks.  The
+   step times it prints are a path check, not a speed.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -208,6 +225,13 @@ ZOO_F32_PATCHES, ZOO_F32_HW, ZOO_F32_TOL = 2, 128, 1e-3
 # that their probabilities vary and the f32 check sees the path.
 ZOO_BN_FREE = ("BCDUNet.BCDU_net_D3", "BCDUNet.BCDU_net_D1", "FRUNet.FRUNet",
                "RetinaLiteNet.TransFuseNet")
+# Models whose output head, a biased 1x1 conv before the reference's own
+# sigmoid (which the evaluation's sigmoid squashes again into (0.5,
+# 0.73)), leaves the f32 probabilities' std at ~2e-2, within 2.2x of
+# zoo_eval's 1e-2 floor: ``build_model`` calibrates the head's output to
+# mean 0 and std ZOO_HEAD_STD per channel on its calibration batch.
+ZOO_HEADS = {"UNetPP.NestedUNet": "final", "ResUNet.ResUNet": "output_layer.0"}
+ZOO_HEAD_STD = 4.0
 # Peak allocated memory of one tiled bf16 evaluation (16 patches of 512^2
 # in one chunk) that a model must stay under: TransFuseNet's attention
 # over 64 x 64 = 4096 tokens would hold 2.1 GB of scores if it formed them.
@@ -278,6 +302,16 @@ S2D_ONLY_SHAPES = {
                       (PATCH // 2, PATCH // 2, 128, 128)],
 }
 S2D_TRAIN_STEPS = 3
+
+# The multi_device phase: ranks, the process group's timeout, the bound on
+# the whole job, the f32 steps and the bf16 train_arrays run (epochs x
+# steps, the train path's geometry), the seed of the f32 batches' centers,
+# and the bound on the bf16 run's validation probabilities against one
+# process on the same chunk shapes (expected equal; well below the spread
+# of the probabilities, so a rank's missing or misplaced share shows).
+MULTI_RANKS, MULTI_TIMEOUT_S, MULTI_JOIN_S = 2, 60.0, 240.0
+MULTI_F32_STEPS, MULTI_EPOCHS, MULTI_STEPS, MULTI_SEED = 3, 2, 5, 5
+MULTI_VAL_DPROB = 1e-4
 
 # The serve phase: images served per call (one uint8, one uint16), the
 # crop of the f32 checks against a CPU copy (the sliding window at patch
@@ -359,7 +393,9 @@ def build_model(device, seed, name="UNet.UNet"):
     ``ZOO_BN_FREE``, on the same batch, each conv and transposed conv
     with a bias that is called as a module is rescaled to an output of
     mean 0 and std 1 per channel: the calibration a BatchNorm gets,
-    folded into the conv's weight and bias."""
+    folded into the conv's weight and bias.  In the models of ``ZOO_HEADS``
+    the output head is calibrated the same way to a std of
+    ``ZOO_HEAD_STD``."""
     import torch
     from torch import nn
 
@@ -374,6 +410,12 @@ def build_model(device, seed, name="UNet.UNet"):
         conv.bias.sub_(mean).div_(std)
         return (y - mean[:, None, None]) / std[:, None, None]
 
+    def head_output(conv, inputs, y):
+        y = unit_output(conv, inputs, y)
+        conv.weight.mul_(ZOO_HEAD_STD)
+        conv.bias.mul_(ZOO_HEAD_STD)
+        return y * ZOO_HEAD_STD
+
     g = torch.Generator().manual_seed(seed)
     model = create_model(name, **({"logit_head": True}
                                   if model_takes(name, "logit_head") else {}))
@@ -382,6 +424,9 @@ def build_model(device, seed, name="UNet.UNet"):
              if name in ZOO_BN_FREE
              and isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))
              and m.bias is not None]
+    if name in ZOO_HEADS:
+        hooks.append(model.get_submodule(ZOO_HEADS[name])
+                     .register_forward_hook(head_output))
     bns = [m for m in model.modules()
            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d))]
     with torch.no_grad():
@@ -1008,30 +1053,19 @@ def timed_eval(run, n_images):
 def launch_counts():
     """The three kernels' launches since :func:`reset_counts`, and kernel
     1's by body."""
-    from jcfszxc_unet_tpu_torch.ops.kernels import (
-        conv_fused,
-        conv_imcol,
-        dice_fused,
-    )
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.parallel import jobs
 
-    return ({"conv3x3_affine_relu": conv_fused.counter.launches,
-             "dice_sums": dice_fused.counter.launches,
-             "conv3x3_relu_imcol": conv_imcol.counter.launches},
-            dict(conv_fused.counter.bodies))
+    return jobs.launch_counts(), dict(conv_fused.counter.bodies)
 
 
 def reset_counts():
     import torch
 
-    from jcfszxc_unet_tpu_torch.ops.kernels import (
-        conv_fused,
-        conv_imcol,
-        dice_fused,
-    )
+    from jcfszxc_unet_tpu_torch.parallel import jobs
 
     torch.cuda.synchronize()
-    for kernel in (conv_fused, dice_fused, conv_imcol):
-        kernel.counter.reset()
+    jobs.reset_counts()
 
 
 def f32_against_cpu_copy(model, fn, **predictor_kwargs):
@@ -2782,6 +2816,204 @@ def phase_probe(report, state):
         "library_ms": times["library_ms"]}
 
 
+def md_train_inputs():
+    """The train path's 8 synthetic DRIVE-geometry images (seed 1), and
+    MULTI_F32_STEPS global batches of TRAIN_BATCH patches of TRAIN_PATCH^2
+    cut from them at seeded random centers."""
+    import numpy as np
+
+    images, masks, labels = synthetic_drive(TRAIN_IMAGES, IMG_H, IMG_W,
+                                            seed=1)
+    rng = np.random.RandomState(MULTI_SEED)
+    half = TRAIN_PATCH // 2
+    batches = []
+    for _ in range(MULTI_F32_STEPS):
+        idx = rng.randint(TRAIN_IMAGES, size=TRAIN_BATCH)
+        ys = rng.randint(half, IMG_H - half, size=TRAIN_BATCH)
+        xs = rng.randint(half, IMG_W - half, size=TRAIN_BATCH)
+        cut = [(i, slice(y - half, y + half), slice(x - half, x + half))
+               for i, y, x in zip(idx, ys, xs)]
+        batches.append((np.stack([images[i, r, c] for i, r, c in cut]),
+                        np.stack([labels[i, r, c, None] for i, r, c in cut])))
+    return batches, (images, masks, labels)
+
+
+def phase_multi_device(report, state):
+    """MULTI_RANKS ranks of the port's data-parallel path
+    (``parallel.spawn`` of ``parallel.jobs.run``) against the port in this
+    process: f32 train steps, a bf16 ``train_arrays`` run with
+    validation, and tiled evaluation with the patch grid split over the
+    ranks.  On one card the ranks share it over gloo (NCCL refuses two
+    ranks on one device); with two cards they take one each over NCCL."""
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.eval.metrics import binary_dice
+    from jcfszxc_unet_tpu_torch.parallel import jobs, spawn
+    from jcfszxc_unet_tpu_torch.train.checkpoint import load_model
+
+    two_cards = torch.cuda.device_count() >= MULTI_RANKS
+    device, backend = (("cuda", "nccl") if two_cards
+                       else ("cuda:0", "gloo"))
+    print(f"[multi_device] {MULTI_RANKS} ranks on {device} over {backend} "
+          f"(backend passed by name), timeout {MULTI_TIMEOUT_S:.0f} s",
+          flush=True)
+    batches, (images, masks, labels) = md_train_inputs()
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_multi")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_path = os.path.join(ckpt_dir, "best_model.pt")
+    if os.path.exists(save_path):
+        os.remove(save_path)
+    steps = dict(model_name="UNet.UNet", batches=batches, lr=TRAIN_LR,
+                 seed=2, compute_dtype=torch.float32)
+    tiled = dict(model_name="UNet.UNet", images=state["images"],
+                 patch_size=PATCH, batch_size=INFER_BATCH,
+                 state_dict=jobs.numpy_state(state["model"]))
+    tasks = [
+        ("configure", dict(tf32=False)),
+        ("train_steps", steps),
+        ("tiled_maps", dict(tiled, compute_dtype=torch.float32)),
+        ("tiled_maps", dict(tiled, compute_dtype=torch.bfloat16)),
+        ("train_run", dict(
+            model_name="UNet.UNet", images=images, masks=masks,
+            labels=labels, save_path=save_path, seed=2, steps=MULTI_STEPS,
+            batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR,
+            val_percent=TRAIN_VAL, patch_size=TRAIN_PATCH,
+            compute_dtype=torch.bfloat16, max_epochs=MULTI_EPOCHS,
+            visualize=False)),
+    ]
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    t0 = time.perf_counter()
+    per_rank = spawn(jobs.run, MULTI_RANKS, tasks, device=device,
+                     backend=backend, timeout_s=MULTI_TIMEOUT_S,
+                     join_timeout_s=MULTI_JOIN_S)
+    spawn_s = time.perf_counter() - t0
+    single = jobs.train_steps(None, device="cuda", **steps)
+    maps32 = jobs.tiled_maps(None, device="cuda",
+                             **dict(tiled, compute_dtype=torch.float32))
+    maps16 = jobs.tiled_maps(None, device="cuda",
+                             **dict(tiled, compute_dtype=torch.bfloat16))
+
+    st = [r[1] for r in per_rank]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(st[0]["losses"], single["losses"]))
+
+    def excess(got, want, rtol, atol, running):
+        """max over the keys of |got - want| - (atol + rtol |want|)."""
+        return max(float((np.abs(got[k] - v) - atol - rtol * np.abs(v))
+                         .max())
+                   for k, v in want.items()
+                   if ("running" in k) == running
+                   and not k.endswith("num_batches_tracked"))
+
+    # The running statistics after the first step, which both runs take
+    # from the same parameters: after it, the parameters differ by the
+    # RMSprop-amplified noise of near-zero gradients (held by the params
+    # bound below), which moves later batch means by ~1e-5.
+    stats_excess = excess(st[0]["first_stats"], single["first_stats"], 1e-4,
+                          1e-6, True)
+    param_excess = excess(st[0]["state"], single["state"], 1e-3, 5e-5,
+                          False)
+    d32 = float(np.abs(per_rank[0][2]["maps"] - maps32["maps"]).max())
+    d16 = float(np.abs(per_rank[0][3]["maps"] - maps16["maps"]).max())
+    lab = torch.from_numpy(state["labels"])
+
+    def dice(maps):
+        pred = torch.from_numpy(
+            (maps * state["masks"] > 0.5).astype(np.float32))
+        return binary_dice(pred, lab).numpy()
+
+    dice16 = float(np.abs(dice(per_rank[0][3]["maps"])
+                          - dice(maps16["maps"])).max())
+    runs = [r[4] for r in per_rank]
+    reloaded, _ = load_model(save_path, device="cuda")  # strict=True
+    del reloaded
+    os.remove(save_path)
+    launches = [{k: sum(t["launches"][k] for t in r) for k in r[0]["launches"]}
+                for r in per_rank]
+    state["multi_device_launches"] = {
+        k: sum(rank[k] for rank in launches) for k in launches[0]}
+    hist = runs[0]["history"]
+    val_dprob = [r["val_max_abs_dprob"] for r in runs]
+    checks = {
+        "f32_losses_within_1e-4_rel": loss_rel <= 1e-4,
+        "f32_step1_bn_stats_within_rtol_1e-4_atol_1e-6":
+            stats_excess <= 0.0,
+        "f32_params_within_rtol_1e-3_atol_5e-5": param_excess <= 0.0,
+        "f32_params_bit_identical_across_ranks":
+            len({s["digest"] for s in st}) == 1,
+        "f32_no_step_skipped": all(all(s["oks"]) for s in st),
+        "tiled_f32_within_1e-5": d32 <= 1e-5,
+        "tiled_bf16_dice_within_1e-3": dice16 <= 1e-3,
+        "tiled_maps_equal_on_every_rank": all(
+            np.array_equal(r[t]["maps"], per_rank[0][t]["maps"])
+            for r in per_rank for t in (2, 3)),
+        "train_run_rank0_alone_wrote_the_checkpoint":
+            runs[0]["saved"] == [save_path]
+            and all(r["saved"] == [] for r in runs[1:]),
+        "train_run_val_probs_bit_identical_across_ranks":
+            len({r["val_digest"] for r in runs}) == 1,
+        f"train_run_val_probs_within_{MULTI_VAL_DPROB:g}_of_one_process":
+            max(val_dprob) <= MULTI_VAL_DPROB,
+        "train_run_val_dice_equal_on_every_rank": all(
+            [h["dice"] for h in r["history"]]
+            == [h["dice"] for h in hist] for r in runs),
+        "train_run_params_bit_identical_across_ranks":
+            len({r["digest"] for r in runs}) == 1,
+        "train_run_losses_finite_none_skipped": all(
+            math.isfinite(h["loss"]) and h["skipped_steps"] == 0
+            for h in hist) and len(hist) == MULTI_EPOCHS,
+        "conv_and_dice_launched_in_every_rank": all(
+            rank["conv3x3_affine_relu"] > 0 and rank["dice_sums"] > 0
+            for rank in launches),
+    }
+    f32_ms = st[0]["step_ms"][1:]
+    bf16_ms = hist[-1]["train_seconds"] * 1e3 / MULTI_STEPS
+    report["multi_device"] = {
+        "ranks": MULTI_RANKS, "device": device, "backend": backend,
+        "timeout_s": MULTI_TIMEOUT_S, "spawn_seconds": spawn_s,
+        "f32_losses": st[0]["losses"], "f32_single_losses": single["losses"],
+        "f32_loss_max_rel": loss_rel, "f32_stats_excess": stats_excess,
+        "f32_param_excess": param_excess, "f32_step_ms": st[0]["step_ms"],
+        "f32_single_step_ms": single["step_ms"],
+        "tiled_f32_max_abs_dprob": d32, "tiled_bf16_max_abs_dprob": d16,
+        "tiled_bf16_max_abs_ddice": dice16,
+        "tiled_ms": [r[3]["ms"] for r in per_rank],
+        "tiled_single_ms": maps16["ms"],
+        "train_run_history": hist, "train_run_step_ms": bf16_ms,
+        "train_run_val_max_abs_dprob": val_dprob,
+        "train_run_val_range": runs[0]["val_range"],
+        "launches_by_rank": launches, "checks": checks}
+    print(f"[multi_device] f32 UNet {MULTI_F32_STEPS} steps at global batch "
+          f"{TRAIN_BATCH}, {TRAIN_PATCH}^2: losses {st[0]['losses']} vs one "
+          f"process {single['losses']} (max rel {loss_rel:.2e}); step-1 BN "
+          f"stats excess {stats_excess:.2e}, params excess "
+          f"{param_excess:.2e}; "
+          f"ranks bit-identical "
+          f"{checks['f32_params_bit_identical_across_ranks']}", flush=True)
+    print(f"[multi_device] tiled eval, {len(state['images'])} images "
+          f"sharded {MULTI_RANKS} ways: f32 max |dprob| {d32:.2e}, bf16 max "
+          f"|dprob| {d16:.2e}, bf16 max |dDice| {dice16:.2e}", flush=True)
+    print(f"[multi_device] train_arrays bf16 {MULTI_EPOCHS} x {MULTI_STEPS} "
+          f"steps: val dice {[h['dice'] for h in hist]} on every rank; last "
+          f"val probabilities in [{runs[0]['val_range'][0]:.4f}, "
+          f"{runs[0]['val_range'][1]:.4f}], the same bits on every rank "
+          f"{checks['train_run_val_probs_bit_identical_across_ranks']}, max "
+          f"|dprob| against one process {max(val_dprob):.2e} (bound "
+          f"{MULTI_VAL_DPROB:g}); rank 0 wrote {runs[0]['saved']}",
+          flush=True)
+    how = (f"{backend}, one card a rank" if two_cards
+           else f"{backend} through host memory on one card")
+    print(f"[multi_device] path check, not a speed ({how}): f32 step ms "
+          f"{[round(t, 2) for t in f32_ms]} (one process "
+          f"{[round(t, 2) for t in single['step_ms'][1:]]}), bf16 step ms "
+          f"{bf16_ms:.2f}; spawn + jobs {spawn_s:.1f} s; launches per rank "
+          f"{launches}", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"multi_device checks failed: {bad}")
+
+
 def kernels_line(state):
     """The kernels of every path, each with its launches summed over the
     paths that ran it (and split by path)."""
@@ -2794,7 +3026,9 @@ def kernels_line(state):
                    "serve": state["serve_launches"][row["name"]],
                    "fractal": state["fractal_launches"][row["name"]],
                    "s2d": state["s2d_launches"][row["name"]],
-                   "export": state["export_launches"][row["name"]]}
+                   "export": state["export_launches"][row["name"]],
+                   "multi_device":
+                       state["multi_device_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
@@ -2804,7 +3038,9 @@ def kernels_line(state):
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {
         "probe": probe["launches"],
-        "export": state["export_launches"]["conv3x3_relu_imcol"]}
+        "export": state["export_launches"]["conv3x3_relu_imcol"],
+        "multi_device":
+            state["multi_device_launches"]["conv3x3_relu_imcol"]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     return rows + [probe]
 
@@ -2845,7 +3081,8 @@ def main() -> None:
                         ("fractal", phase_fractal),
                         ("s2d", phase_s2d),
                         ("export", phase_export),
-                        ("probe", phase_probe)):
+                        ("probe", phase_probe),
+                        ("multi_device", phase_multi_device)):
         if needs.get(name) in failed:
             failed.append(name)
             continue

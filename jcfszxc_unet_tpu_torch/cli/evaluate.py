@@ -16,8 +16,19 @@ takes a port checkpoint, a JAX ``.ckpt`` or a reference ``.pth``
 space-to-depth execution (``ops/s2d.py``; same parameters): any
 checkpoint of those models can opt in, and one trained with ``--s2d``
 evaluates in that mode without the flag; another model exits naming the
-three.  ``--devices`` > 1 is not ported yet and exits with a message that
-says so.
+three.
+
+``--devices N`` evaluates over N ranks (``parallel/``); 0 (the default)
+means every visible device of the ``--device`` kind, as in the JAX CLI.
+N > 1 spawns N ranks (or joins torchrun's job, as the train CLI does).
+The tiled protocol splits the patch grid over the ranks, as the JAX CLI
+shards its tiles over a mesh; ``--sliding-window``, which takes no mesh
+in JAX, splits the images over the ranks instead (each rank runs its
+images' windows).  Rank 0 gathers the maps, computes Dice and AUC and
+writes every output.  ``--spatial`` with N > 1 (the row-sharded
+whole-image forward) is not ported yet and exits with a message that says
+so.  A collective waits torch's default time before it fails the run
+(``--dist-timeout`` sets it).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 
 import numpy as np
 import torch
@@ -41,19 +53,35 @@ from jcfszxc_unet_tpu_torch.eval.metrics import (
     roc_auc,
 )
 from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
-from jcfszxc_unet_tpu_torch.utils.device import resolve_device
+from jcfszxc_unet_tpu_torch.parallel.launch import rank_logging, spawn
+from jcfszxc_unet_tpu_torch.parallel.mesh import (
+    gather_rows,
+    initialize_distributed,
+    is_main,
+    row_bounds,
+    shutdown,
+)
+from jcfszxc_unet_tpu_torch.utils.device import (
+    resolve_device,
+    resolve_device_count,
+)
 from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 
 THRESHOLD_SWEEP = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
 
 
-def _check_protocol(sliding_window: bool, spatial: bool, tta: bool):
+def _check_protocol(sliding_window: bool, spatial: bool, tta: bool,
+                    n_ranks: int = 1):
     if spatial and sliding_window:
         raise ValueError("--spatial and --sliding-window select different "
                          "evaluation protocols; pass at most one")
     if spatial and tta:
         raise ValueError("--tta needs square patches; it composes with the "
                          "tiled/sliding protocols, not --spatial")
+    if spatial and n_ranks > 1:
+        raise ValueError("--spatial over several ranks (the whole-image "
+                         "forward with its rows sharded) is not ported yet; "
+                         "run it with --devices 1")
 
 
 def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
@@ -62,7 +90,7 @@ def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
                     threshold: float = 0.5, full_metrics: bool = False,
                     threshold_sweep: bool = False, sliding_window: bool = False,
                     overlap: float = 0.5, spatial: bool = False,
-                    tta: bool = False, device="cuda"):
+                    tta: bool = False, device="cuda", world=None):
     """One evaluation protocol on arrays: images (N, H, W, C), masks and
     labels (N, H, W), float in [0, 1].
 
@@ -74,25 +102,35 @@ def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
     ``dice_sums`` call) and AUC.  Returns a dict of host values:
     ``pred_maps`` (N, H, W) numpy, ``dice`` and ``auc`` lists, and the
     optional ``classification`` rows and ``threshold_sweep`` table.
+
+    With a ``world``, this is one rank of a data-parallel evaluation (see
+    the module doc): the maps are gathered, and rank 0 alone computes the
+    metrics and returns them; the other ranks return an empty dict.
     """
-    _check_protocol(sliding_window, spatial, tta)
-    dev = resolve_device(device)
+    _check_protocol(sliding_window, spatial, tta,
+                    1 if world is None else world.size)
+    dev = world.device if world is not None else resolve_device(device)
     predictor = Predictor(model, compute_dtype=compute_dtype,
                           patch_size=patch_size,
                           inference_batch_size=inference_batch_size,
-                          device=dev, tta=tta)
+                          device=dev, tta=tta, world=world)
     images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
     masks = torch.as_tensor(np.asarray(masks, np.float32), device=dev)
     labels = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
     if spatial:
         pred_maps = predictor.predict_spatial(images)
     elif sliding_window:
-        pred_maps = torch.stack([
+        start, stop = row_bounds(images.shape[0], world)
+        pred_maps = gather_rows(torch.stack([
             predictor.predict_full_image(image, patch_size, overlap,
                                          inference_batch_size)
-            for image in images])
+            for image in images[start:stop]]) if stop > start
+            else masks.new_zeros((0,) + masks.shape[1:]),
+            images.shape[0], world)
     else:
         pred_maps = predictor.predict_images(images)
+    if not is_main(world):
+        return {}
     pred_maps = pred_maps * masks  # evaluate.py:309
     result = {}
     if compute_auc:
@@ -122,17 +160,23 @@ def eval_model(model, output_dir: str,
                threshold: float = 0.5, threshold_sweep: bool = False,
                metrics_json: str | None = None, sliding_window: bool = False,
                overlap: float = 0.5, num_images=None, image_indices=None,
-               spatial: bool = False, tta: bool = False, device="cuda"):
+               spatial: bool = False, tta: bool = False, device="cuda",
+               world=None):
     """Evaluation of a preprocessed split; returns (mean_dice,
     per_image_dice, mean_auc) like the JAX ``eval_model``.  With
     ``sliding_window`` only the images ``image_indices`` (or the first
-    ``num_images``) are evaluated, as in the JAX version."""
-    resolve_device(device)
+    ``num_images``) are evaluated, as in the JAX version.  As one rank of
+    a ``world`` every rank loads the split and predicts its share; rank 0
+    alone prints and writes, and the other ranks return None."""
+    main = is_main(world)
+    if world is None:
+        resolve_device(device)
     set_seed(seed)
     dataset = load_preprocessed_data(input_data)
-    display_dataset_info(dataset)
-    if visualize:
-        visualize_samples(dataset, num_samples=3)
+    if main:
+        display_dataset_info(dataset)
+        if visualize:
+            visualize_samples(dataset, num_samples=3)
     images = np.asarray(dataset["images"], np.float32)
     masks = np.asarray(dataset["masks"], np.float32)
     labels = np.asarray(dataset["labels"], np.float32)
@@ -150,7 +194,10 @@ def eval_model(model, output_dir: str,
         compute_dtype=compute_dtype, compute_auc=compute_auc,
         threshold=threshold, full_metrics=full_metrics,
         threshold_sweep=threshold_sweep, sliding_window=sliding_window,
-        overlap=overlap, spatial=spatial, tta=tta, device=device)
+        overlap=overlap, spatial=spatial, tta=tta, device=device,
+        world=world)
+    if not main:
+        return None
     dice_scores, aucs = res["dice"], res.get("auc", [])
     if visualize:
         from jcfszxc_unet_tpu_torch.utils.vis import (
@@ -231,7 +278,10 @@ def get_args(argv=None):
     parser.add_argument("--sliding-window", action="store_true",
                         help="Use the sliding-window predictor "
                              "(predict_full_image protocol) driven by "
-                             "--overlap/--num-images/--image-indices")
+                             "--overlap/--num-images/--image-indices; "
+                             "under --devices N > 1 the images are split "
+                             "over the ranks (the JAX CLI runs this "
+                             "protocol on one device)")
     parser.add_argument("--overlap", type=float, default=0.5,
                         help="Overlap between patches (0-1; sliding-window "
                              "predictor only)")
@@ -246,9 +296,16 @@ def get_args(argv=None):
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"], help="Compute dtype")
     parser.add_argument("--devices", type=int, default=0,
-                        help="Number of devices (only 1 is ported; 0 = 1)")
+                        help="Shard the tile axis over this many ranks "
+                             "(0 = every visible device of the --device "
+                             "kind: the visible cards, or 1 on the CPU)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
+    parser.add_argument("--dist-timeout", type=float, default=None,
+                        metavar="SECONDS",
+                        help="With --devices > 1: the seconds a collective "
+                             "may wait before the run fails (default: "
+                             "torch's, 10 min for NCCL, 30 for gloo)")
     parser.add_argument("--error-panels", action="store_true",
                         help="Also write TP/FP/FN color-coded panels")
     parser.add_argument("--threshold", type=float, default=0.5,
@@ -271,18 +328,42 @@ def get_args(argv=None):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    if args.devices > 1:
-        raise SystemExit("--devices > 1 is not ported to PyTorch yet; the "
-                         "port evaluates on one device")
+    world = initialize_distributed(  # torchrun's job
+        device=args.device, timeout_s=args.dist_timeout)
+    n = (world.size if world is not None
+         else resolve_device_count(args.devices, args.device))
     try:
-        _check_protocol(args.sliding_window, args.spatial, args.tta)
+        _check_protocol(args.sliding_window, args.spatial, args.tta, n)
     except ValueError as e:
+        shutdown(world)
         raise SystemExit(str(e)) from None
-    device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
-    os.makedirs("demo", exist_ok=True)
+    if world is None and n > 1:
+        spawn(_rank_main, n, argv, device=args.device,
+              timeout_s=args.dist_timeout)
+        return
+    try:
+        run(args, world)
+    finally:
+        shutdown(world)
+
+
+def _rank_main(world, argv):
+    """One spawned rank of ``main``."""
+    rank_logging(world)
+    run(get_args(argv), world)
+
+
+def run(args, world=None):
+    """The CLI's evaluation from parsed ``args``, in this process or as
+    one rank of ``world``."""
+    device = world.device if world is not None else resolve_device(
+        args.device)
+    if is_main(world):
+        os.makedirs(args.output_dir, exist_ok=True)
+        os.makedirs("demo", exist_ok=True)
     logging.info(f"Using device: {device}")
     from jcfszxc_unet_tpu_torch.train.checkpoint import (
         load_model_any,
@@ -319,6 +400,7 @@ def main(argv=None):
         spatial=args.spatial,
         tta=args.tta,
         device=device,
+        world=world,
     )
 
 

@@ -19,8 +19,7 @@ space (``ops/s2d.py``; same parameters), recorded in ``model_kwargs`` so
 that evaluation takes the same mode; other models exit with the list of
 those that take it.  ``--remat`` recomputes the train-mode forward's
 activations in the backward (``train.trainer.make_batch_step_fn``).  BCDU
-models get ``N`` = the patch size, as in the JAX CLI.  Not ported yet,
-refused with a message that says so: ``--devices`` > 1.
+models get ``N`` = the patch size, as in the JAX CLI.
 ``--profile-dir`` wraps the epoch loop in a ``torch.profiler`` capture
 (``utils.profiling.trace``) and writes a Chrome trace there.
 
@@ -32,6 +31,22 @@ written in the background
 (``train.checkpoint.AsyncCheckpointWriter``: snapshot on the device at the
 end of the epoch, host copy and disk write on a worker thread);
 ``--sync-checkpoints`` writes them on the training loop instead.
+
+``--devices N`` trains data-parallel over N ranks (``parallel/``), as
+the JAX CLI shards the batch over a mesh of N devices: the global batch
+of ``--batch-size`` is drawn on every rank and split, BatchNorm and the
+Dice term are global, the gradients are averaged.  0 (the default) means
+every visible device of the ``--device`` kind, as in the JAX CLI: the
+visible cards for ``cuda``, one for the CPU.  N > 1 spawns N ranks (NCCL,
+one card each; on the CPU, gloo ranks sharing the host), or joins the
+job torchrun started (``torchrun --nproc-per-node N -m
+jcfszxc_unet_tpu_torch.cli.train ...``).  More cards than are visible
+exits with a message (JAX's ``make_mesh`` takes the first N it has).
+Rank 0 alone writes checkpoints, visualizations, ``--metrics-file`` and
+the epoch lines; every rank reads ``--load`` and ``--resume``, and the
+scheduler and early stopping decide from the same all-reduced metrics on
+every rank.  A collective waits torch's default time before it fails the
+run (``--dist-timeout`` sets it).
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ import json
 import logging
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -65,6 +81,14 @@ from jcfszxc_unet_tpu_torch.models import (
     s2d_capable,
     with_kwargs,
 )
+from jcfszxc_unet_tpu_torch.parallel.launch import rank_logging, spawn
+from jcfszxc_unet_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_module,
+    initialize_distributed,
+    is_main,
+    shutdown,
+)
 from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
 from jcfszxc_unet_tpu_torch.train.optim import (
     ReduceLROnPlateau,
@@ -81,11 +105,25 @@ from jcfszxc_unet_tpu_torch.train.trainer import (
     split_indices,
     sync,
 )
-from jcfszxc_unet_tpu_torch.utils.device import resolve_device
+from jcfszxc_unet_tpu_torch.utils.device import (
+    resolve_device,
+    resolve_device_count,
+)
 from jcfszxc_unet_tpu_torch.utils.profiling import Throughput, trace
 from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 
 DATA_SEED_OFFSET = 0xDA7A  # the sampling generator's seed is seed + this
+
+
+def validation_patches(images: np.ndarray, labels: np.ndarray, val_idx,
+                       patch_size: int, device):
+    """:func:`train_arrays`'s validation set: the half-overlapping grid
+    of ``patch_size`` patches over ``images[val_idx]`` (N, H, W, C) and
+    ``labels[val_idx]`` (N, H, W, 1), cut on ``device``."""
+    n, h, w = labels[val_idx].shape[:3]
+    val_map = build_grid_sample_map(n, h, w, patch_size // 2)
+    return build_val_patches(images[val_idx], labels[val_idx], val_map,
+                             patch_size, device=device)
 
 
 def bn_saturation_signature(dice_history, mean_prob=None,
@@ -123,7 +161,7 @@ def train_arrays(model, images, masks, labels, *,
                  augment: bool = False, metrics_file: str | None = None,
                  async_checkpoints: bool = True,
                  profile_dir: str | None = None, remat: bool = False,
-                 device="cuda"):
+                 device="cuda", world=None):
     """The reference training protocol on arrays: images (N, H, W, C),
     masks and labels (N, H, W), float in [0, 1].
 
@@ -142,8 +180,21 @@ def train_arrays(model, images, masks, labels, *,
     progress from a ``--latest-path`` file of the port or of the JAX
     package; ``remat`` recomputes the forward's activations in the
     backward.
+
+    With a ``world`` (``parallel.World``) this is one rank of a
+    data-parallel run on ``world.device``: ``batch_size`` is the global
+    batch, the model starts from rank 0's weights, and rank 0 alone
+    writes checkpoints, visualizations, the metrics file and the epoch
+    lines; the ranks meet at a barrier at the end of every epoch, and the
+    files are on disk when any rank returns.  Each rank's dropout draws
+    from its own stream (torch seeded with ``seed + rank``).  The record
+    ``saved`` lists the checkpoint paths this process wrote, and
+    ``val_probs`` holds the last validation pass's (V, P, P, 1)
+    probabilities on the device (every rank's are all V; None when no
+    epoch ran).
     """
-    dev = resolve_device(device)
+    dev = world.device if world is not None else resolve_device(device)
+    main = is_main(world)
     model_kwargs = dict(model_kwargs or {})
     set_seed(seed)
     val_idx, train_idx = split_indices(len(images), val_percent)
@@ -153,42 +204,43 @@ def train_arrays(model, images, masks, labels, *,
     masks = np.asarray(masks, np.float32)
     labels = np.asarray(labels, np.float32)[..., None]
 
-    half_patch = patch_size // 2
-    train_map = build_train_sample_map(masks[train_idx], half_patch)
-    n, h, w = masks[val_idx].shape if n_val else (0, *masks.shape[1:])
-    val_map = build_grid_sample_map(n, h, w, half_patch)
+    train_map = build_train_sample_map(masks[train_idx], patch_size // 2)
 
-    logging.info(
-        f"Starting training:\n"
-        f"  Batch size:      {batch_size}\n"
-        f"  Learning rate:   {learning_rate}\n"
-        f"  Training size:   {len(train_idx)}\n"
-        f"  Validation size: {n_val}\n"
-        f"  Patch size:      {patch_size}\n"
-        f"  Steps/epoch:     {steps}\n"
-        f"  Device:          {dev}\n"
-        f"  Compute dtype:   {str(compute_dtype).split('.')[-1]}")
+    if main:
+        logging.info(
+            f"Starting training:\n"
+            f"  Batch size:      {batch_size}\n"
+            f"  Learning rate:   {learning_rate}\n"
+            f"  Training size:   {len(train_idx)}\n"
+            f"  Validation size: {n_val}\n"
+            f"  Patch size:      {patch_size}\n"
+            f"  Steps/epoch:     {steps}\n"
+            f"  Device:          {dev}\n"
+            f"  Compute dtype:   {str(compute_dtype).split('.')[-1]}")
 
     # Device-resident pools and sample map; the val patches are cut once.
     train_images = torch.as_tensor(images[train_idx], device=dev)
     train_labels = torch.as_tensor(labels[train_idx], device=dev)
     train_map_dev = torch.as_tensor(train_map, device=dev).long()
-    val_imgs, val_labs = build_val_patches(
-        images[val_idx], labels[val_idx], val_map, patch_size, device=dev)
+    val_imgs, val_labs = validation_patches(images, labels, val_idx,
+                                            patch_size, dev)
 
     model = model.to(device=dev, memory_format=torch.channels_last)
     model.train()
+    broadcast_module(model, world)
+    if world is not None:
+        torch.manual_seed(seed + world.rank)  # dropout: one stream a rank
     optimizer = make_optimizer(model.parameters(), learning_rate,
                                weight_decay, momentum)
     state = TrainState(model=model, optimizer=optimizer)
     epoch_fn = make_epoch_fn(
         n_classes=model.n_classes, batch_size=batch_size,
         patch_size=patch_size, steps=steps, compute_dtype=compute_dtype,
-        augment=augment, remat=remat)
-    val_fn = make_val_fn(model, compute_dtype=compute_dtype)
+        augment=augment, remat=remat, world=world)
+    val_fn = make_val_fn(model, compute_dtype=compute_dtype, world=world)
     precise_bn_fn = make_precise_bn_fn(
         batch_size=batch_size, patch_size=patch_size, k_batches=precise_bn,
-        compute_dtype=compute_dtype) if precise_bn else None
+        compute_dtype=compute_dtype, world=world) if precise_bn else None
     scheduler = ReduceLROnPlateau(factor=0.7, patience=5, threshold=0.01,
                                   cooldown=2)
 
@@ -224,8 +276,11 @@ def train_arrays(model, images, masks, labels, *,
     # of the weights, taken when the epoch's last one is queued; with the
     # writer that is one submission, so the epoch never waits on a write
     # of its own.
-    writer = ckpt.AsyncCheckpointWriter() if async_checkpoints else None
-    saves = []  # this epoch's (path, extra)
+    writer = (ckpt.AsyncCheckpointWriter()
+              if async_checkpoints and main else None)
+    probs = None  # the last validation pass's probabilities
+    saves = []  # this epoch's (path, extra); rank 0's only
+    saved = []  # every path this process submitted
 
     def write_all(jobs, state_dict):
         for path, extra in jobs:
@@ -235,6 +290,7 @@ def train_arrays(model, images, masks, labels, *,
         if not saves:
             return
         jobs, saves[:] = list(saves), []
+        saved.extend(path for path, _ in jobs)
         if writer is None:
             write_all(jobs, model.state_dict())
         else:
@@ -266,7 +322,7 @@ def train_arrays(model, images, masks, labels, *,
 
             dice_history.append(dice)
             mean_prob = float(probs.mean()) if n_val else None
-            if bn_saturation_signature(dice_history, mean_prob):
+            if main and bn_saturation_signature(dice_history, mean_prob):
                 logging.warning(
                     f"Validation Dice collapsed to {dice:.3f} after reaching "
                     f"{max(dice_history[:-1]):.3f} with the val set's mean "
@@ -283,20 +339,25 @@ def train_arrays(model, images, masks, labels, *,
             new_lr = scheduler.step(dice, lr)
             if new_lr != lr:
                 set_current_lr(optimizer, new_lr)
-                logging.info(f"Plateau scheduler: lr {lr:.2e} -> {new_lr:.2e}")
+                if main:
+                    logging.info(
+                        f"Plateau scheduler: lr {lr:.2e} -> {new_lr:.2e}")
 
             stop = False
             if dice > best_dice:
                 best_dice = dice
                 patience_counter = 0
-                saves.append((save_path, None))
+                if main:
+                    saves.append((save_path, None))
             else:
                 patience_counter += 1
-                print(f"Dice score did not improve. Patience: "
-                      f"{patience_counter}/{early_stopping_patience}")
+                if main:
+                    print(f"Dice score did not improve. Patience: "
+                          f"{patience_counter}/{early_stopping_patience}")
                 if patience_counter >= early_stopping_patience:
-                    print(f"Early stopping triggered after {epoch} epochs. "
-                          f"Best dice score: {best_dice:.4f}")
+                    if main:
+                        print(f"Early stopping triggered after {epoch} "
+                              f"epochs. Best dice score: {best_dice:.4f}")
                     stop = True
 
             record = {"epoch": epoch, "lr": new_lr,
@@ -307,6 +368,9 @@ def train_arrays(model, images, masks, labels, *,
             history.append(record)
             if stop:
                 break
+            if not main:
+                barrier(world)  # rank 0 writes this epoch's files
+                continue
 
             print(f"Epoch {epoch} - "
                   f"LR: {new_lr:.2e} - "
@@ -346,28 +410,34 @@ def train_arrays(model, images, masks, labels, *,
                     val_labs[sample_num, ..., 0].cpu().numpy(),
                     f"visualizations/{epoch:03d}_{sample_num:03d}.png")
             flush_saves()  # one snapshot, one submission per epoch
+            barrier(world)
     finally:
         profiling.close()  # the trace is written
         flush_saves()  # the saves of an epoch that stopped early
         if writer is not None:
             writer.close()  # re-raises a failed write; files on disk
-    return {"best_dice": best_dice, "history": history}
+    barrier(world)  # rank 0's files are on disk before any rank returns
+    return {"best_dice": best_dice, "history": history, "saved": saved,
+            "val_probs": probs}
 
 
 def train_model(model, model_name: str, model_kwargs: dict,
                 input_data: str = "./data/train_eye_dataset.h5",
-                seed: int = 42, visualize: bool = True, **kwargs):
+                seed: int = 42, visualize: bool = True, world=None,
+                **kwargs):
     """Load a preprocessed split and run :func:`train_arrays` on it;
-    returns the best val Dice, like the JAX ``train_model``."""
+    returns the best val Dice, like the JAX ``train_model``.  Every rank
+    of a ``world`` loads the split; rank 0 alone prints and draws it."""
     set_seed(seed)
     dataset = load_preprocessed_data(input_data)
-    display_dataset_info(dataset)
-    if visualize:
-        visualize_samples(dataset, num_samples=3)
+    if is_main(world):
+        display_dataset_info(dataset)
+        if visualize:
+            visualize_samples(dataset, num_samples=3)
     result = train_arrays(
         model, dataset["images"], dataset["masks"], dataset["labels"],
         model_name=model_name, model_kwargs=model_kwargs, seed=seed,
-        visualize=visualize, **kwargs)
+        visualize=visualize, world=world, **kwargs)
     return result["best_dice"]
 
 
@@ -405,9 +475,16 @@ def get_args(argv=None):
                         choices=["bfloat16", "float32"],
                         help="Compute dtype (params stay float32)")
     parser.add_argument("--devices", type=int, default=0,
-                        help="Number of devices (only 1 is ported; 0 = 1)")
+                        help="Data-parallel rank count (0 = every visible "
+                             "device of the --device kind: the visible "
+                             "cards, or 1 on the CPU)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
+    parser.add_argument("--dist-timeout", type=float, default=None,
+                        metavar="SECONDS",
+                        help="With --devices > 1: the seconds a collective "
+                             "may wait before the run fails (default: "
+                             "torch's, 10 min for NCCL, 30 for gloo)")
     parser.add_argument("--max-epochs", type=int, default=0,
                         help="Optional epoch cap (0 = until early stopping)")
     parser.add_argument("--profile-dir", type=str, default=None,
@@ -456,13 +533,37 @@ def get_args(argv=None):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    if args.devices > 1:
-        raise SystemExit(
-            f"--devices > 1 is not ported to PyTorch yet; the port trains "
-            f"{', '.join(sorted(MODEL_REGISTRY))} on one device")
-    device = resolve_device(args.device)
+    world = initialize_distributed(  # torchrun's job
+        device=args.device, timeout_s=args.dist_timeout)
+    if world is None:
+        n = resolve_device_count(args.devices, args.device)
+        if n > 1:
+            spawn(_rank_main, n, argv, device=args.device,
+                  timeout_s=args.dist_timeout)
+            return
+    elif args.devices not in (0, world.size):
+        raise SystemExit(f"--devices {args.devices} in a job of "
+                         f"{world.size} ranks")
+    try:
+        run(args, world)
+    finally:
+        shutdown(world)
+
+
+def _rank_main(world, argv):
+    """One spawned rank of ``main``."""
+    rank_logging(world)
+    run(get_args(argv), world)
+
+
+def run(args, world=None):
+    """The CLI's training run from parsed ``args``, in this process or as
+    one rank of ``world``."""
+    device = world.device if world is not None else resolve_device(
+        args.device)
     logging.info(f"Using device: {device}")
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
@@ -511,7 +612,8 @@ def main(argv=None):
 
     logging.info(f"Network:\n\t{model.n_channels} input channels\n"
                  f"\t{model.n_classes} output channels (classes)\n")
-    os.makedirs("visualizations", exist_ok=True)
+    if is_main(world):
+        os.makedirs("visualizations", exist_ok=True)
     train_model(
         model=model,
         model_name=model_name,
@@ -536,6 +638,7 @@ def main(argv=None):
         profile_dir=args.profile_dir,
         remat=args.remat,
         device=device,
+        world=world,
     )
 
 

@@ -1,6 +1,7 @@
 """Evaluation metrics, counterpart of ``jcfszxc_unet_tpu/eval/metrics.py``:
 per-image hard Dice through the fused ``dice_sums`` kernel, histogram
-ROC-AUC, and the FOV accuracy/sensitivity/specificity companions."""
+ROC-AUC, the confusion counts and the FOV accuracy/sensitivity/specificity
+companions."""
 
 from __future__ import annotations
 
@@ -48,16 +49,21 @@ def roc_auc(scores: torch.Tensor, targets: torch.Tensor,
     return torch.where((n_pos > 0) & (n_neg > 0), auc, torch.full_like(auc, 0.5))
 
 
-def classification_metrics(pred_binary, target, mask=None):
-    """Accuracy, sensitivity and specificity over the ``mask`` pixels;
-    a metric whose denominator is 0 is 0."""
+def confusion_counts(pred_binary, target, mask=None):
+    """TP, FP, FN and TN pixel counts of a binary prediction against
+    ``target > 0.5`` over the ``mask`` pixels (all pixels without one),
+    as 0-d f32 tensors."""
     p = pred_binary.float()
     t = (target > 0.5).float()
     w = torch.ones_like(p) if mask is None else (mask > 0).float()
-    tp = (w * p * t).sum()
-    fp = (w * p * (1 - t)).sum()
-    fn = (w * (1 - p) * t).sum()
-    tn = (w * (1 - p) * (1 - t)).sum()
+    return ((w * p * t).sum(), (w * p * (1 - t)).sum(),
+            (w * (1 - p) * t).sum(), (w * (1 - p) * (1 - t)).sum())
+
+
+def classification_metrics(pred_binary, target, mask=None):
+    """Accuracy, sensitivity and specificity over the ``mask`` pixels;
+    a metric whose denominator is 0 is 0."""
+    tp, fp, fn, tn = confusion_counts(pred_binary, target, mask)
 
     def _safe(num, den):
         return torch.where(den > 0, num / den.clamp(min=1.0),

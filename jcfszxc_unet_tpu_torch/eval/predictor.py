@@ -12,6 +12,13 @@ augmentation (tiled and sliding-window paths only).  Inputs and outputs
 keep the JAX layout (NHWC images, (N, H, W) maps); the model runs on NCHW
 ``channels_last`` tensors in ``compute_dtype`` under
 ``torch.inference_mode``.  The whole-image path runs on one device.
+
+``world`` (``parallel.World``) makes the predictor one rank of a
+data-parallel evaluation: ``predict_images`` splits the patch grid over
+the ranks and returns the whole maps on every rank
+(``eval.tiling.tiled_predict``), as the JAX ``Predictor(mesh=...)``
+shards its tiles; the model runs on ``world.device``.  TTA composes,
+since it wraps the forward.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ def sigmoid_forward(model: nn.Module, batch: torch.Tensor,
 class Predictor:
     def __init__(self, model: nn.Module, compute_dtype=torch.bfloat16,
                  patch_size: int = 512, inference_batch_size: int = 32,
-                 device="cuda", tta: bool = False):
-        self.device = resolve_device(device)
+                 device="cuda", tta: bool = False, world=None):
+        self.world = world
+        self.device = (world.device if world is not None
+                       else resolve_device(device))
         self.model = model.to(device=self.device,
                               memory_format=torch.channels_last).eval()
         self.compute_dtype = compute_dtype
@@ -94,7 +103,7 @@ class Predictor:
         (N, H, W, C) images, FOV-unmasked (the caller applies masks)."""
         return tiled_predict(self._fwd, self._as_images(images),
                              patch_size or self.patch_size,
-                             self.inference_batch_size)
+                             self.inference_batch_size, world=self.world)
 
     @torch.inference_mode()
     def predict_full_image(self, image, patch_size: int = 256,
@@ -114,6 +123,9 @@ class Predictor:
         if self.tta:
             raise ValueError("tta needs square patches; use predict_images/"
                              "predict_full_image, not predict_spatial")
+        if self.world is not None and self.world.size > 1:
+            raise ValueError("the whole-image forward with its rows sharded "
+                             "over ranks is not ported yet")
         images = self._as_images(images)
         bs = self.inference_batch_size
         return torch.cat([spatial_predict(self._forward, images[i:i + bs],

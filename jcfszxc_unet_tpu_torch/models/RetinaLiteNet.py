@@ -129,3 +129,10 @@ class TransFuseNet(nn.Module):
         d = conv_bn_relu(channels_last(d), self.decoder_block3[2])
         bv = self.output_BV(d)
         return bv if self.logit_head else torch.sigmoid(bv)
+
+
+def create_transfuse_net(input_shape):
+    """Reference RetinaLiteNet.py:201-203: a (C, H, W) tuple gives C input
+    channels, anything else 3."""
+    input_channels = input_shape[0] if isinstance(input_shape, tuple) else 3
+    return TransFuseNet(input_channels=input_channels)

@@ -82,13 +82,74 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-# torch's own (eps 1e-5, momentum 0.1), as the JAX layer of that name; on
-# (N, C) activations it never meets the conv kernel, so it needs no fold.
-BatchNorm1d = nn.BatchNorm1d
+class GlobalStatsBatchNorm:
+    """Train-mode statistics over the ranks of a data-parallel job, for
+    the port's BatchNorms (the JAX layer under a mesh: GSPMD reduces its
+    statistics over the global batch, ``ops/layers.py:380-413``).
+
+    ``world`` is None outside ``parallel.global_batch_norm``, and then the
+    module is torch's.  Inside it, in train mode, the per-channel Σx, Σx²
+    and count go through one ``parallel.all_reduce_sum`` in f32, and the
+    JAX one-pass form gives mean = S₁/n and var = max(S₂/n − mean², 0)
+    (``TRAIN_BN_ONE_PASS_STATS``); the running variance takes Bessel's
+    factor over the global n.  The backward goes through the all-reduce,
+    so the input gradients are those of the global batch's statistics."""
+
+    world = None
+
+    def _global_world(self):
+        w = self.world
+        return w if (self.training and w is not None and w.size > 1) else None
+
+    def _global_forward(self, x, world):
+        """x: (N, C, ...) with C = num_features; returns x.dtype."""
+        from jcfszxc_unet_tpu_torch.parallel.mesh import all_reduce_sum
+
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), xf.numel() // c)])
+        tot = all_reduce_sum(local, world)
+        n = tot[2 * c]
+        mean = tot[:c] / n
+        var = (tot[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        if self.track_running_stats and self.running_mean is not None:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (1.0 / float(self.num_batches_tracked)
+                     if self.momentum is None else self.momentum)
+                bessel = n / (n - 1).clamp(min=1.0)
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(m * var.detach() * bessel)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with :meth:`folded`."""
+class BatchNorm1d(GlobalStatsBatchNorm, nn.BatchNorm1d):
+    """torch's own (eps 1e-5, momentum 0.1), as the JAX layer of that name,
+    with global statistics under ``parallel.global_batch_norm``; on (N, C)
+    activations it never meets the conv kernel, so it needs no fold."""
+
+    def forward(self, x):
+        world = self._global_world()
+        if world is None:
+            return super().forward(x)
+        return self._global_forward(x, world)
+
+
+class BatchNorm2d(GlobalStatsBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with :meth:`folded`,
+    and global statistics under ``parallel.global_batch_norm``."""
+
+    def forward(self, x):
+        world = self._global_world()
+        if world is None:
+            return super().forward(x)
+        return self._global_forward(x, world)
 
     def folded(self):
         """Eval-mode BN as ``y = x * scale + shift`` per channel, in f32:
@@ -110,6 +171,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         if c4 != 4 * self.num_features:
             raise ValueError(f"s2d BatchNorm of {self.num_features} channels "
                              f"got {c4} (expected {4 * self.num_features})")
+        world = self._global_world()
+        if world is not None:
+            y = self._global_forward(x.view(b, self.num_features, 4, h, w),
+                                     world)
+            return channels_last(y.reshape(b, c4, h, w))
         momentum = 0.0 if self.momentum is None else self.momentum
         if self.training and self.track_running_stats:
             self.num_batches_tracked.add_(1)

@@ -15,6 +15,24 @@ The reference formulas, quirks included:
 
 The training loss needs a gradient and runs on stock ops; the validation
 Dice goes through the ``dice_sums`` kernel (``ops/kernels/dice_fused``).
+
+Data-parallel runs (``world``, ``parallel/mesh.py``) keep the JAX
+package's global objective.  There the loss of a global batch B is
+L = 1/2 BCE(B) + 1/2 Dice(B), one Dice over the whole batch
+(``reduce_batch_first=True``, JAX ``train/losses.py:71``).  Rank r holds
+the rows B_r of an equal split over W ranks and computes
+
+    L_r = 1/2 BCE(B_r) + 1/2 Dice_global,
+
+where Dice_global is the Dice of the three sums Σp·t, Σp, Σt (after the
+clamp) summed over the ranks by ``parallel.all_reduce_sum``, the same
+value on every rank.  The all-reduce's backward sums the incoming
+gradients over the ranks, so the gradient of rank r's parameters holds W
+copies of the global term: it is the gradient of Σ_r L_r through this
+rank's rows.  Averaging the gradients over the ranks
+(``parallel.average_gradients``) then gives the gradient of
+Σ_r L_r / W = 1/2 mean_r BCE(B_r) + 1/2 Dice_global = L, the global loss,
+and the all-reduced mean of the L_r is L itself.
 """
 
 from __future__ import annotations
@@ -51,11 +69,33 @@ def multiclass_dice_coeff(inputs: torch.Tensor, target: torch.Tensor,
                       reduce_batch_first, epsilon)
 
 
+def global_dice_coeff(inputs: torch.Tensor, target: torch.Tensor,
+                      world) -> torch.Tensor:
+    """:func:`dice_coeff` with ``reduce_batch_first`` over the rows of
+    every rank of ``world``: the three sums Σp·t, Σp, Σt over all
+    elements go through one differentiable all-reduce before the
+    formula."""
+    from jcfszxc_unet_tpu_torch.parallel.mesh import all_reduce_sum
+
+    assert inputs.shape == target.shape, (inputs.shape, target.shape)
+    inputs = inputs.clamp(0.0, 1.0)
+    sums = all_reduce_sum(torch.stack([
+        (inputs * target).sum(), inputs.sum(), target.sum()]), world)
+    inter = 2 * sums[0]
+    sets_sum = sums[1] + sums[2]
+    epsilon = 1e-5  # the reference's override (dice_score.py:32)
+    sets_sum = torch.where(sets_sum < epsilon, inter, sets_sum)
+    return (inter + epsilon) / (sets_sum + epsilon)
+
+
 def dice_loss(inputs: torch.Tensor, target: torch.Tensor,
-              multiclass: bool = False) -> torch.Tensor:
+              multiclass: bool = False, world=None) -> torch.Tensor:
     """1 - Dice of probabilities clamped to [1e-7, 1 - 1e-7]
-    (dice_score.py:53-59)."""
+    (dice_score.py:53-59); with a ``world`` of several ranks, the Dice of
+    the global batch (:func:`global_dice_coeff`)."""
     inputs = inputs.clamp(1e-7, 1.0 - 1e-7)
+    if world is not None and world.size > 1:
+        return 1.0 - global_dice_coeff(inputs, target, world)
     fn = multiclass_dice_coeff if multiclass else dice_coeff
     return 1.0 - fn(inputs, target, reduce_batch_first=True)
 
@@ -86,9 +126,11 @@ def soft_cross_entropy(logits: torch.Tensor, target: torch.Tensor
 
 
 def combined_loss(logits: torch.Tensor, target: torch.Tensor,
-                  n_classes: int = 1, alpha: float = 0.5):
+                  n_classes: int = 1, alpha: float = 0.5, world=None):
     """The reference objective on NHWC logits (B, H, W, C) and targets of
-    the same shape.  Returns (loss, bce, dice_loss)."""
+    the same shape.  Returns (loss, bce, dice_loss).  With a ``world``,
+    this rank's L_r of the module doc: the BCE of its rows, the Dice of
+    the global batch."""
     logits = _at_least_f32(logits)
     target = target.to(logits.dtype)
     probs = torch.sigmoid(logits)
@@ -97,5 +139,5 @@ def combined_loss(logits: torch.Tensor, target: torch.Tensor,
     else:
         bce = bce_with_logits(logits, target)
     # train.py:270-274 squeezes the channel dim before the Dice.
-    d = dice_loss(probs.squeeze(-1), target.squeeze(-1))
+    d = dice_loss(probs.squeeze(-1), target.squeeze(-1), world=world)
     return alpha * bce + (1.0 - alpha) * d, bce, d

@@ -28,6 +28,25 @@ What differs in mechanism from the JAX package:
 
 Models take NCHW tensors in ``torch.channels_last``; batches stay NHWC
 (the JAX layout) and are permuted into that form without a copy.
+
+Data-parallel runs pass a ``world`` (``parallel/mesh.py``), and keep the
+JAX mesh's global semantics (trainer.py:44-48, 72-73):
+
+  * every rank draws the whole global batch from the same seeded
+    generator and keeps its rows (``parallel.shard_rows``), so the global
+    batch is the single process's bit for bit;
+  * the train-mode forward runs under ``parallel.global_batch_norm``
+    (statistics over the global batch) and the loss takes the global Dice
+    (``train/losses.py``); after ``backward()`` the gradients are
+    averaged over the ranks, which makes them the gradient of the global
+    loss; the reported loss is the all-reduced mean of the ranks' losses,
+    the global loss, and the NaN guard decides on it, so every rank skips
+    together; clip and RMSprop then leave the parameters bit-identical on
+    every rank;
+  * validation forwards each rank's contiguous share of the patches (the
+    shares differ by one patch at most where they do not divide; JAX pads
+    the last chunk by wrapping instead) and gathers the probabilities, so
+    the Dice is computed on every rank from the same values.
 """
 
 from __future__ import annotations
@@ -47,6 +66,14 @@ from jcfszxc_unet_tpu_torch.data.sampler import (
     sample_centers,
 )
 from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import dice_coeff_hard
+from jcfszxc_unet_tpu_torch.parallel.mesh import (
+    average_gradients,
+    gather_rows,
+    global_batch_norm,
+    mean_over_ranks,
+    row_bounds,
+    shard_rows,
+)
 from jcfszxc_unet_tpu_torch.train.losses import combined_loss
 from jcfszxc_unet_tpu_torch.train.optim import clip_and_step
 from jcfszxc_unet_tpu_torch.train.state import TrainState
@@ -98,14 +125,16 @@ def frozen_running_stats(model: nn.Module):
 
 
 def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
-                       clip_norm: float = 1.0, remat: bool = False
-                       ) -> Callable:
+                       clip_norm: float = 1.0, remat: bool = False,
+                       world=None) -> Callable:
     """The per-batch update ``(state, imgs, labs) -> (loss, ok)``:
     train-mode forward, 1/2 BCE + 1/2 Dice, backward, clip by global norm,
     RMSprop.  ``loss`` is a 0-d f32 tensor (0 when skipped); ``ok`` is
     False when the loss was not finite and the update was skipped.
     ``remat``: the forward's activations are recomputed in the backward
-    instead of kept (see the module doc)."""
+    instead of kept (see the module doc).  With a ``world``, ``imgs`` and
+    ``labs`` are the global batch, of which this rank trains its rows,
+    and ``loss`` is the global loss (see the module doc)."""
 
     def forward(model, x):
         if not remat:
@@ -118,12 +147,17 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
     def train_step(state: TrainState, imgs: torch.Tensor, labs: torch.Tensor):
         model, opt = state.model, state.optimizer
         model.train()
-        logits = forward(model, _nchw(imgs, compute_dtype)).permute(
-            0, 2, 3, 1)
-        loss, _, _ = combined_loss(logits, labs, n_classes)
+        imgs, labs = shard_rows(imgs, world), shard_rows(labs, world)
         state.step += 1
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with global_batch_norm(model, world):
+            logits = forward(model, _nchw(imgs, compute_dtype)).permute(
+                0, 2, 3, 1)
+            loss, _, _ = combined_loss(logits, labs, n_classes, world=world)
+            loss.backward()
+        if world is not None:
+            average_gradients(model.parameters(), world)
+            loss = mean_over_ranks(loss, world)
         # Host sync: see module doc.  It comes after the backward has been
         # queued, so the device is not left idle while the host launches it.
         if not bool(torch.isfinite(loss)):
@@ -137,15 +171,18 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
 
 def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
                   steps: int, compute_dtype=torch.float32,
-                  augment: bool = False, remat: bool = False) -> Callable:
+                  augment: bool = False, remat: bool = False,
+                  world=None) -> Callable:
     """``(state, images, labels, sample_map, generator) -> {"epoch_loss",
     "skipped"}``: ``steps`` steps on batches drawn from ``generator``.
     ``epoch_loss`` is the sum of the kept losses (a 0-d tensor): skipped
     steps add nothing, the caller still divides by ``steps``
     (train.py:303, 392).  ``augment`` adds a random dihedral-8 element per
-    sample; ``remat`` is :func:`make_batch_step_fn`'s."""
+    sample; ``remat`` and ``world`` are :func:`make_batch_step_fn`'s
+    (``batch_size`` is the global batch, drawn whole on every rank)."""
     batch_step = make_batch_step_fn(n_classes=n_classes,
-                                    compute_dtype=compute_dtype, remat=remat)
+                                    compute_dtype=compute_dtype, remat=remat,
+                                    world=world)
 
     def epoch_fn(state, images, labels, sample_map, generator):
         total = torch.zeros((), device=images.device)
@@ -165,7 +202,7 @@ def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
 
 @torch.no_grad()
 def precise_bn(model: nn.Module, batches: Iterable[torch.Tensor],
-               compute_dtype=torch.float32) -> None:
+               compute_dtype=torch.float32, world=None) -> None:
     """Set every BatchNorm's running statistics to the arithmetic mean of
     the pure batch statistics of ``batches`` ((B, P, P, C) image patches),
     whatever statistics they held before.
@@ -173,7 +210,9 @@ def precise_bn(model: nn.Module, batches: Iterable[torch.Tensor],
     Each BN is reset and switched to a cumulative average
     (``momentum=None``) for the train-mode forwards, then given back its
     momentum and batch count: the same result as the JAX package's
-    ``(mean_i S_i - (1 - m) base) / m``."""
+    ``(mean_i S_i - (1 - m) base) / m``.  With a ``world``, each batch is
+    the global one: this rank forwards its rows, with the statistics
+    taken over the ranks."""
     bns = [m for m in model.modules()
            if isinstance(m, nn.modules.batchnorm._BatchNorm)]
     if not bns:
@@ -185,8 +224,9 @@ def precise_bn(model: nn.Module, batches: Iterable[torch.Tensor],
         bn.momentum = None
     model.train()
     try:
-        for imgs in batches:
-            model(_nchw(imgs, compute_dtype))
+        with global_batch_norm(model, world):
+            for imgs in batches:
+                model(_nchw(shard_rows(imgs, world), compute_dtype))
     finally:
         for bn, (momentum, tracked) in zip(bns, saved):
             bn.momentum = momentum
@@ -195,10 +235,10 @@ def precise_bn(model: nn.Module, batches: Iterable[torch.Tensor],
 
 
 def make_precise_bn_fn(*, batch_size: int, patch_size: int, k_batches: int,
-                       compute_dtype=torch.float32) -> Callable:
+                       compute_dtype=torch.float32, world=None) -> Callable:
     """``(model, images, sample_map, generator)``: :func:`precise_bn` over
     ``k_batches`` fresh training batches (CLI ``--precise-bn K``; off by
-    default, as in the JAX package)."""
+    default, as in the JAX package); with a ``world``, over the ranks."""
 
     def precise_bn_fn(model, images, sample_map, generator):
         def batches():
@@ -206,19 +246,24 @@ def make_precise_bn_fn(*, batch_size: int, patch_size: int, k_batches: int,
                 centers = sample_centers(generator, sample_map, batch_size)
                 yield extract_patches(images, centers, patch_size)
 
-        precise_bn(model, batches(), compute_dtype)
+        precise_bn(model, batches(), compute_dtype, world)
 
     return precise_bn_fn
 
 
 def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
-                compute_dtype=torch.float32) -> Callable:
+                compute_dtype=torch.float32, world=None) -> Callable:
     """``(val_imgs (V, P, P, C), val_labs (V, P, P, 1)) -> (metrics,
     probs (V, P, P, 1) f32)``, with the metrics of train.py:348-367 as 0-d
     tensors, the fg/bg naming quirk included: ``dice`` == ``dice_bg`` is
     the Dice of ``p > 0.5`` against the labels, ``dice_fg`` that of
     ``p <= 0.5`` against ``1 - labels``, ``dice_avg`` their mean.  The
-    model is put back in the mode it was in."""
+    model is put back in the mode it was in.  With a ``world``, each rank
+    forwards its share of the V patches in chunks of ``chunk_size`` over
+    the ranks' count (JAX shards each chunk over the mesh), and every
+    rank returns the gathered probabilities and their metrics."""
+    if world is not None:
+        chunk_size = max(chunk_size // world.size, 1)
 
     @torch.inference_mode()
     def val_fn(val_imgs: torch.Tensor, val_labs: torch.Tensor):
@@ -231,13 +276,16 @@ def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
                     torch.zeros(val_labs.shape, device=val_labs.device))
         was_training = model.training
         model.eval()
+        start, stop = row_bounds(val_imgs.shape[0], world)
         try:
             probs = torch.cat([
                 torch.sigmoid(model(_nchw(chunk, compute_dtype)).float())
                 .permute(0, 2, 3, 1)
-                for chunk in val_imgs.split(chunk_size)])
+                for chunk in val_imgs[start:stop].split(chunk_size)]
+                or [val_labs.new_zeros((0,) + val_labs.shape[1:])])
         finally:
             model.train(was_training)
+        probs = gather_rows(probs, val_imgs.shape[0], world)
         p = probs[..., 0].contiguous()
         t = val_labs[..., 0].float().contiguous()
         dice = dice_coeff_hard((p > 0.5).float(), t)

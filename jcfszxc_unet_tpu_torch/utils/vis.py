@@ -1,5 +1,5 @@
 """PNG artifact writers of the evaluation path (reference evaluate.py:99-161
-and 320-334), counterpart of ``jcfszxc_unet_tpu/utils/vis.py``.
+and 320-334) and the reference's ``vis_numpy_img``, counterpart of ``jcfszxc_unet_tpu/utils/vis.py``.
 
 PIL is imported only when a file is written.  All functions take HWC/HW
 float numpy arrays in [0, 1].
@@ -25,6 +25,15 @@ def _save(arr01: np.ndarray, path: str) -> None:
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     Image.fromarray((np.clip(arr01, 0, 1) * 255).astype(np.uint8)).save(path)
+
+
+def vis_numpy_img(imgs, save_path: str, sep: int = 8) -> None:
+    """HWC/HW images side by side, each followed by a blank ``sep``-pixel
+    column, one channel tiled to three (reference utils/utils.py:45-69)."""
+    imgs = [_to_hwc3(np.asarray(im)) for im in imgs]
+    blank = np.zeros((imgs[0].shape[0], sep, 3), imgs[0].dtype)
+    _save(np.concatenate([p for im in imgs for p in (im, blank)], axis=1),
+          save_path)
 
 
 def save_triptych(image: np.ndarray, pred: np.ndarray, label: np.ndarray,

@@ -206,10 +206,11 @@ def test_cli_runs_the_tiled_protocol(setup, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "demo" / "label_0.png")
 
 
-@pytest.mark.parametrize("flag", [["--s2d"], ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--s2d"], ["--devices", "2", "--spatial"]])
 def test_cli_refuses_unported_protocols(setup, tmp_path, flag):
     # --s2d is ported for the three models that have the mode; UNet's
-    # checkpoint is refused with their names
+    # checkpoint is refused with their names.  --devices is ported for the
+    # tiled and sliding-window protocols; row-sharded --spatial is not.
     ckpt = str(tmp_path / "unet.pt")
     save_model(ckpt, "UNet.UNet", {}, setup["port"])
     match = ("not supported by UNet.UNet; supported: FRUNet.FRUNet, "

@@ -49,8 +49,10 @@ def test_scan_covers_the_checkpoint_interop_modules():
             # export and the kernels' operators
             "eval/export.py", "ops/kernels/library.py",
             "scripts/op_dispatch_cost.py",
-            "scripts/forward_repeatability.py", "scripts/step_cost.py"
-            } <= scanned
+            "scripts/forward_repeatability.py", "scripts/step_cost.py",
+            # data-parallel runs
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/jobs.py"} <= scanned
 
 
 def test_package_imports_with_jax_blocked():

@@ -563,17 +563,22 @@ def test_train_cli_end_to_end(train_h5, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--s2d"], ["--logit-head"],
-                                  ["--devices", "2", "--profile-dir", "trace"],
-                                  ["--devices", "2"]])
+                                  ["--devices", "64", "--profile-dir", "trace",
+                                   "--device", "cuda"],
+                                  ["--devices", "2", "--device", "cuda:0"]])
 def test_train_cli_refuses_unported_flags(flag):
     # --logit-head and --s2d are ported; UNet has neither a sigmoid head
     # nor an s2d mode, and each refusal names the models that take it.
-    # --profile-dir is ported (tests/test_torch_port_profiling.py) and lets
-    # no unported flag through.
+    # --devices is ported (tests/test_torch_port_parallel_cli.py): more
+    # cards than are visible, or several ranks on one named card, exit
+    # with a message before any rank starts; --profile-dir lets neither
+    # through.
     match = {"--logit-head": "not supported by UNet.UNet.*BCDU_net_D1",
              "--s2d": "not supported by UNet.UNet; supported: FRUNet.FRUNet, "
-                      "MultiResUNet.MultiResUNet, UNetPP.NestedUNet"}.get(
-        flag[0], "not ported")
+                      "MultiResUNet.MultiResUNet, UNetPP.NestedUNet",
+             "64": "needs 64 CUDA devices",
+             "2": "one rank per card"}[flag[-1] if len(flag) == 1
+                                       else flag[1]]
     with pytest.raises(SystemExit, match=match):
         port_cli.main(["--device", "cpu", *flag])
 
