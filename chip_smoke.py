@@ -137,7 +137,23 @@ Phases, each of which must pass:
    bit-identical on every rank and within MULTI_VAL_DPROB of the port's
    validation in one process with the trained weights; the val Dice equal
    on every rank).  The kernels' launches are read in the ranks.  The
-   step times it prints are a path check, not a speed.
+   step times it prints are a path check, not a speed;
+15. spatial_sharded (after multi_device): the whole-image forward with
+   each padded image's rows sharded over 2 ranks (``parallel/spatial.py``,
+   a halo exchange around every spatially coupled op), spawned as in
+   multi_device: the full-width UNet on the main path's first 2 images
+   (584 x 565, padded to 640 x 576, 320 rows a rank) through
+   ``evaluate_arrays(spatial=True, world=...)`` in f32 (max |dprob|
+   within 1e-5 of this process's ``predict_spatial`` of the same images,
+   padded the same way) and bf16 (per-image Dice within 1e-3), and
+   TransFuseNet (the attention over every rank's tokens, the transposed
+   convs) in f32 within 1e-5; kernel 1 held against its plain version at
+   the slab shapes of this path (322 rows at full resolution: 320 and a
+   halo row on each side) through ``conv_list``; launches read in each
+   rank (18 conv launches a rank a forward, the Dice on rank 0 alone);
+   ms per image with 1 rank (this process) and 2 ranks, the collectives
+   per forward and their host ms, and the peak allocated memory per rank
+   against one process.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -312,6 +328,16 @@ S2D_TRAIN_STEPS = 3
 MULTI_RANKS, MULTI_TIMEOUT_S, MULTI_JOIN_S = 2, 60.0, 240.0
 MULTI_F32_STEPS, MULTI_EPOCHS, MULTI_STEPS, MULTI_SEED = 3, 2, 5, 5
 MULTI_VAL_DPROB = 1e-4
+
+# The spatial_sharded phase: the main path's first SPATIAL_IMAGES images
+# (584 x 565, padded to 640 x 576 for MULTI_RANKS ranks: 320 rows a rank)
+# through the whole-image forward with the rows sharded over MULTI_RANKS
+# ranks, each evaluation run SPATIAL_REPEATS times (the last one timed),
+# and TransFuseNet (logit head, calibrated as in zoo_eval) in f32; held
+# against this process within the multi_device phase's tolerances.
+SPATIAL_IMAGES, SPATIAL_REPEATS = 2, 2
+SPATIAL_TFN = "RetinaLiteNet.TransFuseNet"
+SPATIAL_F32_DPROB, SPATIAL_BF16_DDICE = 1e-5, 1e-3
 
 # The serve phase: images served per call (one uint8, one uint16), the
 # crop of the f32 checks against a CPU copy (the sliding window at patch
@@ -3014,6 +3040,192 @@ def phase_multi_device(report, state):
         raise AssertionError(f"multi_device checks failed: {bad}")
 
 
+def phase_spatial_sharded(report, state):
+    """The whole-image forward with the rows of each padded image sharded
+    over MULTI_RANKS ranks (``parallel.jobs`` ``spatial_eval`` and
+    ``spatial_maps`` in ranks spawned as in ``multi_device``) against
+    ``predict_spatial`` in this process on the same images, padded the
+    same way."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.eval.metrics import binary_dice
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+    from jcfszxc_unet_tpu_torch.parallel import jobs, spawn
+
+    two_cards = torch.cuda.device_count() >= MULTI_RANKS
+    device, backend = (("cuda", "nccl") if two_cards
+                       else ("cuda:0", "gloo"))
+    dev = torch.device("cuda")
+    n = SPATIAL_IMAGES
+    images, masks, labels = (state[k][:n]
+                             for k in ("images", "masks", "labels"))
+    tfn_model = build_model(dev, seed=9, name=SPATIAL_TFN)
+    unet = jobs.numpy_state(state["model"])
+    ev = dict(model_name="UNet.UNet", images=images, masks=masks,
+              labels=labels, state_dict=unet, batch_size=INFER_BATCH,
+              repeats=SPATIAL_REPEATS)
+    tasks = [
+        ("configure", dict(tf32=False)),
+        ("spatial_eval", dict(ev, compute_dtype=torch.float32)),
+        ("spatial_eval", dict(ev, compute_dtype=torch.bfloat16)),
+        ("spatial_maps", dict(model_name=SPATIAL_TFN, images=images,
+                              state_dict=jobs.numpy_state(tfn_model),
+                              model_kwargs={"logit_head": True},
+                              batch_size=INFER_BATCH)),
+    ]
+    print(f"[spatial_sharded] {MULTI_RANKS} ranks on {device} over "
+          f"{backend}; {n} images of {IMG_H} x {IMG_W}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = spawn(jobs.run, MULTI_RANKS, tasks, device=device,
+                     backend=backend, timeout_s=MULTI_TIMEOUT_S,
+                     join_timeout_s=MULTI_JOIN_S)
+    spawn_s = time.perf_counter() - t0
+
+    # This process, on the images padded as the ranks pad them (H to a
+    # multiple of 32 x the ranks; predict_spatial pads W).
+    hp = -(-IMG_H // (32 * MULTI_RANKS)) * 32 * MULTI_RANKS
+    padded = F.pad(torch.from_numpy(images).to(dev),
+                   (0, 0, 0, 0, 0, hp - IMG_H))
+    fov = torch.from_numpy(masks).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+
+    def one_process(model, dtype):
+        pred = Predictor(model, compute_dtype=dtype,
+                         inference_batch_size=INFER_BATCH, device=dev)
+        return pred.predict_spatial(padded)[:, :IMG_H]
+
+    f32 = one_process(state["model"], torch.float32) * fov
+    bf16 = one_process(state["model"], torch.bfloat16) * fov
+    tfn = one_process(tfn_model, torch.float32)
+    r32, r16 = (per_rank[0][t]["result"] for t in (1, 2))
+    d32 = float(np.abs(r32["pred_maps"] - f32.cpu().numpy()).max())
+    dice16 = binary_dice((bf16 > 0.5).float(), lab).cpu().numpy()
+    ddice = float(np.abs(np.asarray(r16["dice"]) - dice16).max())
+    dtfn = float(np.abs(per_rank[0][3]["maps"] - tfn.cpu().numpy()).max())
+
+    # Kernel 1 at this path's shapes: every conv of a rank's forward is the
+    # one-process conv at its padded shape with H / ranks + 2 rows (the
+    # rank's slab and a halo row on each side).
+    whole = record_convs(lambda: one_process(state["model"], torch.bfloat16))
+    calls = {}
+    for (b, h, w, cin, cout, relu), k in whole.items():
+        key = (b, h // MULTI_RANKS + 2, w, cin, cout, relu)
+        calls[key] = calls.get(key, 0) + k
+    convs = {name: conv_list(calls, dtype, f"spatial_sharded_{name}")
+             for name, dtype in (("bf16", torch.bfloat16),
+                                 ("f32", torch.float32))}
+    convs_whole = conv_list(whole, torch.bfloat16, "spatial_one_process")
+    whole_n = convs_whole["total"]["n_convs"]
+    # The slab each conv builds (``halo_slab``: the halo rows and the
+    # rank's rows concatenated), in bf16, device ms per forward.
+    copy_ms = 0.0
+    for (b, h, w, cin, _, _), k in calls.items():
+        rows = [torch.zeros((b, r, w, cin), device=dev, dtype=torch.bfloat16)
+                for r in (1, h - 2, 1)]
+        copy_ms += k * time_ms(lambda: torch.cat(rows, dim=1), 10.0)
+
+    # One rank: the eval CLI's --spatial --devices 1 in this process (H
+    # padded to 608), bf16, the second call timed, its peak above the
+    # memory allocated before it.
+    for _ in range(SPATIAL_REPEATS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        evaluate_arrays(state["model"], images, masks, labels,
+                        inference_batch_size=INFER_BATCH,
+                        compute_dtype=torch.bfloat16, spatial=True,
+                        device=dev)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+    one_peak = torch.cuda.max_memory_allocated() - start
+
+    launches = [{k: sum(t["launches"][k] for t in r) for k in r[0]["launches"]}
+                for r in per_rank]
+    state["spatial_sharded_launches"] = {
+        k: sum(rank[k] for rank in launches) for k in launches[0]}
+    ev_runs = 2 * SPATIAL_REPEATS  # f32 and bf16 evaluations, each repeated
+    rank16 = [r[2] for r in per_rank]
+    coll = [r["collectives"] for r in rank16]
+    peaks = [r["peak_bytes"] - r["start_bytes"] for r in rank16]
+    ms2 = max(r["ms"][-1] for r in rank16)
+    pm = r16["pred_maps"]
+    checks = {
+        "f32_within_1e-5_of_one_process": d32 <= SPATIAL_F32_DPROB,
+        "bf16_dice_within_1e-3_of_one_process":
+            ddice <= SPATIAL_BF16_DDICE,
+        "transfusenet_f32_within_1e-5_of_one_process":
+            dtfn <= SPATIAL_F32_DPROB,
+        "maps_shape_finite_in_0_1": pm.shape == (n, IMG_H, IMG_W)
+            and bool(np.isfinite(pm).all() and pm.min() >= 0
+                     and pm.max() <= 1),
+        "transfusenet_maps_equal_on_every_rank": all(
+            np.array_equal(r[3]["maps"], per_rank[0][3]["maps"])
+            for r in per_rank),
+        "rank0_alone_returns_metrics": all(
+            r[t]["result"] == {} for r in per_rank[1:] for t in (1, 2)),
+        "conv_launches_18_a_rank_a_unet_forward_6_a_transfusenet": all(
+            rank["conv3x3_affine_relu"] == 18 * ev_runs + 6
+            for rank in launches),
+        "dice_on_rank0_alone": launches[0]["dice_sums"] == ev_runs
+            and all(rank["dice_sums"] == 0 for rank in launches[1:]),
+        "halo_exchanged_every_forward": all(c["calls"] > 18 for c in coll),
+        "conv_list_kernel_vs_plain": all(
+            c["total"]["checks_ok"] == c["total"]["checks"]
+            for c in [*convs.values(), convs_whole]),
+    }
+    report["spatial_sharded"] = {
+        "ranks": MULTI_RANKS, "device": device, "backend": backend,
+        "n_images": n, "padded_hw": [hp, -(-IMG_W // 32) * 32],
+        "spawn_seconds": spawn_s, "f32_max_abs_dprob": d32,
+        "bf16_dice": r16["dice"], "bf16_dice_one_process": dice16.tolist(),
+        "bf16_max_abs_ddice": ddice, "transfusenet_f32_max_abs_dprob": dtfn,
+        "ms_per_image_2_ranks": ms2 / n, "ms_per_image_1_rank": one_ms / n,
+        "ms_by_rank": [r["ms"] for r in rank16],
+        "collectives_per_forward": coll,
+        "f32_collectives_per_forward": [r[1]["collectives"]
+                                        for r in per_rank],
+        "transfusenet_collectives": per_rank[0][3]["collectives"],
+        "peak_above_start_bytes_by_rank": peaks,
+        "peak_above_start_bytes_one_process": one_peak,
+        "conv_slab_shapes": [list(k) + [v] for k, v in sorted(calls.items())],
+        "conv_per_forward": {k: c["total"] for k, c in convs.items()},
+        "conv_per_forward_one_process_bf16": convs_whole["total"],
+        "slab_copy_ms_per_forward_bf16": copy_ms,
+        "conv_rows": {k: c["rows"] for k, c in convs.items()},
+        "launches_by_rank": launches, "checks": checks}
+    print(f"[spatial_sharded] UNet f32 max |dprob| {d32:.2e} (bound "
+          f"{SPATIAL_F32_DPROB:g}); bf16 dice {[round(d, 4) for d in r16['dice']]}"
+          f" vs one process {[round(float(d), 4) for d in dice16]} (max "
+          f"|dDice| {ddice:.2e}); TransFuseNet f32 max |dprob| {dtfn:.2e}",
+          flush=True)
+    print(f"[spatial_sharded] bf16 ms per image: 2 ranks {ms2 / n:.2f}, "
+          f"1 rank {one_ms / n:.2f}; collectives per forward (a rank) "
+          f"{[c['calls'] for c in coll]}, host ms {[round(c['ms'], 2) for c in coll]}"
+          f", bytes {[c['bytes'] for c in coll]}; peak above start MiB a "
+          f"rank {[round(p / 2**20, 1) for p in peaks]} vs one process "
+          f"{one_peak / 2**20:.1f}; spawn + jobs {spawn_s:.1f} s", flush=True)
+    for name, c in convs.items():
+        t = c["total"]
+        print(f"[spatial_sharded] kernel 1 on the {t['n_convs']} slab convs "
+              f"({name}): {t['ms']:.2f} ms, plain {t['plain_ms']:.2f}, "
+              f"cuDNN {t['library_ms']:.2f}, bound {t['bound_ms']:.2f}; "
+              f"kernel vs plain {t['checks_ok']}/{t['checks']} shapes",
+              flush=True)
+    print(f"[spatial_sharded] one process, the {whole_n} convs at the "
+          f"same padding (bf16): kernel 1 {convs_whole['total']['ms']:.2f} "
+          f"ms; the slabs' concatenation copies {copy_ms:.3f} ms a rank a "
+          f"forward (bf16)", flush=True)
+    print(f"[spatial_sharded] launches per rank {launches}", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"spatial_sharded checks failed: {bad}")
+
+
 def kernels_line(state):
     """The kernels of every path, each with its launches summed over the
     paths that ran it (and split by path)."""
@@ -3028,7 +3240,9 @@ def kernels_line(state):
                    "s2d": state["s2d_launches"][row["name"]],
                    "export": state["export_launches"][row["name"]],
                    "multi_device":
-                       state["multi_device_launches"][row["name"]]}
+                       state["multi_device_launches"][row["name"]],
+                   "spatial_sharded":
+                       state["spatial_sharded_launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
@@ -3040,7 +3254,9 @@ def kernels_line(state):
         "probe": probe["launches"],
         "export": state["export_launches"]["conv3x3_relu_imcol"],
         "multi_device":
-            state["multi_device_launches"]["conv3x3_relu_imcol"]}
+            state["multi_device_launches"]["conv3x3_relu_imcol"],
+        "spatial_sharded":
+            state["spatial_sharded_launches"]["conv3x3_relu_imcol"]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     return rows + [probe]
 
@@ -3082,7 +3298,8 @@ def main() -> None:
                         ("s2d", phase_s2d),
                         ("export", phase_export),
                         ("probe", phase_probe),
-                        ("multi_device", phase_multi_device)):
+                        ("multi_device", phase_multi_device),
+                        ("spatial_sharded", phase_spatial_sharded)):
         if needs.get(name) in failed:
             failed.append(name)
             continue

@@ -24,11 +24,12 @@ N > 1 spawns N ranks (or joins torchrun's job, as the train CLI does).
 The tiled protocol splits the patch grid over the ranks, as the JAX CLI
 shards its tiles over a mesh; ``--sliding-window``, which takes no mesh
 in JAX, splits the images over the ranks instead (each rank runs its
-images' windows).  Rank 0 gathers the maps, computes Dice and AUC and
-writes every output.  ``--spatial`` with N > 1 (the row-sharded
-whole-image forward) is not ported yet and exits with a message that says
-so.  A collective waits torch's default time before it fails the run
-(``--dist-timeout`` sets it).
+images' windows); ``--spatial`` splits each padded image's rows over the
+ranks (``parallel/spatial.py``; H padded to a multiple of 32 N, as the
+JAX CLI pads for its mesh), with ``--s2d`` too.  Rank 0 gathers the maps,
+computes Dice and AUC and writes every output.  A collective waits
+torch's default time before it fails the run (``--dist-timeout`` sets
+it).
 """
 
 from __future__ import annotations
@@ -70,18 +71,13 @@ from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 THRESHOLD_SWEEP = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
 
 
-def _check_protocol(sliding_window: bool, spatial: bool, tta: bool,
-                    n_ranks: int = 1):
+def _check_protocol(sliding_window: bool, spatial: bool, tta: bool):
     if spatial and sliding_window:
         raise ValueError("--spatial and --sliding-window select different "
                          "evaluation protocols; pass at most one")
     if spatial and tta:
         raise ValueError("--tta needs square patches; it composes with the "
                          "tiled/sliding protocols, not --spatial")
-    if spatial and n_ranks > 1:
-        raise ValueError("--spatial over several ranks (the whole-image "
-                         "forward with its rows sharded) is not ported yet; "
-                         "run it with --devices 1")
 
 
 def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
@@ -96,7 +92,8 @@ def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
 
     Tiled by default (grid centers at stride patch/2, count-averaged
     stitch); ``sliding_window``: windows at stride patch*(1-overlap), one
-    image at a time; ``spatial``: whole images padded to a multiple of 32;
+    image at a time; ``spatial``: whole images padded to a multiple of 32
+    (32 x the ranks in H under a ``world``);
     ``tta``: dihedral-8 averaging of each patch.  Then sigmoid, FOV mask
     multiply, binarize > ``threshold``, per-image Dice (one fused
     ``dice_sums`` call) and AUC.  Returns a dict of host values:
@@ -107,8 +104,7 @@ def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
     the module doc): the maps are gathered, and rank 0 alone computes the
     metrics and returns them; the other ranks return an empty dict.
     """
-    _check_protocol(sliding_window, spatial, tta,
-                    1 if world is None else world.size)
+    _check_protocol(sliding_window, spatial, tta)
     dev = world.device if world is not None else resolve_device(device)
     predictor = Predictor(model, compute_dtype=compute_dtype,
                           patch_size=patch_size,
@@ -270,7 +266,9 @@ def get_args(argv=None):
                         help="Size of patches for prediction")
     parser.add_argument("--spatial", action="store_true",
                         help="Whole-image forward, padded to a multiple of "
-                             "32 (no tiling or stitching; one device)")
+                             "32 (no tiling or stitching); under --devices "
+                             "N > 1 each image's rows are split over the "
+                             "ranks, H padded to a multiple of 32 N")
     parser.add_argument("--s2d", action="store_true",
                         help="Space-to-depth execution of the narrow blocks "
                              "(FRUNet, MultiResUNet, NestedUNet; same "
@@ -296,9 +294,10 @@ def get_args(argv=None):
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"], help="Compute dtype")
     parser.add_argument("--devices", type=int, default=0,
-                        help="Shard the tile axis over this many ranks "
-                             "(0 = every visible device of the --device "
-                             "kind: the visible cards, or 1 on the CPU)")
+                        help="Shard the tiles (--spatial: the rows) over "
+                             "this many ranks (0 = every visible device of "
+                             "the --device kind: the visible cards, or 1 "
+                             "on the CPU)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
     parser.add_argument("--dist-timeout", type=float, default=None,
@@ -336,7 +335,7 @@ def main(argv=None):
     n = (world.size if world is not None
          else resolve_device_count(args.devices, args.device))
     try:
-        _check_protocol(args.sliding_window, args.spatial, args.tta, n)
+        _check_protocol(args.sliding_window, args.spatial, args.tta)
     except ValueError as e:
         shutdown(world)
         raise SystemExit(str(e)) from None

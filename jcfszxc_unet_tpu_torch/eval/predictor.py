@@ -11,14 +11,15 @@
 augmentation (tiled and sliding-window paths only).  Inputs and outputs
 keep the JAX layout (NHWC images, (N, H, W) maps); the model runs on NCHW
 ``channels_last`` tensors in ``compute_dtype`` under
-``torch.inference_mode``.  The whole-image path runs on one device.
+``torch.inference_mode``.
 
 ``world`` (``parallel.World``) makes the predictor one rank of a
-data-parallel evaluation: ``predict_images`` splits the patch grid over
-the ranks and returns the whole maps on every rank
-(``eval.tiling.tiled_predict``), as the JAX ``Predictor(mesh=...)``
-shards its tiles; the model runs on ``world.device``.  TTA composes,
-since it wraps the forward.
+multi-device evaluation, as the JAX ``Predictor(mesh=...)``:
+``predict_images`` splits the patch grid over the ranks
+(``eval.tiling.tiled_predict``) and ``predict_spatial`` the padded
+image's rows (``parallel.spatial``); both return the whole maps on every
+rank, and the model runs on ``world.device``.  TTA composes with the
+tiled path, since it wraps the forward.
 """
 
 from __future__ import annotations
@@ -119,15 +120,14 @@ class Predictor:
     def predict_spatial(self, images, divisor: int = 32) -> torch.Tensor:
         """Whole-image (N, H, W) probabilities of (N, H, W, C) images,
         ``inference_batch_size`` images per forward; ``divisor`` must
-        cover the model's total downsampling factor (32 covers the zoo)."""
+        cover the model's total downsampling factor (32 covers the zoo).
+        With a world of several ranks, every rank passes the same images,
+        runs its rows of them and gets the whole maps."""
         if self.tta:
             raise ValueError("tta needs square patches; use predict_images/"
                              "predict_full_image, not predict_spatial")
-        if self.world is not None and self.world.size > 1:
-            raise ValueError("the whole-image forward with its rows sharded "
-                             "over ranks is not ported yet")
         images = self._as_images(images)
         bs = self.inference_batch_size
         return torch.cat([spatial_predict(self._forward, images[i:i + bs],
-                                          divisor)
+                                          divisor, self.world)
                           for i in range(0, images.shape[0], bs)])

@@ -36,6 +36,7 @@ from jcfszxc_unet_tpu_torch.ops.layers import (
     cat_channels,
     channels_last,
 )
+from jcfszxc_unet_tpu_torch.parallel import spatial
 
 
 class _ChannelAtt(nn.Module):
@@ -115,7 +116,7 @@ class TransFuseNet(nn.Module):
         conv1, conv2, conv3 = skips
         b, c, h, w = conv3.shape
         tokens = conv3.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        pooled = self.multihead_attention(tokens).mean(dim=1)
+        pooled = spatial.row_mean(self.multihead_attention(tokens), (1,))
         att1 = self.cbam1(pooled[:, :, None, None].expand(b, c, h, w))
         d = cat_channels(conv3, att1)
         for up, cbam, conv, skip in (

@@ -63,6 +63,7 @@ from jcfszxc_unet_tpu_torch.ops.layers import (
     channels_last,
     nhwc,
     pad_or_crop_to,
+    upsample_bilinear,
     upsample_nearest,
 )
 from jcfszxc_unet_tpu_torch.ops.s2d import (
@@ -70,6 +71,7 @@ from jcfszxc_unet_tpu_torch.ops.s2d import (
     expand_vector,
     space_to_depth,
 )
+from jcfszxc_unet_tpu_torch.parallel import spatial
 
 
 def fold(conv: Conv2d, bn: BatchNorm2d | None = None):
@@ -98,7 +100,13 @@ def kmajor(conv: Conv2d | torch.Tensor, dtype):
 
 def conv3x3_folded(x, w_km, scale, shift, relu: bool):
     """One kernel call on NCHW ``x``; returns NCHW channels_last in
-    x.dtype."""
+    x.dtype.  On a row-sharded map (``parallel.spatial``) the kernel runs
+    on the slab with one halo row on each side, whose SAME padding then
+    only touches the two halo output rows, which are dropped."""
+    if spatial.active() is not None:
+        y = conv3x3_affine_relu_kmajor(nhwc(spatial.halo_slab(x, 1, 1)),
+                                       w_km, scale, shift, relu)
+        return y[:, 1:-1].permute(0, 3, 1, 2)
     return conv3x3_affine_relu_kmajor(nhwc(x), w_km, scale, shift,
                                       relu).permute(0, 3, 1, 2)
 
@@ -920,7 +928,7 @@ class SEBlock(nn.Module):
             Linear(channel // 16, channel, bias=False), nn.Sigmoid())
 
     def forward(self, x):
-        y = self.fc(x.mean(dim=(2, 3)))
+        y = self.fc(spatial.row_mean(x, (2, 3)))
         return channels_last(x * y[:, :, None, None])
 
 
@@ -981,7 +989,11 @@ class UpV1(nn.Module):
             self.conv = DoubleConv(in_channels, out_channels)
 
     def forward(self, x1, x2):
-        x1 = pad_or_crop_to(self.up(x1), x2.shape[2], x2.shape[3])
+        # the module's own interpolation, as ``upsample_bilinear`` (which
+        # also takes a row-sharded map)
+        x1 = (upsample_bilinear(x1) if isinstance(self.up, nn.Upsample)
+              else self.up(x1))
+        x1 = pad_or_crop_to(x1, x2.shape[2], x2.shape[3])
         # a crop is a view in another layout: the concat brings it back
         return self.conv(cat_channels(x2, x1))
 
@@ -991,7 +1003,10 @@ class MultiHeadSelfAttention(nn.Module):
     on (B, L, E), held as ``mha`` (reference RetinaLiteNet.py:72-80, key
     ``mha.in_proj_weight`` ...).  The forward runs its projections in the
     input's dtype and the attention through ``F.scaled_dot_product_attention``,
-    which never holds the L x L scores (the JAX block's two einsums do)."""
+    which never holds the L x L scores (the JAX block's two einsums do).
+    On a row-sharded map's tokens (row-major, so a rank's are one
+    contiguous stretch) the local queries attend to every rank's keys
+    and values, which ``parallel.spatial.gather_h`` brings."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -1005,6 +1020,8 @@ class MultiHeadSelfAttention(nn.Module):
         qkv = F.linear(x, mha.in_proj_weight.to(dt), mha.in_proj_bias.to(dt))
         q, k, v = (t.view(b, n, self.num_heads, -1).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
+        if spatial.active() is not None:
+            k, v = spatial.gather_h(torch.stack([k, v]), dim=3).unbind(0)
         out = F.scaled_dot_product_attention(q, k, v)
         out = out.transpose(1, 2).reshape(b, n, e)
         return F.linear(out, mha.out_proj.weight.to(dt),

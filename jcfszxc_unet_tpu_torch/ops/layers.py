@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jcfszxc_unet_tpu_torch.parallel import spatial
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that casts its f32 parameters to the input's dtype.
@@ -26,7 +28,28 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if ((self.kernel_size[0] > 1 or self.stride[0] > 1)
+                and spatial.active() is not None):
+            return self._conv_rows(x, self.weight.to(x.dtype), bias)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+    def _conv_rows(self, x, weight, bias):
+        """The conv on this rank's rows of a row-sharded map
+        (``parallel.spatial``): output row o reads input rows o*s - p to
+        o*s - p + d(k - 1), so the slab takes p rows from above and
+        d(k - 1) - p - s + 1 from below, and the conv runs without
+        padding in H.  Each rank's first row must be a multiple of the
+        stride."""
+        (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
+        if isinstance(self.padding, str):
+            raise ValueError("a row-sharded conv needs integer padding")
+        p, pw = self.padding
+        starts, counts = spatial.active().layout(x.shape[2])
+        if any(v % s for v in starts + counts):
+            raise ValueError(f"rows {counts} do not split at stride {s}")
+        slab = spatial.halo_slab(x, p, d * (k - 1) - p - s + 1)
+        return F.conv2d(slab, weight, bias, self.stride, (0, pw),
+                        self.dilation, self.groups)
 
     def s2d_weight(self, dtype) -> torch.Tensor:
         """The s2d-space OIHW weights (4 Cout, 4 Cin, k', k') in ``dtype``,
@@ -69,9 +92,31 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if spatial.active() is not None:
+            return self._conv_rows(x, self.weight.to(x.dtype), bias)
         return F.conv_transpose2d(
             x, self.weight.to(x.dtype), bias, self.stride, self.padding,
             self.output_padding, self.groups, self.dilation)
+
+    def _conv_rows(self, x, weight, bias):
+        """The transposed conv on this rank's rows of a row-sharded map,
+        whose output has s times the rows (each rank: s times its own).
+        Input row i feeds output rows i*s - p to i*s - p + d(k - 1), so
+        the outputs s*start .. s*stop - 1 read input rows start -
+        floor((d(k - 1) - p) / s) to stop - 1 + floor((p - 1) / s) + 1:
+        TransFuseNet's k3/s2/p1/op1 one row from below, DenseUNet's k4/s2/p1
+        one from each side, k2/s2 none.  The conv runs without padding in
+        H on that slab and the rows of this rank's outputs are cut out."""
+        (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
+        (p, pw), (op, opw) = self.padding, self.output_padding
+        if d * (k - 1) + op + 1 - 2 * p != s:
+            raise ValueError("a row-sharded transposed conv must give "
+                             "stride x the rows")
+        above, below = (d * (k - 1) - p) // s, (p - 1) // s + 1
+        y = F.conv_transpose2d(spatial.halo_slab(x, above, below), weight,
+                               bias, self.stride, (0, pw), (0, opw),
+                               self.groups, self.dilation)
+        return y[:, :, p + above * s:p + above * s + s * x.shape[2]]
 
 
 class Linear(nn.Linear):
@@ -247,33 +292,61 @@ def upsample_nearest(x, scale: int = 2):
 def upsample_bilinear(x, scale: int = 2, align_corners: bool = True):
     """torch nn.Upsample(mode='bilinear'), channels_last; align_corners=True
     as NestedUNet's ``up`` (reference UNetPP.py:43).  The JAX version's
-    matmul form is a TPU choice with the same two-term blends."""
+    matmul form is a TPU choice with the same two-term blends.  On a
+    row-sharded map (``parallel.spatial``), :func:`_upsample_bilinear_rows`."""
+    if spatial.active() is not None:
+        if not align_corners:
+            raise ValueError("row-sharded bilinear upsampling takes "
+                             "align_corners=True")
+        return _upsample_bilinear_rows(x, scale)
     return channels_last(F.interpolate(x, scale_factor=scale, mode="bilinear",
                                        align_corners=align_corners))
 
 
 def avg_pool2d(x, kernel_size: int, stride: int, padding: int):
     """torch ``F.avg_pool2d`` with count_include_pad=True (its default, as
-    the JAX version), channels_last."""
+    the JAX version), channels_last.  On a row-sharded map it pools a slab
+    with ``padding`` halo rows on each side (stride 1): the halo's zero
+    rows at the map's edges are the padding it counts."""
+    if spatial.active() is not None:
+        if stride != 1:
+            raise ValueError("row-sharded avg_pool2d takes stride 1")
+        slab = spatial.halo_slab(x, padding, kernel_size - 1 - padding)
+        return channels_last(F.avg_pool2d(slab, kernel_size, stride,
+                                          (0, padding),
+                                          count_include_pad=True))
     return channels_last(F.avg_pool2d(x, kernel_size, stride, padding,
                                       count_include_pad=True))
 
 
 def adaptive_avg_pool_1x1(x):
-    """torch nn.AdaptiveAvgPool2d(1): (N, C, 1, 1)."""
-    return x.mean(dim=(2, 3), keepdim=True)
+    """torch nn.AdaptiveAvgPool2d(1): (N, C, 1, 1), over the whole map."""
+    return spatial.row_mean(x, (2, 3), keepdim=True)
 
 
 def adaptive_max_pool_1x1(x):
-    """torch nn.AdaptiveMaxPool2d(1): (N, C, 1, 1)."""
-    return x.amax(dim=(2, 3), keepdim=True)
+    """torch nn.AdaptiveMaxPool2d(1): (N, C, 1, 1), over the whole map."""
+    return spatial.row_max(x, (2, 3), keepdim=True)
 
 
 def pad_or_crop_to(x, target_h: int, target_w: int):
     """Center-pad to (target_h, target_w), or center-crop where the target
     is smaller: ``F.pad`` with pads [d//2, d - d//2], negative pads crop
-    (reference unet_parts.py:65-67)."""
+    (reference unet_parts.py:65-67).  On a row-sharded map the heights
+    are this rank's: the rows of the whole map's pad or crop (MCUNet's
+    crop behind InceptionA) come from the ranks that hold them."""
     dh, dw = target_h - x.shape[2], target_w - x.shape[3]
+    sharding = spatial.active()
+    if sharding is not None:
+        starts, counts = sharding.layout(x.shape[2])
+        t_starts, t_counts = sharding.layout(target_h)
+        top = (sum(t_counts) - sum(counts)) // 2
+        if sum(t_counts) != sum(counts):
+            wants = [[(s - top, s - top + c)]
+                     for s, c in zip(t_starts, t_counts)]
+            x = spatial.fetch_rows(nhwc(x), 1, wants,
+                                   sharding).permute(0, 3, 1, 2)
+        dh = 0
     if dh == 0 and dw == 0:
         return x
     return F.pad(x, [dw // 2, dw - dw // 2, dh // 2, dh - dh // 2])
@@ -356,6 +429,39 @@ def _linear_resize_tensor(in_size: int, out_size: int, device: torch.device,
     per size pair: a copy from pageable host memory syncs the stream."""
     return torch.from_numpy(_linear_resize_matrix(in_size, out_size)).to(
         device, dtype)
+
+
+@trace_safe_cache(maxsize=64)
+def _resize_rows_tensor(in_size: int, scale: int, start: int, count: int,
+                        device: torch.device) -> torch.Tensor:
+    """Rows scale*start .. scale*(start + count) - 1 of the align-corners
+    resize matrix of ``in_size`` -> scale * in_size rows, over the source
+    rows start - 1 .. start + count (zero columns past the map's edges),
+    f32: each output row's two source rows lie in that range, since
+    k * (in - 1) / (scale * in - 1) lies in (k / scale - 1, k / scale]."""
+    a = np.pad(_linear_resize_matrix(in_size, scale * in_size),
+               ((0, 0), (1, 1)))
+    local = a[scale * start:scale * (start + count), start:start + count + 2]
+    return torch.from_numpy(np.ascontiguousarray(local)).to(device)
+
+
+def _upsample_bilinear_rows(x, scale: int):
+    """Align-corners bilinear upsampling of this rank's rows: the global
+    map's resize matrix (:func:`_linear_resize_matrix`, whose grid
+    depends on the global H) restricted to this rank's output rows, on a
+    slab with one halo row on each side; then the width's matrix.  f32
+    contractions, returned in x.dtype, channels_last."""
+    sharding = spatial.active()
+    starts, counts = sharding.layout(x.shape[2])
+    rank = sharding.world.rank
+    ah = _resize_rows_tensor(sum(counts), scale, starts[rank], counts[rank],
+                             x.device)
+    aw = _linear_resize_tensor(x.shape[3], scale * x.shape[3], x.device,
+                               torch.float32)
+    slab = nhwc(spatial.halo_slab(x, 1, 1)).float()
+    y = torch.einsum("hH,nHwc->nhwc", ah, slab)
+    y = torch.einsum("wW,nhWc->nhwc", aw, y)
+    return channels_last(y.to(x.dtype).permute(0, 3, 1, 2))
 
 
 def resize_linear_align_corners(x, out_h: int, out_w: int):

@@ -39,6 +39,7 @@ from jcfszxc_unet_tpu_torch.ops.layers import (
     trace_safe_cache,
     upsample_bilinear,
 )
+from jcfszxc_unet_tpu_torch.parallel import spatial
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -120,8 +121,13 @@ def expand_vector(v: torch.Tensor) -> torch.Tensor:
 
 def conv_s2d(x: torch.Tensor, w_s2d: torch.Tensor, bias=None) -> torch.Tensor:
     """SAME stride-1 conv in s2d space (weights from :func:`s2d_kernel`),
-    channels_last."""
-    return channels_last(F.conv2d(x, w_s2d, bias, padding=w_s2d.shape[2] // 2))
+    channels_last; on a row-sharded map, on a slab with k // 2 halo rows
+    on each side."""
+    r = w_s2d.shape[2] // 2
+    if r and spatial.active() is not None:
+        return channels_last(F.conv2d(spatial.halo_slab(x, r, r), w_s2d,
+                                      bias, padding=(0, r)))
+    return channels_last(F.conv2d(x, w_s2d, bias, padding=r))
 
 
 def upsample_bilinear_s2d(x: torch.Tensor, align_corners: bool = True,

@@ -1,6 +1,7 @@
-"""Data-parallel runs of the port over ``torch.distributed``, counterpart
-of ``jcfszxc_unet_tpu/parallel/`` (``mesh.py``; the row-sharded whole-image
-forward of ``spatial.py`` is not ported yet)."""
+"""Multi-device runs of the port over ``torch.distributed``, counterpart
+of ``jcfszxc_unet_tpu/parallel/``: data-parallel training and evaluation
+(``mesh.py``, ``launch.py``, ``jobs.py``) and the whole-image forward with
+the image's rows sharded over the ranks (``spatial.py``)."""
 
 from jcfszxc_unet_tpu_torch.parallel.launch import spawn
 from jcfszxc_unet_tpu_torch.parallel.mesh import (

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import inspect
+import os
 import time
 from typing import Optional
 
@@ -87,14 +88,19 @@ def build_model(name: str, dev: torch.device, *, state_dict=None,
                 seed: int = 0, model_kwargs=None,
                 silence_dropout: bool = True) -> nn.Module:
     """Model ``name`` on ``dev``, channels_last, in train mode: with
-    ``state_dict`` (numpy arrays, loaded strict), else torch's default
-    initialisation drawn from ``seed``.  ``silence_dropout`` puts the
-    dropout modules in eval mode (the identity), so that ranks and the
-    single process see the same forward."""
+    ``state_dict`` (numpy arrays, or the path of an ``.npz`` of them, which
+    keeps a large model's weights out of the ranks' pickled arguments;
+    loaded strict), else torch's default initialisation drawn from
+    ``seed``.  ``silence_dropout`` puts the dropout modules in eval mode
+    (the identity), so that ranks and the single process see the same
+    forward."""
     from jcfszxc_unet_tpu_torch.models import create_model
     from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
 
     model = create_model(name, **(model_kwargs or {}))
+    if isinstance(state_dict, (str, os.PathLike)):
+        with np.load(state_dict) as f:
+            state_dict = dict(f)
     if state_dict is None:
         reset_parameters(model, torch.Generator().manual_seed(seed))
     else:
@@ -274,6 +280,167 @@ def tiled_maps(world: Optional[World], model_name: str, images, *,
             "ms": (time.perf_counter() - t0) * 1e3}
 
 
+def _timed_spatial(fn, dev: torch.device, repeats: int):
+    """``fn()`` ``repeats`` times: (the last result, the host ms of each
+    call to a device sync, the collectives of the last call
+    (``parallel.spatial.counter``: calls, bytes, host ms), and on a card
+    the bytes allocated before the last call and its peak)."""
+    from jcfszxc_unet_tpu_torch.parallel import spatial
+
+    ms, start = [], None
+    for _ in range(repeats):
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.memory_allocated(dev)
+        spatial.counter.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, {"ms": ms, "collectives": spatial.counter.snapshot(),
+                 "start_bytes": start,
+                 "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else None)}
+
+
+def spatial_maps(world: Optional[World], model_name: str, images, *,
+                 divisor: int = 32, batch_size: int = 32, state_dict=None,
+                 seed: int = 0, model_kwargs=None,
+                 compute_dtype=torch.float32, repeats: int = 1,
+                 device="cuda") -> dict:
+    """``Predictor.predict_spatial`` (the whole-image forward, the rows
+    sharded over the world's ranks) of (N, H, W, C) images, ``repeats``
+    times: the (N, H, W) maps of the last call, on every rank, with
+    :func:`_timed_spatial`'s ms, collectives and peak bytes."""
+    from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
+
+    dev = _device(world, device)
+    model = build_model(model_name, dev, state_dict=state_dict, seed=seed,
+                        model_kwargs=model_kwargs)
+    predictor = Predictor(model, compute_dtype=compute_dtype,
+                          inference_batch_size=batch_size, device=dev,
+                          world=world)
+    x = torch.tensor(np.asarray(images, np.float32), device=dev)
+    maps, out = _timed_spatial(lambda: predictor.predict_spatial(x, divisor),
+                               dev, repeats)
+    return {"maps": maps.cpu().numpy(), **out}
+
+
+def spatial_eval(world: Optional[World], model_name: str, images, masks,
+                 labels, *, batch_size: int = 32, state_dict=None,
+                 seed: int = 0, model_kwargs=None,
+                 compute_dtype=torch.float32, repeats: int = 1,
+                 device="cuda") -> dict:
+    """``cli.evaluate.evaluate_arrays(spatial=True)`` (the eval CLI's
+    ``--spatial``, over the world's ranks with ``--devices N``) of
+    (N, H, W, C) images, ``repeats`` times: rank 0's result of the last
+    call ("result": Dice, AUC, the FOV-masked maps; {} on the other
+    ranks), with :func:`_timed_spatial`'s ms, collectives and peak
+    bytes."""
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+
+    dev = _device(world, device)
+    model = build_model(model_name, dev, state_dict=state_dict, seed=seed,
+                        model_kwargs=model_kwargs)
+    res, out = _timed_spatial(lambda: evaluate_arrays(
+        model, images, masks, labels, inference_batch_size=batch_size,
+        compute_dtype=compute_dtype, spatial=True, device=dev, world=world),
+        dev, repeats)
+    return {"result": res, **out}
+
+
+def _spatial_op(name: str, c: int, dev: torch.device, g: torch.Generator):
+    """Op ``name`` of :func:`spatial_ops` on NCHW maps of ``c`` channels
+    on ``dev``, its parameters drawn from ``g``: (fn, the axis of its
+    output that holds the map's rows, or None when the output is
+    global)."""
+    from jcfszxc_unet_tpu_torch.ops import blocks, layers, s2d
+    from jcfszxc_unet_tpu_torch.parallel import spatial
+
+    def module(m):
+        layers.reset_parameters(m, g)
+        return m.to(dev).eval()
+
+    if name == "conv3x3_fused":
+        w = torch.randn((c, 3, 3, c), generator=g) / (3 * c ** 0.5)
+        scale = 0.5 + torch.rand(c, generator=g)
+        w, scale, shift = (t.to(dev) for t in (w, scale,
+                                               torch.randn(c, generator=g)))
+        return (lambda x: blocks.conv3x3_folded(x, w, scale, shift, True)), 2
+    convs = {
+        "conv7x7": lambda: layers.Conv2d(c, 2, 7, padding=3),
+        "conv_dilated": lambda: layers.Conv2d(c, c, 3, padding=2,
+                                              dilation=2),
+        "conv_stride2": lambda: layers.Conv2d(c, c, 3, stride=2, padding=1),
+        "conv_k2s2": lambda: layers.Conv2d(c, c, 2, stride=2),
+        "convT_k3s2": lambda: layers.ConvTranspose2d(
+            c, c, 3, stride=2, padding=1, output_padding=1),
+        "convT_k4s2": lambda: layers.ConvTranspose2d(c, c, 4, stride=2,
+                                                     padding=1),
+        "convT_k2s2": lambda: layers.ConvTranspose2d(c, c, 2, stride=2),
+    }
+    if name in convs:
+        return module(convs[name]()), 2
+    if name == "conv_s2d":
+        conv = module(layers.Conv2d(c, c, 3, padding=1))
+        return (lambda x: s2d.depth_to_space(
+            conv.s2d(s2d.space_to_depth(x)))), 2
+    if name == "se_block":
+        return module(blocks.SEBlock(c)), 2
+    if name == "attention":
+        mha = module(blocks.MultiHeadSelfAttention(c, 4))
+
+        def attend(x):
+            b, _, h, w = x.shape
+            return mha(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        return attend, 1
+    ops = {
+        "avg_pool": (lambda x: layers.avg_pool2d(x, 3, 1, 1), 2),
+        "bilinear": (layers.upsample_bilinear, 2),
+        "bilinear_s2d": (lambda x: s2d.depth_to_space(
+            s2d.upsample_bilinear_s2d(x)), 2),
+        "avg_pool_1x1": (layers.adaptive_avg_pool_1x1, None),
+        "max_pool_1x1": (layers.adaptive_max_pool_1x1, None),
+        "crop": (lambda x: layers.pad_or_crop_to(
+            layers.upsample_nearest(x), x.shape[2], x.shape[3]), 2),
+        "pad": (lambda x: layers.pad_or_crop_to(
+            x, 2 * x.shape[2], 2 * x.shape[3]), 2),
+        "halo3": (lambda x: spatial.halo_slab(x, 3, 3), None),
+    }
+    return ops[name]
+
+
+def spatial_ops(world: Optional[World], cases, *, seed: int = 0,
+                device="cuda") -> dict:
+    """Each of ``cases``, (op name, NCHW numpy map), on this rank's rows
+    (``row_bounds`` of the map's H) under ``parallel.spatial.row_sharded``,
+    or on the whole map without a world: the op's output with its rows
+    gathered on every rank ("outs", in order; a global output as it is,
+    ``halo3``'s slab as this rank's).  Each op draws its parameters from
+    ``seed``, the same on every rank and in one process."""
+    from jcfszxc_unet_tpu_torch.parallel import spatial
+    from jcfszxc_unet_tpu_torch.parallel.mesh import row_bounds
+
+    dev = _device(world, device)
+    outs = []
+    with torch.inference_mode():
+        for name, x in cases:
+            x = torch.tensor(np.asarray(x, np.float32), device=dev)
+            fn, rows = _spatial_op(name, x.shape[1], dev,
+                                   torch.Generator().manual_seed(seed))
+            h = x.shape[2]
+            start, stop = row_bounds(h, world)
+            x = x[:, :, start:stop].contiguous(
+                memory_format=torch.channels_last)
+            with spatial.row_sharded(world, h):
+                y = fn(x)
+                if rows is not None:
+                    y = spatial.gather_h(y, rows)
+            outs.append(y.cpu().numpy())
+    return {"outs": outs}
+
+
 def train_run(world: Optional[World], model_name: str, images, masks,
               labels, *, save_path: str, val_percent: float,
               patch_size: int, compute_dtype, state_dict=None,
@@ -361,6 +528,7 @@ def stall(world: World, rank: int, seconds: float) -> dict:
 
 JOBS = {f.__name__: f for f in (train_steps, batch_norm_grads, dice_grads,
                                 validation, precise_batch_norm, tiled_maps,
+                                spatial_maps, spatial_eval, spatial_ops,
                                 train_run, meshes, configure, stall)}
 
 

@@ -27,6 +27,11 @@ reduction explicit:
     ``all_reduce`` of a zeroed buffer, since gloo on CUDA tensors offers
     only ``broadcast``, ``all_reduce`` and ``barrier``.
 
+The row-sharded whole-image forward (``parallel/spatial.py``) builds on
+:func:`row_bounds` and the same zeroed-buffer ``all_reduce``: its
+``halo_slab`` brings each rank the rows above and below its slab that a
+window op reads, and ``gather_h`` all of a map's rows.
+
 Backends: NCCL for CUDA with one device per rank, gloo for the CPU, and
 gloo on CUDA only when the caller names it (several ranks sharing one
 card, where NCCL refuses).  The group's timeout is short (60 s by

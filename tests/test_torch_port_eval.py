@@ -206,19 +206,85 @@ def test_cli_runs_the_tiled_protocol(setup, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "demo" / "label_0.png")
 
 
-@pytest.mark.parametrize("flag", [["--s2d"], ["--devices", "2", "--spatial"]])
+@pytest.mark.parametrize("flag", [["--s2d"],
+                                  ["--devices", "2", "--spatial", "--tta"]])
 def test_cli_refuses_unported_protocols(setup, tmp_path, flag):
     # --s2d is ported for the three models that have the mode; UNet's
-    # checkpoint is refused with their names.  --devices is ported for the
-    # tiled and sliding-window protocols; row-sharded --spatial is not.
+    # checkpoint is refused with their names.  --devices is ported for
+    # every protocol (row-sharded --spatial runs: see
+    # test_cli_spatial_over_two_ranks_equals_one_process); --spatial with
+    # --tta stays refused, before any rank is spawned.
     ckpt = str(tmp_path / "unet.pt")
     save_model(ckpt, "UNet.UNet", {}, setup["port"])
     match = ("not supported by UNet.UNet; supported: FRUNet.FRUNet, "
              "MultiResUNet.MultiResUNet, UNetPP.NestedUNet"
-             if flag == ["--s2d"] else "not ported")
+             if flag == ["--s2d"] else "--tta needs square patches")
     with pytest.raises(SystemExit, match=match):
         port_cli.main(["-m", ckpt, "-d", setup["h5"], "--device", "cpu",
                        *flag])
+
+
+def _cli_metrics(setup, tmp_path, monkeypatch, *flags):
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "unet.pt")
+    save_model(ckpt, "UNet.UNet", {}, setup["port"])
+    out_json = str(tmp_path / "metrics.json")
+    port_cli.main(["-m", ckpt, "-d", setup["h5"], "--inference-batch-size",
+                   "1", "--dtype", "float32", "--device", "cpu", "-o",
+                   str(tmp_path / "preds"), "--metrics-json", out_json,
+                   *flags])
+    return json.loads(open(out_json).read())
+
+
+def test_cli_spatial_over_two_ranks_equals_one_process(setup, tmp_path,
+                                                       monkeypatch, capfd):
+    """``--spatial --devices 2``: each image's rows split over two gloo
+    ranks; rank 0 alone prints and writes, and its per-image Dice and AUC
+    equal ``evaluate_arrays`` in one process on the image padded as the
+    ranks pad it (H 64 is a multiple of 2 x 32 already, W 48 pads to 64
+    either way)."""
+    rec = _cli_metrics(setup, tmp_path, monkeypatch, "--spatial",
+                       "--devices", "2", "--dist-timeout", "60")
+    assert capfd.readouterr().out.count("Average Dice Score") == 1
+    assert os.path.exists(tmp_path / "preds" / "prediction_1.png")
+    assert H % (2 * 32) == 0
+    want = port_cli.evaluate_arrays(
+        setup["port"], setup["images"], setup["masks"], setup["labels"],
+        inference_batch_size=1, spatial=True, device="cpu")
+    assert rec["n_images"] == N
+    assert 0.0 < min(want["dice"]) and max(want["dice"]) < 1.0
+    np.testing.assert_allclose(rec["per_image_dice"], want["dice"],
+                               atol=1e-6)
+    np.testing.assert_allclose(rec["per_image_auc"], want["auc"], atol=1e-6)
+
+
+def test_spatial_on_one_device_is_bit_for_bit_the_padded_forward(
+        setup, tmp_path, monkeypatch):
+    """``--spatial`` on one device (and ``Predictor.predict_spatial`` with
+    no world or a world of one rank) is the forward of the image padded
+    to a multiple of 32, cropped, as before the rows could be sharded:
+    the same bits."""
+    from jcfszxc_unet_tpu_torch.eval.predictor import sigmoid_forward
+    from jcfszxc_unet_tpu_torch.eval.spatial import pad_to_multiple
+    from jcfszxc_unet_tpu_torch.parallel import World
+    from jcfszxc_unet_tpu_torch.parallel.spatial import make_spatial_forward
+
+    images = torch.from_numpy(setup["images"])
+    with torch.inference_mode():
+        want = sigmoid_forward(setup["port"], pad_to_multiple(images, 32),
+                               torch.float32)[:, :H, :W, 0]
+    one = World(0, 1, torch.device("cpu"), "gloo")
+    for world in (None, one):
+        pred = Predictor(setup["port"], compute_dtype=torch.float32,
+                         inference_batch_size=N, device="cpu", world=world)
+        assert torch.equal(pred.predict_spatial(images), want)
+        assert torch.equal(make_spatial_forward(setup["port"], world)(images),
+                           want)
+    rec = _cli_metrics(setup, tmp_path, monkeypatch, "--spatial",
+                       "--devices", "1")
+    masked = (want * torch.from_numpy(setup["masks"]) > 0.5).float()
+    assert rec["per_image_dice"] == metrics.binary_dice(
+        masked, torch.from_numpy(setup["labels"])).tolist()
 
 
 def test_cli_and_predictor_evaluate_in_s2d(setup, tmp_path, monkeypatch):

@@ -52,7 +52,9 @@ def test_scan_covers_the_checkpoint_interop_modules():
             "scripts/forward_repeatability.py", "scripts/step_cost.py",
             # data-parallel runs
             "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
-            "parallel/jobs.py"} <= scanned
+            "parallel/jobs.py",
+            # the row-sharded whole-image forward
+            "parallel/spatial.py"} <= scanned
 
 
 def test_package_imports_with_jax_blocked():

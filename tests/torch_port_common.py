@@ -301,6 +301,38 @@ def random_variables(name, seed=0, hw=32, **kwargs):
         lambda s: (0.5 + rng.rand(*s.shape)).astype(s.dtype), shapes)
 
 
+def drawn_variables(name, seed=0, hw=32, **kwargs):
+    """(JAX module, numpy variables) of registry ``name``: the shapes from
+    ``jax.eval_shape`` of the init (no init is compiled), the values drawn
+    with numpy from ``seed`` in the distribution of torch's default
+    initialisation, which the JAX package's initializers copy (kernels
+    uniform in +-1/sqrt(fan-in), the fan-in being all axes but the last),
+    and biases and BatchNorm parameters and statistics as
+    :func:`randomize_bn` draws them (bias 0.1 N(0, 1), gamma and variance
+    in [0.5, 1.5), mean 0.2 N(0, 1))."""
+    model = jax_create_model(name, **kwargs)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, hw, hw, 3), jnp.float32),
+                           train=False))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, s):
+        leaf = path[-1].key
+        if leaf == "kernel":
+            bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+            v = rng.uniform(-bound, bound, s.shape)
+        elif leaf in ("scale", "var"):
+            v = 0.5 + rng.rand(*s.shape)
+        elif leaf == "mean":
+            v = 0.2 * rng.randn(*s.shape)
+        else:
+            v = 0.1 * rng.randn(*s.shape)
+        return v.astype(s.dtype)
+
+    return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -378,3 +410,103 @@ def check_export_graph(name, monkeypatch, s2d=False, seed=0):
     assert got.shape == (2, 32, 32, 1) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= EXPORT_TOL
     return program
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded whole-image forward against JAX
+# (tests/test_torch_port_spatial_models.py, tests/test_torch_port_spatial_zoo.py).
+# ---------------------------------------------------------------------------
+
+# Against JAX: as JAX's own check of its sharded forward
+# (tests/test_parallel.py ``_check_spatial``).  Against the port's own
+# forward in one process on the identically padded image: the same ops on
+# other slab heights, which differ in summation order alone (at most
+# 3.0e-7 seen, DenseUNet).
+SPATIAL_TOL, SHARDED_TOL = 1e-5, 1e-6
+
+
+def _jax_spatial_reference(jmodel, variables, images, divisor, ranks, how):
+    """JAX ``make_spatial_forward`` on ``make_mesh(ranks)`` ("mesh"), or
+    the one-device apply of the image padded as it pads ("apply")."""
+    from jcfszxc_unet_tpu.parallel.mesh import make_mesh
+    from jcfszxc_unet_tpu.parallel.spatial import (
+        make_spatial_forward,
+        pad_to_multiple,
+    )
+
+    if how == "mesh":
+        fwd = make_spatial_forward(
+            jmodel, jax.tree.map(jnp.asarray, variables), make_mesh(ranks),
+            divisor=divisor)
+        return np.asarray(fwd(jnp.asarray(images)))
+    _, h, w, _ = images.shape
+    x, _ = pad_to_multiple(jnp.asarray(images), 1, ranks * divisor)
+    x, _ = pad_to_multiple(x, 2, divisor)
+    out = jax_apply(jmodel, variables, x, train=False)
+    return np.asarray(jax.nn.sigmoid(out.astype(jnp.float32)))[:, :h, :w, 0]
+
+
+def run_spatial_cases(cases, root, seed):
+    """JAX's maps and the port's row-sharded maps of ``cases``: id ->
+    (registry name, model kwargs, image shape (N, H, W), divisor, ranks,
+    "mesh" or "apply").  Weights from :func:`drawn_variables`, carried
+    across by ``state_dict_from_jax``; the port's cases of each world size
+    run as one ``parallel.jobs.run`` in spawned gloo ranks on the CPU
+    (``spatial_maps``).  Each case's weights go to the ranks as an
+    ``.npz`` under ``root`` (the zoo holds 340 M parameters, too many to
+    pickle into every rank's arguments), removed after the jobs.  Returns
+    (want, single, got): id -> JAX maps, id -> the port's maps in this
+    process (no world) of the image padded as the ranks pad it, id -> the
+    ranks' results."""
+    from jcfszxc_unet_tpu_torch.parallel import jobs, spawn
+
+    want, single, tasks = {}, {}, {}
+    for k, (cid, (name, kwargs, shape, divisor, ranks, how)) in enumerate(
+            cases.items()):
+        jmodel, variables = drawn_variables(name, seed=seed + k, **kwargs)
+        images = np.random.RandomState(seed + k).rand(*shape, 3).astype(
+            np.float32)
+        want[cid] = _jax_spatial_reference(jmodel, variables, images,
+                                           divisor, ranks, how)
+        path = root / f"{cid}.npz"
+        np.savez(path, **{key: v.numpy() for key, v in
+                          state_dict_from_jax(name, variables).items()})
+        task = dict(model_name=name, images=images, divisor=divisor,
+                    state_dict=str(path), model_kwargs=kwargs)
+        tasks.setdefault(ranks, []).append((cid, ("spatial_maps", task)))
+        h = shape[1]
+        padded = np.pad(images, ((0, 0), (0, -h % (ranks * divisor)),
+                                 (0, 0), (0, 0)))
+        single[cid] = jobs.spatial_maps(
+            None, **dict(task, images=padded), device="cpu")["maps"][:, :h]
+    got = {}
+    try:
+        for ranks, named in tasks.items():
+            per_rank = spawn(jobs.run, ranks, [t for _, t in named],
+                             device="cpu", join_timeout_s=600)
+            for i, (cid, _) in enumerate(named):
+                got[cid] = [r[i] for r in per_rank]
+    finally:
+        for path in root.glob("*.npz"):
+            path.unlink()
+    return want, single, got
+
+
+def check_spatial_case(runs, cases, case):
+    """Every rank holds the same maps, bit for bit; rank 0's are within
+    SPATIAL_TOL of JAX's and within SHARDED_TOL of the port's in one
+    process; the forward exchanged rows (halos and the output gather)
+    and, on the CPU, launched no kernel."""
+    want, single, got = runs
+    _, _, (n, h, w), _, ranks, _ = cases[case]
+    maps = [r["maps"] for r in got[case]]
+    assert want[case].shape == (n, h, w) and maps[0].shape == (n, h, w)
+    assert len(maps) == ranks
+    for m in maps[1:]:
+        np.testing.assert_array_equal(m, maps[0])
+    np.testing.assert_allclose(maps[0], want[case], rtol=SPATIAL_TOL,
+                               atol=SPATIAL_TOL)
+    np.testing.assert_allclose(maps[0], single[case], rtol=0,
+                               atol=SHARDED_TOL)
+    assert got[case][0]["collectives"]["calls"] > 1
+    assert got[case][0]["launches"]["conv3x3_affine_relu"] == 0
