@@ -153,7 +153,22 @@ Phases, each of which must pass:
    rank (18 conv launches a rank a forward, the Dice on rank 0 alone);
    ms per image with 1 rank (this process) and 2 ranks, the collectives
    per forward and their host ms, and the peak allocated memory per rank
-   against one process.
+   against one process;
+16. orbax (after serve): the JAX package's ``save_orbax`` of the JAX
+   fixture's weights (``tests/torch_port_data/transfusenet_jax_orbax``:
+   OCDBT with zstd) read by ``train.checkpoint.restore_orbax`` through the
+   port's own OCDBT, zarr and zstd readers (the host C library built here
+   with ``cc``), into TransFuseNet by ``compat.from_jax`` (``strict``), its
+   f32 forward within 1e-5 of the JAX output with 6 kernel-1 launches; the
+   zstd decoder's MB/s on the fixture's frames (a call a frame, and one
+   call over them concatenated); the train path's UNet
+   (f32 state dict, a bf16 copy, a None leaf, the step) written by
+   ``save_orbax`` and restored in a fresh process (``python3 chip_smoke.py
+   --orbax-child DIR``, torch and the port only) into
+   ``cli.evaluate.evaluate_arrays`` of the main path's 4 images in bf16: 18
+   kernel-1 launches and one ``dice_sums`` there, the Dice equal to this
+   process's and max |dprob| 0; the save's seconds and bytes and the
+   restore's seconds.
 
 Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
@@ -1739,6 +1754,236 @@ def phase_serve(report, state):
         raise AssertionError(f"serve checks failed: {bad}")
 
 
+# The orbax phase: the JAX package's save_orbax of the .ckpt fixture
+# (tests/test_torch_port_orbax.write_jax_orbax_fixture: OCDBT, zstd) and its
+# step; its f32 forward against the JAX output within the .ckpt path's
+# tolerance; the decoder timed over at least ORBAX_DECODE_S seconds; the
+# port's save_orbax of the trained UNet restored in a fresh process that
+# may import none of ORBAX_BLOCKED.
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "torch_port_data",
+                             "transfusenet_jax_orbax")
+ORBAX_FIXTURE_STEP, ORBAX_FIXTURE_TOL, ORBAX_DECODE_S = 7, 1e-5, 0.5
+ORBAX_DIR = os.path.join(ROOT, "build", "chip_smoke_orbax")
+ORBAX_BLOCKED = ("jax", "jaxlib", "flax", "jcfszxc_unet_tpu", "orbax",
+                 "tensorstore", "zstandard")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def orbax_child(workdir: str) -> None:
+    """``python3 chip_smoke.py --orbax-child DIR``: in this fresh process
+    (torch and the port only), ``restore_orbax`` of ``DIR/unet_orbax`` onto
+    the card, its ``state_dict`` loaded ``strict=True`` into a new UNet,
+    ``evaluate_arrays`` of ``DIR/{images,masks,labels}.npy`` in bf16 with
+    the launches read around it; saves the maps and prints one JSON line."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.models import create_model
+    from jcfszxc_unet_tpu_torch.train.checkpoint import restore_orbax
+
+    torch.zeros(1, device="cuda")  # CUDA initialised outside the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = restore_orbax(os.path.join(workdir, "unet_orbax"), device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    sd, sd16 = tree["state_dict"], tree["state_dict_bf16"]
+    model = create_model("UNet.UNet").to("cuda")
+    model.load_state_dict(sd, strict=True)
+    model = model.to(memory_format=torch.channels_last).eval()
+    arrays = [np.load(os.path.join(workdir, f"{n}.npy"))
+              for n in ("images", "masks", "labels")]
+    reset_counts()
+    res = evaluate_arrays(model, *arrays, patch_size=PATCH,
+                          inference_batch_size=INFER_BATCH,
+                          compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    launches, bodies = launch_counts()
+    np.save(os.path.join(workdir, "probs.npy"), res["pred_maps"])
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ORBAX_BLOCKED)
+    print(json.dumps({
+        "restore_s": restore_s, "launches": launches, "bodies": bodies,
+        "dice": res["dice"], "step": tree["step"],
+        "none_leaf": tree["scheduler"] is None,
+        "leaves_on_card": all(t.is_cuda for t in [*sd.values(),
+                                                  *sd16.values()]),
+        "bf16_leaves_equal": sorted(sd16) == sorted(
+            k for k, v in sd.items() if v.is_floating_point())
+        and all(torch.equal(v, sd[k].bfloat16()) for k, v in sd16.items()),
+        "modules_not_allowed": loaded,
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def phase_orbax(report, state):
+    """Orbax directories: the JAX fixture through the port's OCDBT, zarr
+    and zstd readers into TransFuseNet (kernel 1), the decoder's rate, and
+    the trained full-width UNet saved by the port and restored in a fresh
+    process into ``evaluate_arrays`` (kernel 1 and ``dice_sums``)."""
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
+    from jcfszxc_unet_tpu_torch.compat import zstd
+    from jcfszxc_unet_tpu_torch.compat.from_jax import state_dict_from_jax
+    from jcfszxc_unet_tpu_torch.compat.host_build import load_host_library
+    from jcfszxc_unet_tpu_torch.compat.ocdbt import OcdbtStore
+    from jcfszxc_unet_tpu_torch.compat.torch_import import (
+        model_from_state_dict,
+    )
+    from jcfszxc_unet_tpu_torch.models import create_model
+    from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    out = {"checks": {}}
+    checks = out["checks"]
+    launches_sum = {"conv3x3_affine_relu": 0, "dice_sums": 0,
+                    "conv3x3_relu_imcol": 0}
+
+    def add(launches):
+        for key in launches_sum:
+            launches_sum[key] += launches[key]
+
+    shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    os.makedirs(ORBAX_DIR)
+    try:
+        # 1. The JAX fixture: OCDBT, zarr and zstd on this machine.
+        t0 = time.perf_counter()
+        load_host_library()
+        out["host_library_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = ckpt.restore_orbax(ORBAX_FIXTURE, device="cpu")
+        out["fixture_restore_ms"] = (time.perf_counter() - t0) * 1e3
+        checks["fixture_step"] = tree["step"] == ORBAX_FIXTURE_STEP
+        fm = model_from_state_dict(
+            "RetinaLiteNet.TransFuseNet",
+            state_dict_from_jax("RetinaLiteNet.TransFuseNet", tree),
+            {"logit_head": True}, dev)
+        fm = fm.to(memory_format=torch.channels_last).eval()
+        x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+        reset_counts()
+        with torch.inference_mode():
+            y = fm(torch.as_tensor(x, device=dev).permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        launches, _ = launch_counts()
+        add(launches)
+        got = y.float().permute(0, 2, 3, 1).cpu().numpy()
+        want = np.load(JAX_FIXTURE_OUT)
+        diff = float(np.abs(got - want).max())
+        out["fixture"] = {"launches": launches, "max_abs_diff": diff,
+                          "tolerance": ORBAX_FIXTURE_TOL,
+                          "jax_output_std": float(want.std())}
+        checks["fixture_within_1e-5"] = bool(
+            got.shape == want.shape and np.isfinite(diff)
+            and diff <= ORBAX_FIXTURE_TOL and want.std() > 1e-2)
+        checks["fixture_6_conv_launches"] = \
+            launches["conv3x3_affine_relu"] == 6
+        print(f"[orbax] JAX fixture: restore "
+              f"{out['fixture_restore_ms']:.1f} ms (host library "
+              f"{out['host_library_s']:.2f} s), f32 max |d| {diff:.2e} "
+              f"against the JAX output, launches {launches}", flush=True)
+        del fm, y
+
+        # The decoder's rate on the fixture's frames (host, one thread):
+        # one call a frame, as the reader makes them, and one call over
+        # the frames concatenated (a valid zstd stream), which leaves out
+        # the cost of a call.
+        store = OcdbtStore(ORBAX_FIXTURE)
+        frames = [bytes(store.read(k)) for k in store.list()
+                  if not k.endswith(".zarray")]
+        joined = b"".join(frames)
+        decoded = sum(len(zstd.decompress(f)) for f in frames)
+        checks["zstd_joined_frames"] = len(zstd.decompress(joined)) == decoded
+
+        def rate(calls):
+            reps, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < ORBAX_DECODE_S:
+                for f in calls:
+                    zstd.decompress(f)
+                reps += 1
+            return decoded * reps / (time.perf_counter() - t0) / 1e6
+
+        out["zstd"] = {"frames": len(frames), "compressed_bytes": len(joined),
+                       "decoded_bytes": decoded,
+                       "mb_per_s": rate(frames),
+                       "mb_per_s_one_call": rate([joined])}
+        print(f"[orbax] zstd decoder: {len(frames)} frames, {len(joined)} "
+              f"-> {decoded} bytes, {out['zstd']['mb_per_s']:.1f} MB/s "
+              f"decoded a call a frame, "
+              f"{out['zstd']['mb_per_s_one_call']:.1f} MB/s in one call",
+              flush=True)
+
+        # 2. Full width: the trained UNet saved by the port, restored in a
+        # fresh process.
+        sd = {k: v.detach() for k, v in
+              state["train_model"].state_dict().items()}
+        tree = {"state_dict": sd,
+                "state_dict_bf16": {k: v.bfloat16() for k, v in sd.items()
+                                    if v.is_floating_point()},
+                "scheduler": None, "step": TRAIN_EPOCHS * TRAIN_STEPS}
+        path = os.path.join(ORBAX_DIR, "unet_orbax")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_orbax(path, tree)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = dir_bytes(path)
+        for name in ("images", "masks", "labels"):
+            np.save(os.path.join(ORBAX_DIR, f"{name}.npy"), state[name])
+        model = create_model("UNet.UNet").to(dev)
+        model.load_state_dict(sd, strict=True)
+        res = evaluate_arrays(model, state["images"], state["masks"],
+                              state["labels"], patch_size=PATCH,
+                              inference_batch_size=INFER_BATCH,
+                              compute_dtype=torch.bfloat16, device=dev)
+        del model
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--orbax-child",
+             ORBAX_DIR], capture_output=True, text=True, timeout=300,
+            cwd=ROOT)
+        out["child_seconds"] = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise RuntimeError(f"orbax child failed:\n{child.stderr[-4000:]}")
+        res_c = json.loads(child.stdout.strip().splitlines()[-1])
+        out["child"] = res_c
+        add(res_c["launches"])
+        maps = np.load(os.path.join(ORBAX_DIR, "probs.npy"))
+        out["max_abs_dprob"] = float(np.abs(maps - res["pred_maps"]).max())
+        out["dice"] = res["dice"]
+        checks["child_without_jax_or_orbax"] = \
+            res_c["modules_not_allowed"] == []
+        checks["child_leaves_on_card"] = res_c["leaves_on_card"]
+        checks["child_step_none_and_bf16_leaves"] = (
+            res_c["step"] == TRAIN_EPOCHS * TRAIN_STEPS and res_c["none_leaf"]
+            and res_c["bf16_leaves_equal"])
+        checks["child_18_conv_1_dice_launches"] = res_c["launches"] == {
+            "conv3x3_affine_relu": 18, "dice_sums": 1,
+            "conv3x3_relu_imcol": 0}
+        checks["child_dice_equal"] = res_c["dice"] == res["dice"]
+        checks["child_maps_equal"] = out["max_abs_dprob"] == 0.0
+        print(f"[orbax] full-width UNet: save_orbax {out['save_s']:.3f} s, "
+              f"{out['bytes']} bytes; restore in a fresh process "
+              f"{res_c['restore_s']:.3f} s (child {out['child_seconds']:.1f} "
+              f"s); dice {[round(d, 4) for d in res_c['dice']]} (parent "
+              f"{[round(d, 4) for d in res['dice']]}), max |dprob| "
+              f"{out['max_abs_dprob']:.1e}, child launches "
+              f"{res_c['launches']}", flush=True)
+    finally:
+        shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    out["launches"] = dict(launches_sum)
+    report["orbax"] = out
+    state["orbax_launches"] = launches_sum
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"orbax checks failed: {bad}")
+
+
 def profile_train(report, model, images, labels, val):
     """Device time by kernel of one train step and of one val pass, and
     the device's idle share against each one's untraced wall time."""
@@ -3236,6 +3481,7 @@ def kernels_line(state):
                    "zoo": state["zoo_launches"][row["name"]],
                    "protocols": state["protocol_launches"][row["name"]],
                    "serve": state["serve_launches"][row["name"]],
+                   "orbax": state["orbax_launches"][row["name"]],
                    "fractal": state["fractal_launches"][row["name"]],
                    "s2d": state["s2d_launches"][row["name"]],
                    "export": state["export_launches"][row["name"]],
@@ -3253,6 +3499,7 @@ def kernels_line(state):
     probe["launches_by_path"] = {
         "probe": probe["launches"],
         "export": state["export_launches"]["conv3x3_relu_imcol"],
+        "orbax": state["orbax_launches"]["conv3x3_relu_imcol"],
         "multi_device":
             state["multi_device_launches"]["conv3x3_relu_imcol"],
         "spatial_sharded":
@@ -3264,6 +3511,9 @@ def kernels_line(state):
 def main() -> None:
     if sys.argv[1:2] == ["--export-child"]:
         export_child(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--orbax-child"]:
+        orbax_child(sys.argv[2])
         return
     sys.path.insert(0, ROOT)
     import torch
@@ -3284,7 +3534,7 @@ def main() -> None:
     t_start = time.perf_counter()
     failed = []
     needs = {"train_val_f32": "train_path", "serve": "train_path",
-             "s2d": "zoo_eval"}
+             "orbax": "train_path", "s2d": "zoo_eval"}
     for name, phase in (("build", phase_build),
                         ("main_path", phase_main_path),
                         ("f32_end_to_end", phase_f32_end_to_end),
@@ -3293,6 +3543,7 @@ def main() -> None:
                         ("eval_protocols", phase_eval_protocols),
                         ("train_path", phase_train_path),
                         ("serve", phase_serve),
+                        ("orbax", phase_orbax),
                         ("train_val_f32", phase_train_val_f32),
                         ("fractal", phase_fractal),
                         ("s2d", phase_s2d),

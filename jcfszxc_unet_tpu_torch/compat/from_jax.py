@@ -1,7 +1,8 @@
 """JAX variables -> the port's ``state_dict``.
 
 Turns a Flax variables tree of the JAX package (``{"params": ...,
-"batch_stats": ...}`` as nested dicts of numpy arrays) into a state dict
+"batch_stats": ...}`` as nested dicts of numpy arrays, or of tensors as
+``train.checkpoint.restore_orbax`` gives them) into a state dict
 with the reference's torch key names, which the port's modules load with
 ``strict=True``.  The port keeps its own copy of the mapping rules for
 all 16 models of the zoo and the fractal trainer's feature extractor
@@ -402,8 +403,20 @@ def block_state_dict_from_jax(block_class: str, variables: Dict[str, Any]
     return _convert(variables, block_class, None, block_class)
 
 
+def _numpy_leaves(tree):
+    """Tensor leaves (an Orbax restore's, on any device) as numpy;
+    bfloat16 ones as float32."""
+    if isinstance(tree, dict):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree
+
+
 def _convert(variables, cls, root, what) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
+    variables = _numpy_leaves(variables)
 
     def emit(key, arr):
         if key in out:

@@ -151,3 +151,11 @@ def maxpool_exit(x_s2d: torch.Tensor) -> torch.Tensor:
     b, c4, h, w = x_s2d.shape
     return nhwc(x_s2d).view(b, h, w, c4 // 4, 4).amax(dim=4).permute(
         0, 3, 1, 2)
+
+
+def avgpool_exit(x_s2d: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 average pool == mean over the 4 phases, as
+    :func:`maxpool_exit`; leaves s2d space."""
+    b, c4, h, w = x_s2d.shape
+    return nhwc(x_s2d).view(b, h, w, c4 // 4, 4).mean(dim=4).permute(
+        0, 3, 1, 2)

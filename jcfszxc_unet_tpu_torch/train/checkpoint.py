@@ -21,12 +21,16 @@ exactly one reader, which raises if it fails:
 :func:`load_extra` reads the ``extra`` of the port's file and of a JAX
 ``.ckpt``: a JAX ``--latest-path`` file's optax state is mapped to the
 port's RMSprop by ``compat/optax_state.py`` (:func:`resume_state`).
+
+:func:`save_orbax` and :func:`restore_orbax` write and read Orbax PyTree
+directories (JAX ``save_orbax``/``restore_orbax``) without Orbax.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jcfszxc_unet_tpu_torch.compat import msgpack
+from jcfszxc_unet_tpu_torch.compat import msgpack, orbax
 from jcfszxc_unet_tpu_torch.compat.from_jax import state_dict_from_jax
 from jcfszxc_unet_tpu_torch.compat.torch_import import (
     infer_model_name,
@@ -360,3 +364,98 @@ class AsyncCheckpointWriter:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+# ---------------------------------------------------------------------------
+# Orbax directory checkpoints
+# ---------------------------------------------------------------------------
+
+def save_orbax(ckpt_dir: str, state_tree) -> str:
+    """Write ``state_tree`` as an Orbax PyTree directory (JAX
+    ``save_orbax``), which JAX's ``restore_orbax`` reads.  The tree nests
+    dicts, lists and tuples over tensors on any device, numpy arrays,
+    Python and numpy scalars and None.  The layout is Orbax's plain zarr
+    one (``compat/orbax.py``; JAX writes OCDBT).  An existing directory is
+    replaced, as Orbax's ``force=True`` does: the tree is written into a
+    sibling temporary directory, which then takes the name."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    tmp = f"{ckpt_dir}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        orbax.write_tree(tmp, state_tree)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if os.path.exists(ckpt_dir):
+        old = f"{ckpt_dir}.old{os.getpid()}"
+        os.rename(ckpt_dir, old)
+        os.rename(tmp, ckpt_dir)
+        shutil.rmtree(old)
+    else:
+        os.rename(tmp, ckpt_dir)
+    return ckpt_dir
+
+
+def _fit(tree, template, device, path: str):
+    """``tree`` (as restored) in the structure and leaf types of
+    ``template``."""
+    def fail(why):
+        raise ValueError(f"restore_orbax: {path}: {why}")
+
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        if tree is None and not template._fields:  # an empty named tuple
+            return type(template)()
+        if not isinstance(tree, dict) or set(tree) != set(template._fields):
+            fail(f"the checkpoint holds {type(tree).__name__}, the template "
+                 f"a {type(template).__name__}{template._fields}")
+        return type(template)(**{
+            k: _fit(tree[k], v, device, f"{path}.{k}")
+            for k, v in template._asdict().items()})
+    if isinstance(template, dict):
+        if tree is None and not template:
+            return {}
+        if not isinstance(tree, dict) or set(tree) != set(map(str, template)):
+            fail(f"keys {sorted(tree) if isinstance(tree, dict) else tree!r}"
+                 f" against the template's {sorted(map(str, template))}")
+        return {k: _fit(tree[str(k)], v, device, f"{path}.{k}")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        if tree is None and not template:
+            return type(template)()
+        if not isinstance(tree, list) or len(tree) != len(template):
+            fail(f"the checkpoint holds {tree!r:.60}, the template a "
+                 f"sequence of {len(template)}")
+        return type(template)(_fit(t, v, device, f"{path}.{i}")
+                              for i, (t, v) in enumerate(zip(tree, template)))
+    if template is None:
+        return None
+    if isinstance(template, (torch.Tensor, np.ndarray)):
+        if not isinstance(tree, torch.Tensor):
+            fail(f"the checkpoint holds {tree!r:.60}, the template an array")
+        if tuple(tree.shape) != tuple(template.shape):
+            fail(f"shape {tuple(tree.shape)} against the template's "
+                 f"{tuple(template.shape)}")
+        if isinstance(template, torch.Tensor):
+            return tree.to(device=template.device, dtype=template.dtype)
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+    if isinstance(tree, torch.Tensor):
+        if tree.numel() != 1:
+            fail(f"an array of shape {tuple(tree.shape)} against a scalar")
+        return tree.item()
+    return tree
+
+
+def restore_orbax(ckpt_dir: str, template=None, device="cuda"):
+    """Read an Orbax PyTree directory (JAX ``restore_orbax``): JAX's OCDBT
+    layout, with zstd, or the plain zarr layout, by the port's own readers
+    (``compat/orbax.py``).  Without ``template`` the tree comes back as
+    dicts and lists, array leaves as tensors on ``device`` (the card
+    unless the caller asks for the CPU), scalars as Python numbers and
+    None as None.  With ``template`` it takes the template's structure,
+    and each leaf the template leaf's type: a tensor its device and dtype,
+    a numpy array numpy (float32 for bfloat16), a scalar a Python number."""
+    device = resolve_device(device)
+    tree = orbax.read_tree(os.path.abspath(ckpt_dir))
+    if template is not None:
+        return _fit(tree, template, device, "root")
+    return _map_tensors(lambda t: t.to(device), tree)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX, Flax, Optax,
-msgpack, the JAX package or the reference shims at the repository root."""
+msgpack, Orbax, tensorstore, zstandard, the JAX package or the reference
+shims at the repository root, and its host library links no zstd."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "jcfszxc_unet_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "jcfszxc_unet_tpu",
-             "UNetFamily", "utils")
+             "UNetFamily", "utils", "orbax", "tensorstore", "zstandard")
 
 
 def _imported_modules(path: Path):
@@ -54,7 +55,26 @@ def test_scan_covers_the_checkpoint_interop_modules():
             "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
             "parallel/jobs.py",
             # the row-sharded whole-image forward
-            "parallel/spatial.py"} <= scanned
+            "parallel/spatial.py",
+            # Orbax directories and their readers
+            "compat/orbax.py", "compat/zarr.py", "compat/ocdbt.py",
+            "compat/zstd.py", "compat/host_build.py"} <= scanned
+
+
+def test_host_library_links_no_zstd():
+    """zstd is decoded by the port's own C decoder only: no source includes
+    a zstd header, no flag links libzstd, and the built library needs no
+    libzstd."""
+    from jcfszxc_unet_tpu_torch.compat import host_build
+
+    for src in host_build.HOST_CSRC.glob("*.c"):
+        assert "#include <zstd" not in src.read_text(), src.name
+    assert not any("zstd" in flag for flag in host_build.CFLAGS)
+    lib = host_build.load_host_library()
+    out = subprocess.run(["ldd", lib._name], capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "zstd" not in out.stdout
 
 
 def test_package_imports_with_jax_blocked():

@@ -198,6 +198,15 @@ def test_maxpool_exit_matches_jax(shape):
     np.testing.assert_array_equal(to_nhwc(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 6, 3), (1, 4, 10, 5)])
+def test_avgpool_exit_matches_jax(shape):
+    x = _rand(18, *shape)
+    got = s2d.avgpool_exit(s2d.space_to_depth(to_port(x)))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = jax_s2d.avgpool_exit(jax_s2d.space_to_depth(jnp.asarray(x)))
+    _close(to_nhwc(got), want)
+
+
 def test_cached_selector_made_in_inference_mode_serves_training():
     """The selector is cached per device and dtype; the first call may
     come from an evaluation under ``torch.inference_mode``, and a train

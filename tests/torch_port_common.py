@@ -271,6 +271,10 @@ REPO_ROOT = Path(__file__).resolve().parents[1]
 DATA_DIR = Path(__file__).resolve().parent / "torch_port_data"
 JAX_FIXTURE = DATA_DIR / "transfusenet_jax.ckpt"
 JAX_FIXTURE_OUT = DATA_DIR / "transfusenet_jax_out.npy"
+# The same weights as an Orbax directory written by the JAX package's
+# save_orbax (test_torch_port_orbax.write_jax_orbax_fixture rewrites it).
+ORBAX_FIXTURE = DATA_DIR / "transfusenet_jax_orbax"
+ORBAX_FIXTURE_STEP = 7
 FIXTURE_MODEL = "RetinaLiteNet.TransFuseNet"
 
 
