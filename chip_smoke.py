@@ -17,7 +17,11 @@ Phases, each of which must pass:
    conv kernel also at the train path's validation shapes and at the edges
    of its wgmma plan, in bf16, and at the zoo's and whole-image shapes in
    both types), and its time beside the plain version's, a library call's
-   and its bound, per layer for the conv kernel;
+   and its bound, per layer and per body for the conv kernel; the conv
+   kernel's mma_sync body (bf16, Cin % 8 != 0) on its own lists (the
+   stems, MultiResUNet's 25 odd-width convs plain and s2d at 16 x 512^2),
+   beside cuDNN and the route of padding Cin to 8 with a copy and running
+   the wgmma body;
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -333,6 +337,12 @@ S2D_ONLY_SHAPES = {
                       (PATCH // 2, PATCH // 2, 128, 128)],
 }
 S2D_TRAIN_STEPS = 3
+
+# MultiResUNet's bf16 convs with Cin % 8 != 0 (the mma_sync body's) at an
+# eval chunk, plain and s2d, as the kernels phase times them
+# (jcfszxc_unet_tpu_torch/scripts/conv_body_lists.py); zoo_eval and s2d
+# hold the model's recorded lists to them.
+MULTIRES = "MultiResUNet.MultiResUNet"
 
 # The multi_device phase: ranks, the process group's timeout, the bound on
 # the whole job, the f32 steps and the bf16 train_arrays run (epochs x
@@ -880,6 +890,7 @@ def phase_kernels(report, state):
         dice_sums,
         dice_sums_torch,
     )
+    from jcfszxc_unet_tpu_torch.scripts import conv_body_lists
 
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
@@ -953,8 +964,13 @@ def phase_kernels(report, state):
                 json.dump({"gpu": gpu_name_and_power(), **conv_times[name]},
                           f, indent=1)
     total = conv_times["bfloat16"]["total"]
+    state["conv_by_body"] = conv_by_body(conv_times, state["conv_bodies"])
+    state["mma_sync_lists"] = mma_sync_lists(checks)
+    report["conv_by_body"] = state["conv_by_body"]
+    report["mma_sync_lists"] = state["mma_sync_lists"]
     for path in ("eval", "eval_chunk", "train_val", "plan_edge", "zoo",
-                 "whole_image"):
+                 "whole_image", *(f"mma_sync_{name}" for name in
+                                  conv_body_lists.LISTS)):
         mine = [c for c in checks if c["path"] == path]
         err16 = max(c["max_abs_err"] / c["max_abs_plain"] for c in mine
                     if c["dtype"] == "bfloat16")
@@ -964,9 +980,11 @@ def phase_kernels(report, state):
               f"err / max|plain| {err16:.2e}", flush=True)
     failures = [c for c in checks if not c["ok"]]
     wrong_body = [c for c in checks if c["dtype"] == "bfloat16"
-                  and c["shape"][3] % 8 == 0 and c["body"] != "wgmma"]
+                  and c["body"] != ("wgmma" if c["shape"][3] % 8 == 0
+                                    else "mma_sync")]
     if wrong_body:
-        failures.append({"bf16 Cin % 8 == 0 off the wgmma body": wrong_body})
+        failures.append({"bf16 Cin % 8 == 0 off the wgmma body or "
+                         "Cin % 8 != 0 off the mma_sync body": wrong_body})
 
     # Dice: correctness on 20 x 584 x 565, times at the main path's shape.
     dice_rows = {}
@@ -1030,6 +1048,74 @@ def phase_kernels(report, state):
          "bound_ms": main["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]
+
+
+def conv_by_body(conv_times, bodies):
+    """Kernel 1 on UNet's eval-chunk lists split by body (bf16: ``wgmma``
+    and ``mma_sync``; f32: ``fma_vec`` and ``fma``): convs, ms, bound and
+    cuDNN ms per 16-patch forward, and the body's launches on the main
+    path."""
+    out = {}
+    for dtype, t in conv_times.items():
+        for r in t["rows"]:
+            row = out.setdefault(r["body"], {
+                "dtype": dtype, "convs": 0, "ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "plain_ms": 0.0,
+                "launches_main_path": bodies["eval"].get(r["body"], 0)})
+            row["convs"] += 1
+            for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+                row[key] += r[key]
+    return out
+
+
+def mma_sync_lists(checks):
+    """Kernel 1's ``mma_sync`` body on its own lists
+    (``scripts/conv_body_lists.LISTS``: the stems, MultiResUNet's 25
+    odd-width convs plain and s2d at 16 x 512^2) through ``conv_list``,
+    each shape also checked against the plain version (appended to
+    ``checks``); beside each, the route of padding Cin to a multiple of 8
+    with a copy of x and running the ``wgmma`` body on the copies (copy ms,
+    kernel ms on the copies, checked too).  Returns totals per list."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_torch,
+    )
+    from jcfszxc_unet_tpu_torch.scripts import conv_body_lists as cbl
+
+    out = {}
+    for name, calls in cbl.LISTS.items():
+        res = conv_list(calls, torch.bfloat16, f"mma_sync_{name}", seed=3)
+        checks += res["checks"]
+        g = torch.Generator(device="cuda").manual_seed(4)
+        pad = {"pad_ms": 0.0, "pad8_wgmma_ms": 0.0, "bodies": set()}
+        for (b, h, wd, cin, cout, relu), n in calls.items():
+            x, w, scale, shift = conv_inputs(g, b, h, wd, cin, cout,
+                                             torch.bfloat16)
+            row, got = cbl.pad8_route(x, w.permute(3, 0, 1, 2).contiguous(),
+                                      scale, shift, relu)
+            checks.append(conv_check(
+                f"pad8_{name}", [b, h, wd, cin + (-cin % 8), cout], relu,
+                torch.bfloat16, row["pad8_body"], got,
+                conv3x3_affine_relu_torch(x, w, scale, shift, relu).float()))
+            pad["pad_ms"] += n * row["pad_ms"]
+            pad["pad8_wgmma_ms"] += n * row["pad8_wgmma_ms"]
+            pad["bodies"].add(row["pad8_body"])
+            del x, w, got
+        t = res["total"]
+        out[name] = {**t, "pad_ms": pad["pad_ms"],
+                     "pad8_wgmma_ms": pad["pad8_wgmma_ms"],
+                     "pad8_bodies": sorted(pad["bodies"]),
+                     "rows": res["rows"]}
+        print(f"[conv] mma_sync list {name} ({t['n_convs']} convs): kernel "
+              f"{t['ms']:.3f} ms ({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), "
+              f"plain {t['plain_ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}); pad Cin to 8 "
+              f"with a copy {pad['pad_ms']:.3f} ms + kernel 1 on the copies "
+              f"({sorted(pad['bodies'])}) {pad['pad8_wgmma_ms']:.3f} ms = "
+              f"{pad['pad_ms'] + pad['pad8_wgmma_ms']:.3f} ms; kernel vs "
+              f"plain {t['checks_ok']}/{t['checks']} shapes", flush=True)
+    return out
 
 
 def record_convs(fn):
@@ -1136,6 +1222,9 @@ def phase_zoo_eval(report, state):
 
     from jcfszxc_unet_tpu_torch.cli.evaluate import evaluate_arrays
     from jcfszxc_unet_tpu_torch.data.sampler import extract_patches
+    from jcfszxc_unet_tpu_torch.scripts.conv_body_lists import (
+        MULTIRES as MULTIRES_CONVS,
+    )
 
     dev = torch.device("cuda")
     images, masks, labels = state["images"], state["masks"], state["labels"]
@@ -1175,9 +1264,9 @@ def phase_zoo_eval(report, state):
         calls = record_convs(lambda: bf16_forward(model, patches))
         # one patch recorded; a call at batch k (ConvLSTM x-halves: 2) runs
         # at k times the chunk's batch
-        convs = conv_list({(key[0] * min(INFER_BATCH, n_patches), *key[1:]): n
-                           for key, n in calls.items()},
-                          torch.bfloat16, "zoo_chunk")
+        calls = {(key[0] * min(INFER_BATCH, n_patches), *key[1:]): n
+                 for key, n in calls.items()}
+        convs = conv_list(calls, torch.bfloat16, "zoo_chunk")
         times = convs["total"]
         diff, std = f32_against_cpu_copy(
             model, lambda p: p.predict_patches(f32_patches.to(p.device)))
@@ -1206,6 +1295,9 @@ def phase_zoo_eval(report, state):
             # a comparison that a nearly constant output would pass anyway
             "f32_prob_std_over_10x_tol": std >= 10 * ZOO_F32_TOL,
             "conv_list_kernel_vs_plain": times["checks_ok"] == times["checks"],
+            # the kernels phase timed the mma_sync body on this list
+            "mma_sync_list_as_timed": name != MULTIRES or {
+                k: n for k, n in calls.items() if k[3] % 8} == MULTIRES_CONVS,
             "peak_allocated_under_limit":
                 peak_bytes < ZOO_PEAK_BYTES.get(name, math.inf),
         }
@@ -2443,6 +2535,9 @@ def phase_s2d(report, state):
     from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
     from jcfszxc_unet_tpu_torch.models import create_model, with_kwargs
     from jcfszxc_unet_tpu_torch.ops.layers import reset_parameters
+    from jcfszxc_unet_tpu_torch.scripts.conv_body_lists import (
+        MULTIRES_S2D as MULTIRES_S2D_CONVS,
+    )
     from jcfszxc_unet_tpu_torch.train import checkpoint as ckpt
     from jcfszxc_unet_tpu_torch.train.optim import make_optimizer
     from jcfszxc_unet_tpu_torch.train.state import TrainState
@@ -2498,9 +2593,8 @@ def phase_s2d(report, state):
         s2d_shapes_seen = (shapes != plain_shapes and all(
             sh in shapes and sh not in plain_shapes
             for sh in S2D_ONLY_SHAPES[name]))
-        convs = conv_list({(key[0] * batch, *key[1:]): n
-                           for key, n in calls.items()},
-                          torch.bfloat16, "s2d_chunk", target_ms=10.0)
+        calls = {(key[0] * batch, *key[1:]): n for key, n in calls.items()}
+        convs = conv_list(calls, torch.bfloat16, "s2d_chunk", target_ms=10.0)
         # the plain mode's numbers: zoo_eval's run of the same model
         zoo = report["zoo_eval"][name]
         t, tp = convs["total"], zoo["conv_per_forward"]["total"]
@@ -2533,6 +2627,10 @@ def phase_s2d(report, state):
             "s2d_only_conv_shapes_seen": s2d_shapes_seen,
             "dice_launched": launches["dice_sums"] >= 1,
             "s2d_conv_list_kernel_vs_plain": t["checks_ok"] == t["checks"],
+            # the kernels phase timed the mma_sync body on this list
+            "mma_sync_list_as_timed": name != MULTIRES or {
+                k: n for k, n in calls.items() if k[3] % 8}
+            == MULTIRES_S2D_CONVS,
             "f32_vs_plain_mode_within_1e-3": d_plain <= ZOO_F32_TOL,
             "f32_vs_cpu_within_1e-3": d_cpu <= ZOO_F32_TOL,
             "f32_prob_std_over_10x_tol": std >= 10 * ZOO_F32_TOL,
@@ -3495,6 +3593,10 @@ def kernels_line(state):
             row["launches_by_body"] = state["conv_bodies"]
             row["launches_by_model"] = {**state["zoo_conv_launches"],
                                         **state["s2d_conv_launches"]}
+            row["by_body"] = state["conv_by_body"]
+            row["mma_sync_lists"] = {
+                name: {k: v for k, v in t.items() if k != "rows"}
+                for name, t in state["mma_sync_lists"].items()}
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {
         "probe": probe["launches"],

@@ -13,20 +13,25 @@
 //
 // Bound on the H100: at UNet's shapes the work is 2*9*Cin flops per output
 // value, far above the card's ridge point, so the tensor cores' rate bounds
-// the bf16 path, and only wgmma reaches it (the first form's mma.sync with
-// register-staged gathers reached 80 TFLOP/s).  Three bodies, chosen by the
+// the bf16 path, and only wgmma reaches it.  Three bodies, chosen by the
 // caller's plan (ops/kernels/conv_plan.py) from dtype, Cin and alignment,
-// and checked here:
+// and checked here, each against its own tile:
 //   * wgmma (bf16, Cin % 8 == 0, x and w 16-byte aligned: 17 of UNet's 18
 //     convs): the TMA-fed, warp-specialised wgmma mainloop of
 //     conv3x3_wgmma.cuh, whose TMA zero fill supplies the halo;
-//   * mma_sync (bf16, any other Cin: UNet's first conv, Cin = 3, 0.25 % of
-//     its flops): TMA needs 16-byte global strides and a 3-channel pixel is
-//     6 bytes, so this body gathers A element by element in registers with
-//     a per-tap bounds test, stages A and B in double-buffered shared memory
-//     and multiplies with mma.sync m16n8k16 (128 x 64 tiles, 8 warps);
-//   * fma (float32): the same gather and staging, 8 x 4 outputs per thread
-//     on the CUDA cores, so f32 products stay exact f32; fma_vec when
+//   * mma_sync (bf16, any other Cin or alignment: the Cin = 3 stem of every
+//     model, MultiResUNet's odd widths plain and space-to-depth): TMA needs
+//     16-byte global strides and a 3-channel pixel is 6 bytes, so this body
+//     loads one haloed input box per tile into shared memory with its
+//     channels padded to a multiple of 8, forms the nine taps as fixed
+//     offsets into it and multiplies with ldmatrix + mma.sync (m16n8k16, and
+//     m16n8k8 for an odd 8-channel group).  The stem is bound by its output
+//     bytes (64 channels out of 3 in), so the epilogue stores each pixel's
+//     channels as 16-byte words; the odd widths by operations, which the box
+//     keeps from repeating its loads and divisions nine times;
+//   * fma (float32): an element-by-element gather in registers with a
+//     per-tap bounds test, double-buffered shared memory, 8 x 4 outputs per
+//     thread on the CUDA cores, so f32 products stay exact f32; fma_vec when
 //     Cin % 8 == 0 and x, w are 16-byte aligned (16-byte loads).
 //
 // Offsets into x and out are 64-bit: B*H*W*C passes 2^31 at UNet's shapes.
@@ -223,197 +228,704 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16 at any Cin: register-staged gather + mma.sync on the tensor cores
+// bfloat16 where TMA cannot go (Cin % 8 != 0, or x, w not 16-byte aligned):
+// one haloed input box per tile in shared memory, wgmma (or, for Cin <= 8,
+// mma.sync) reading it at nine fixed offsets
 // ---------------------------------------------------------------------------
+//
+// A tile is BM = 128 output pixels, a (TW, TH, TB) box of powers of two
+// chosen by the plan, by BN output channels.  Its input is the haloed box
+// (TB, TH + 2, TW + 2) of x, brought into shared memory once per channel
+// chunk of CK with every channel padded to a multiple of 8 (zeros), as
+// planes of 8 channels: group j of box pixel p is the 16 bytes at
+// (j * PLANE + p) * 16.  Tap (dy, dx) of tile row r is box pixel
+// box_pixel(r) + dy * (TW + 2) + dx, so the nine taps are nine fixed offsets
+// into the same box (the Pallas kernel's shifted windows of one haloed row
+// strip) and the inner loop has no division and no bounds test.  The
+// weights come the same way, (9, CK / 8, BN, 8) a chunk.
+//
+// Products.  Chunks of CK = 32 (Cin > 8): each of the two warpgroups runs
+// wgmma m64nBNk16 with both operands read from shared memory through
+// no-swizzle descriptors: a core matrix is 8 rows of 16 bytes, which for A
+// are 8 consecutive box pixels of one plane (boxes 8 wide, so the 8 rows
+// of a warpgroup's m64 block are 8 box rows, BW * 16 bytes apart) and for
+// B 8 output channels; the two 8-channel halves of a k16 step are a plane
+// apart.  An odd last group is paired with a zero plane.  CK = 8 (the
+// stem, Cin <= 8): one m16n8k8 mma.sync a tap, fed by ldmatrix, Cin = 3
+// multiplying 8 lanes.
+//
+// Loads.  The weights are laid out once per call by pad_weights into a
+// workspace in the stages' own layout, (channel tile, chunk, 9, CK / 8, BN,
+// 8) zero-padded, so a stage's weights are one contiguous run that
+// cp.async copies in 16-byte pieces.  x is read by units of 8 channels of
+// one box pixel with the widest loads that Cin and the pointer's alignment
+// allow (2 to 16 bytes), zero outside the image and past Cin, and stored
+// as one 16-byte word.  A block is persistent over the tiles blockIdx.x,
+// + gridDim.x, ... (the grid is a multiple of the channel tiles, so a
+// block keeps its n0) and walks (tile, chunk) steps through two
+// shared-memory stages: the next step's weights (cp.async) and box units
+// (registers) are in flight while the current step multiplies, across tile
+// boundaries too, and the box units are stored while the wgmmas run.
+// Weights already in a stage (one chunk, the same n0) are not copied again.
+//
+// Epilogue: scale, shift and ReLU in f32 on the accumulators, bf16 into a
+// shared tile (the finished stage's box planes, for wgmma), then each
+// pixel's channels stored as 16-, 8-, 4- or 2-byte words as Cout and the
+// output's alignment allow.
 
 namespace bf16 {
 
-constexpr int BM = 128;      // output pixels per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 32;       // K step (two k16 mma steps)
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32;       // warp tile rows
-constexpr int WN = 32;       // warp tile columns
-constexpr int LDS = BK + 8;  // smem row stride (bf16): conflict-free fragments
+constexpr int BM = 128;        // output pixels per tile
+constexpr int THREADS = 256;   // 8 warps: two warpgroups
+constexpr int BOX_MAX = 240;   // haloed box pixels TB (TH + 2) (TW + 2)
 
-static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warp grid");
-static_assert(BM * BK == THREADS * 16, "each thread gathers 16 A values");
-static_assert(BN * BK == THREADS * 8, "each thread gathers 8 B values");
+template <int BN, int CK>
+struct Cfg {
+  static_assert(BN % 16 == 0 && BN >= 16 && BN <= 64, "channel tile");
+  static_assert(CK == 8 || CK == 32, "chunk");
+  static constexpr bool WG = CK == 32;  // wgmma; else mma.sync m16n8k8
+  static constexpr int N8 = CK / 8;     // 8-channel groups of a chunk
+  static constexpr int LDC = BN + 8;    // epilogue tile row (bf16)
+  static constexpr int CST = BM * LDC;  // epilogue tile (bf16)
+  // Box pixels a plane: at least BOX_MAX (and, for wgmma, room for the
+  // epilogue tile in the planes), 2 mod 8 in 16-byte words, so a unit's
+  // four planes, stored by neighbouring threads, fall in different banks.
+  static constexpr int PLANE_MIN =
+      WG && CST / (N8 * 8) > BOX_MAX ? (CST + N8 * 8 - 1) / (N8 * 8) : BOX_MAX;
+  static constexpr int PLANE = PLANE_MIN + ((10 - PLANE_MIN % 8) % 8);
+  static constexpr int A_ELEMS = N8 * PLANE * 8;
+  static constexpr int B_ELEMS = 9 * N8 * BN * 8;      // one (tile, chunk)
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;      // bf16 a stage
+  static constexpr int UNITS = (BOX_MAX * N8 + THREADS - 1) / THREADS;
+  static constexpr int MIN_BLOCKS = WG ? 2 : 3;        // blocks an SM
+  // wgmma's epilogue tile lives in the finished stage's box planes.
+  static_assert(!WG || A_ELEMS >= CST, "epilogue tile in the box planes");
+  static constexpr int SMEM = (2 * STAGE + (WG ? 0 : CST)) * 2;
+};
 
-// D += A (16x16, row-major) * B (16x8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
+struct Params {
+  const uint16_t* x;   // (B, H, W, Cin)
+  const uint16_t* wp;  // the padded weights (tiles_n, chunks, 9, CK/8, BN, 8)
+  const float* scale;
+  const float* shift;
+  uint16_t* out;       // (B, H, W, Cout)
+  int B, H, W, Cin, Cout;
+  int tw_log, th_log, tb;  // box: TW = 1 << tw_log, TH = 1 << th_log
+  int tiles_w, tiles_h, tiles_n, tiles;
+  int chunks;              // ceil(Cin / CK)
+  int relu;
+  int vec_x, vec_out;      // bf16 a global access
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x1(uint32_t addr, uint32_t& r0) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r0)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes (stores, cp.async) visible to
+// the async proxy that wgmma reads its operands through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D += A (16x8) * B (8x8), bf16 in, f32 out.
+__device__ __forceinline__ void mma_k8(float* d, uint32_t a0, uint32_t a1,
+                                       uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// Eight bf16 values (raw bits) of x for one pixel, k in [k0, k0 + 8), each
-// with its own tap.
-__device__ __forceinline__ uint4 gather_a8(const uint16_t* __restrict__ x,
-                                           int k0, int K, int Cin, int64_t ap,
-                                           bool a_valid, int ay, int ax, int H,
-                                           int W) {
+// Shared-memory matrix descriptor, no swizzle: start address, the byte
+// offset between the two core matrices of a k16 step (lbo) and between
+// core matrices 8 rows apart (sbo), all >> 4.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32) += A (64 x 16, smem) * B (16 x N, smem)^T, both K-major.
+__device__ __forceinline__ void wgmma_k16(float (&d)[8], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[16], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[24], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  wgmma_conv::wgmma_m64nk16(d, da, db, 1);
+}
+
+// Eight consecutive bf16 (raw bits) from q, zero from element `rem` on
+// (rem >= 8: all eight), `vec` elements a load: q is 2 * vec-byte aligned
+// and rem a multiple of vec.
+__device__ __forceinline__ uint4 load8(const uint16_t* __restrict__ q,
+                                       int rem, int vec) {
+  if (rem >= 8) {
+    if (vec == 8) return __ldg(reinterpret_cast<const uint4*>(q));
+    if (vec == 4) {
+      const uint2 lo = __ldg(reinterpret_cast<const uint2*>(q));
+      const uint2 hi = __ldg(reinterpret_cast<const uint2*>(q) + 1);
+      return make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    if (vec == 2) {
+      const unsigned int* p = reinterpret_cast<const unsigned int*>(q);
+      return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+    }
+  }
   uint32_t r[4];
 #pragma unroll
-  for (int j = 0; j < 8; j += 2) {
-    uint32_t pair = 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + j + h;
-      const int tap = k / Cin;
-      int64_t src;
-      if (a_valid && k < K && tap_source(tap, ap, ay, ax, H, W, &src))
-        pair |= (uint32_t)x[src * Cin + (k - tap * Cin)] << (16 * h);
-    }
-    r[j / 2] = pair;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = 2 * i < rem ? (uint32_t)__ldg(q + 2 * i) : 0u;
+    const uint32_t hi = 2 * i + 1 < rem ? (uint32_t)__ldg(q + 2 * i + 1) : 0u;
+    r[i] = lo | (hi << 16);
   }
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-// Eight bf16 values of w (Cout, K) for output channel n, k in [k0, k0 + 8).
-__device__ __forceinline__ uint4 gather_b8(const uint16_t* __restrict__ w,
-                                           int k0, int K, int n, int Cout) {
-  uint32_t r[4];
-  const uint16_t* wr = w + (int64_t)n * K;
-#pragma unroll
-  for (int j = 0; j < 8; j += 2) {
-    uint32_t pair = 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + j + h;
-      if (k < K && n < Cout) pair |= (uint32_t)wr[k] << (16 * h);
-    }
-    r[j / 2] = pair;
+// A block's walk over its (tile, chunk) steps: tiles blockIdx.x,
+// + gridDim.x, ... as digits (bx, by, bb) of the box grid and the channel
+// tile nt (fastest in the tile index), advanced without division.
+struct Walk {
+  int bx, by, bb, nt, chunk;
+
+  __device__ __forceinline__ void start(const Params& p) {
+    const int t = blockIdx.x;
+    nt = t % p.tiles_n;
+    int m = t / p.tiles_n;
+    bx = m % p.tiles_w;
+    m /= p.tiles_w;
+    by = m % p.tiles_h;
+    bb = m / p.tiles_h;
+    chunk = 0;
   }
-  return make_uint4(r[0], r[1], r[2], r[3]);
+  // (dx, dy, db): gridDim.x / tiles_n in the same digits.
+  __device__ __forceinline__ void next(const Params& p, int dx, int dy,
+                                       int db) {
+    if (++chunk < p.chunks) return;
+    chunk = 0;
+    bx += dx;
+    if (bx >= p.tiles_w) {
+      bx -= p.tiles_w;
+      ++by;
+    }
+    by += dy;
+    if (by >= p.tiles_h) {
+      by -= p.tiles_h;
+      ++bb;
+    }
+    bb += db;
+  }
+};
+
+// This thread's box units: unit u = tid + i * THREADS is channel group
+// u % (CK / 8) of box pixel e = u / (CK / 8) = (pb, py, px), packed as
+// coord[i] = pb << 16 | py << 8 | px (-1 past the box).
+template <int CK>
+struct Units {
+  static constexpr int N = Cfg<16, CK>::UNITS;
+  static constexpr int N8 = CK / 8;
+  int coord[N];
+
+  // channel offset of unit i in its chunk, and its offset in a stage
+  __device__ __forceinline__ static int j8(int i) {
+    return 8 * ((threadIdx.x + i * THREADS) % N8);
+  }
+  __device__ __forceinline__ static int dst(int i, int plane) {
+    const int u = threadIdx.x + i * THREADS;
+    return ((u % N8) * plane + u / N8) * 8;
+  }
+};
+
+template <int CK>
+__device__ __forceinline__ void load_box(const Params& p, const Walk& s,
+                                         const Units<CK>& un,
+                                         uint4 (&pre)[Units<CK>::N]) {
+  const int c0 = s.chunk * CK;
+  const int x0 = (s.bx << p.tw_log) - 1;
+  const int y0 = (s.by << p.th_log) - 1;
+  const int b0 = s.bb * p.tb;
+#pragma unroll
+  for (int i = 0; i < Units<CK>::N; ++i) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    const int rem = p.Cin - c0 - un.j8(i);
+    if (un.coord[i] >= 0 && rem > 0) {
+      const int xx = x0 + (un.coord[i] & 255);
+      const int yy = y0 + ((un.coord[i] >> 8) & 255);
+      const int bb = b0 + (un.coord[i] >> 16);
+      if (bb < p.B && (unsigned)yy < (unsigned)p.H &&
+          (unsigned)xx < (unsigned)p.W)
+        v = load8(p.x + (((int64_t)bb * p.H + yy) * p.W + xx) * p.Cin + c0 +
+                      un.j8(i),
+                  rem, p.vec_x);
+    }
+    pre[i] = v;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
-            const float* __restrict__ scale, const float* __restrict__ shift,
-            __nv_bfloat16* __restrict__ out, int64_t M, int H, int W, int Cin,
-            int Cout, int relu) {
-  // k-contiguous rows for both operands: As[pixel][k], Bs[channel][k].
-  __shared__ __align__(16) uint16_t As[2][BM][LDS];
-  __shared__ __align__(16) uint16_t Bs[2][BN][LDS];
+template <int CK>
+__device__ __forceinline__ void store_box(uint16_t* stage, const Units<CK>& un,
+                                          int plane,
+                                          const uint4 (&pre)[Units<CK>::N]) {
+#pragma unroll
+  for (int i = 0; i < Units<CK>::N; ++i)
+    if (un.coord[i] >= 0)
+      *reinterpret_cast<uint4*>(stage + un.dst(i, plane)) = pre[i];
+}
+
+// The step's weights, one contiguous run of the workspace, into the stage.
+template <int BN, int CK>
+__device__ __forceinline__ void copy_weights(const Params& p, const Walk& s,
+                                             uint32_t stage) {
+  using C = Cfg<BN, CK>;
+  const uint16_t* src =
+      p.wp + (int64_t)(s.nt * p.chunks + s.chunk) * C::B_ELEMS;
+  const uint32_t dst = stage + C::A_ELEMS * 2;
+  for (int i = threadIdx.x; i < C::B_ELEMS / 8; i += THREADS)
+    cp_async16(dst + 16 * i, src + 8 * i);
+}
+
+template <int BN, int CK>
+__global__ void __launch_bounds__(THREADS, Cfg<BN, CK>::MIN_BLOCKS)
+conv_kernel(const Params p) {
+  using C = Cfg<BN, CK>;
+  extern __shared__ __align__(128) uint16_t box_smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * Cin;
-  const int KT = (K + BK - 1) / BK;
+  const int TW = 1 << p.tw_log;
+  const int TH = 1 << p.th_log;
+  const int BW = TW + 2;
+  const int BH = TH + 2;
+  const int box_px = p.tb * BH * BW;
 
-  // Gather roles: one pixel and 16 consecutive k of A; one output channel
-  // and 8 consecutive k of B.
-  const int am = tid % BM;
-  const int ak = (tid / BM) * 16;
-  const int64_t ap = m0 + am;
-  const bool a_valid = ap < M;
-  int ay = 0;
-  int ax = 0;
-  if (a_valid) {
-    const int64_t row = ap / W;
-    ax = (int)(ap - row * W);
-    ay = (int)(row % H);
+  Units<CK> un;
+#pragma unroll
+  for (int i = 0; i < Units<CK>::N; ++i) {
+    const int u = tid + i * THREADS;
+    const int e = u / C::N8;  // box pixel
+    const int r = e / BW;
+    un.coord[i] = e < box_px ? ((r / BH) << 16) | ((r % BH) << 8) | (e - r * BW)
+                             : -1;
   }
-  const int bn = tid % BN;
-  const int bk = (tid / BN) * 8;
 
-  // Compute roles: warp (wm, wn) owns rows wm*32.. and columns wn*32..;
-  // fragment coordinates g (group) and q (thread in group) per the PTX
-  // m16n8k16 layouts.
-  const int wm = warp % (BM / WM);
-  const int wn = warp / (BM / WM);
-  const int g = lane >> 2;
-  const int q = lane & 3;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  uint4 a_reg[2];
-  uint4 b_reg;
-  auto gather = [&](int kt) {
-    const int k0 = kt * BK;
-    a_reg[0] = gather_a8(x, k0 + ak, K, Cin, ap, a_valid, ay, ax, H, W);
-    a_reg[1] = gather_a8(x, k0 + ak + 8, K, Cin, ap, a_valid, ay, ax, H, W);
-    b_reg = gather_b8(w, k0 + bk, K, n0 + bn, Cout);
+  // Box pixel of tile row r at tap (0, 0), i.e. input (y0 - 1 + ty,
+  // x0 - 1 + tx) for output (y0 + ty, x0 + tx).
+  auto box_pixel = [&](int r) {
+    return ((r >> (p.tw_log + p.th_log)) * BH + ((r >> p.tw_log) & (TH - 1))) *
+               BW +
+           (r & (TW - 1));
   };
-  auto stage = [&](int buf) {
-    *reinterpret_cast<uint4*>(&As[buf][am][ak]) = a_reg[0];
-    *reinterpret_cast<uint4*>(&As[buf][am][ak + 8]) = a_reg[1];
-    *reinterpret_cast<uint4*>(&Bs[buf][bn][bk]) = b_reg;
-  };
+  const uint32_t ring = wgmma_conv::smem_u32(box_smem);
 
-  gather(0);
-  stage(0);
+  // Operand addresses, bytes from a stage's start.  wgmma: this
+  // warpgroup's first A row and the B tile, as descriptors.  mma.sync: this
+  // lane's ldmatrix rows, A at k8 (one x4 for the warp's two m16 blocks)
+  // and B at k8 (one x4 for four n8 tiles).
+  const int wg = warp >> 2;
+  uint64_t da = 0, db = 0;
+  uint32_t a8 = 0, b8 = 0;
+  if constexpr (C::WG) {
+    da = desc_plain(ring + box_pixel(64 * wg) * 16, C::PLANE * 16, BW * 16);
+    db = desc_plain(ring + C::A_ELEMS * 2, BN * 16, 128);
+  } else {
+    const int wm = warp & 3;
+    const int wn = warp >> 2;
+    a8 = box_pixel(wm * 32 + 16 * (lane >> 4) + 8 * ((lane >> 3) & 1) +
+                   (lane & 7)) *
+         16;
+    b8 = (C::A_ELEMS + (wn * (BN / 2) + lane % (BN / 2)) * 8) * 2;
+  }
+
+  // The block's steps and the tile stride in box-grid digits.  The grid is
+  // a multiple of tiles_n, or each block has one tile.
+  const int steps =
+      (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
+      p.chunks;
+  const int ds = (int)gridDim.x / p.tiles_n;
+  const int dx = ds % p.tiles_w;
+  const int dy = ds / p.tiles_w % p.tiles_h;
+  const int db_ = ds / (p.tiles_w * p.tiles_h);
+  Walk cur_s, next_s;  // the step multiplied, the step loaded
+  cur_s.start(p);
+  next_s = cur_s;
+
+  // Epilogue: each tile row is one output pixel, its min(BN, Cout - n0)
+  // channels stored vec_out at a time; this thread's first (row, word)
+  // and its stride over them.
+  const int n0 = cur_s.nt * BN;
+  const int per_row = min(BN, p.Cout - n0) / p.vec_out;
+  const int sr0 = tid / per_row;
+  const int sj0 = tid - sr0 * per_row;
+  const int dsr = THREADS / per_row;
+  const int dsj = THREADS - dsr * per_row;
+
+  // Accumulators: wgmma, this warpgroup's 64 rows x BN; mma.sync, the
+  // warp's 32 rows x BN / 2 as [m16 block][n8 tile][4].
+  constexpr int NACC = C::WG ? BN / 2 : 2 * (BN / 16) * 4;
+  float acc[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+
+  uint4 pre[Units<CK>::N];
+  // (channel tile, chunk) of each stage's weights
+  int wtag0 = cur_s.nt * p.chunks;
+  int wtag1 = -1;
+  copy_weights<BN, CK>(p, cur_s, ring);
+  cp_async_commit();
+  load_box<CK>(p, cur_s, un, pre);
+  store_box<CK>(box_smem, un, C::PLANE, pre);
+  cp_async_wait_all();
+  if constexpr (C::WG) fence_proxy_async();
   __syncthreads();
 
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < KT;
-    if (more) gather(kt + 1);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4];
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r0 = wm * WM + mi * 16 + g;
-        const int k = ks + 2 * q;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[cur][r0][k]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[cur][r0 + 8][k]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[cur][r0][k + 8]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[cur][r0 + 8][k + 8]);
+  for (int i = 0; i < steps; ++i) {
+    const int cur = i & 1;
+    const bool more = i + 1 < steps;
+    if (more) {  // the next step's loads are in flight over the products
+      next_s.next(p, dx, dy, db_);
+      const int tag = next_s.nt * p.chunks + next_s.chunk;
+      if (tag != (cur ? wtag0 : wtag1)) {
+        copy_weights<BN, CK>(p, next_s, ring + (cur ^ 1) * (C::STAGE * 2));
+        if (cur) {
+          wtag0 = tag;
+        } else {
+          wtag1 = tag;
+        }
       }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * WN + ni * 8 + g;
-        const int k = ks + 2 * q;
-        bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[cur][c][k]);
-        bfr[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[cur][c][k + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], af[mi], bfr[ni]);
+      cp_async_commit();
+      load_box<CK>(p, next_s, un, pre);
     }
-    if (more) stage(cur ^ 1);
-    __syncthreads();
-  }
 
-  // Accumulator (mi, ni, r) sits at row g (+8 for r >= 2) and column
-  // 2q + (r & 1) of the warp's 16 x 8 sub-tile (mi, ni).
+    const uint32_t stage = ring + cur * (C::STAGE * 2);
+    uint16_t* cst;  // the epilogue's bf16 tile
+    if constexpr (C::WG) {
+      // 8-channel groups of the chunk, in k16 steps (an odd one paired
+      // with the zero plane after it)
+      const int n16 = (min(C::N8, (p.Cin - cur_s.chunk * CK + 7) >> 3) + 1) >> 1;
+      const uint64_t soff = cur * (C::STAGE / 8);  // descriptor units
+      wgmma_conv::wgmma_fence();
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
+      for (int tap = 0; tap < 9; ++tap) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = n0 + wn * WN + ni * 8 + 2 * q + e;
-      if (n >= Cout) continue;
-      const float sc = scale[n];
-      const float sh = shift[n];
+        for (int s = 0; s < C::N8 / 2; ++s) {
+          if (s < n16) {
+            wgmma_k16(acc,
+                      da + soff + (tap / 3) * BW + tap % 3 + 2 * s * C::PLANE,
+                      db + soff + (tap * C::N8 + 2 * s) * BN);
+          }
+        }
+      }
+      wgmma_conv::wgmma_commit();
+      if (more)  // stored while the products run
+        store_box<CK>(box_smem + (cur ^ 1) * C::STAGE, un, C::PLANE, pre);
+      wgmma_conv::wgmma_wait<0>();
+      cst = box_smem + cur * C::STAGE;
+    } else {
+      constexpr int NT = BN / 16;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t at = stage + ((tap / 3) * BW + tap % 3) * 16;
+        const uint32_t bt = stage + tap * (BN * 16);
+        uint32_t a[4];
+        uint32_t b[NT];
+        ldsm_x4(at + a8, a[0], a[1], a[2], a[3]);
+        if (NT == 4) {
+          ldsm_x4(bt + b8, b[0], b[1], b[2], b[3]);
+        } else if (NT == 3) {
+          ldsm_x2(bt + b8, b[0], b[1]);
+          ldsm_x1(bt + b8 + 2 * (8 * 16), b[NT - 1]);
+        } else if (NT == 2) {
+          ldsm_x2(bt + b8, b[0], b[1]);
+        } else {
+          ldsm_x1(bt + b8, b[0]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_k8(acc + (mi * NT + nt) * 4, a[2 * mi], a[2 * mi + 1], b[nt]);
+          }
+      }
+      if (more) store_box<CK>(box_smem + (cur ^ 1) * C::STAGE, un, C::PLANE, pre);
+      cst = box_smem + 2 * C::STAGE;
+    }
+
+    if (cur_s.chunk == p.chunks - 1) {
+      // Epilogue: accumulators -> bf16 tile (after every warp's products,
+      // since for wgmma the tile overwrites the stage's box planes).
+      __syncthreads();
+      const int q = lane & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        // wgmma: [j*4 + h*2 + e] is row 64 wg + 16 (warp % 4) + lane / 4 +
+        // 8h, column 8j + 2q + e.  mma.sync: [(mi*NT + nt)*4 + 2h + e] is
+        // row 32 (warp % 4) + 16 mi + lane / 4 + 8h, column
+        // (BN/2)(warp / 4) + 8 nt + 2q + e.
+        const int col = C::WG ? 8 * j + 2 * q
+                              : (BN / 2) * (warp >> 2) + 8 * (j % (BN / 16)) +
+                                    2 * q;
+        const int n = n0 + col;
+        const float sc0 = n < p.Cout ? __ldg(p.scale + n) : 0.f;
+        const float sh0 = n < p.Cout ? __ldg(p.shift + n) : 0.f;
+        const float sc1 = n + 1 < p.Cout ? __ldg(p.scale + n + 1) : 0.f;
+        const float sh1 = n + 1 < p.Cout ? __ldg(p.shift + n + 1) : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int64_t p = m0 + wm * WM + mi * 16 + g + 8 * h;
-          if (p >= M) continue;
-          float v = fmaf(acc[mi][ni][2 * h + e], sc, sh);
-          if (relu) v = fmaxf(v, 0.f);
-          out[p * Cout + n] = __float2bfloat16_rn(v);
+          const int row = C::WG ? 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * h
+                                : 32 * (warp & 3) + 16 * (j / (BN / 16)) +
+                                      (lane >> 2) + 8 * h;
+          const int k = j * 4 + 2 * h;
+          float v0 = fmaf(acc[k], sc0, sh0);
+          float v1 = fmaf(acc[k + 1], sc1, sh1);
+          if (p.relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(cst + row * C::LDC + col) =
+              __floats2bfloat162_rn(v0, v1);
+          acc[k] = 0.f;
+          acc[k + 1] = 0.f;
+        }
+      }
+      __syncthreads();
+      const int vec = p.vec_out;
+      const int x0 = cur_s.bx << p.tw_log;
+      const int y0 = cur_s.by << p.th_log;
+      const int b0 = cur_s.bb * p.tb;
+      for (int r = sr0, j = sj0; r < BM;) {
+        const int xx = x0 + (r & (TW - 1));
+        const int yy = y0 + ((r >> p.tw_log) & (TH - 1));
+        const int bb = b0 + (r >> (p.tw_log + p.th_log));
+        if (xx < p.W && yy < p.H && bb < p.B) {
+          uint16_t* dst = p.out +
+                          (((int64_t)bb * p.H + yy) * p.W + xx) * p.Cout + n0 +
+                          j * vec;
+          const uint16_t* src = cst + r * C::LDC + j * vec;
+          if (vec == 8) {
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          } else if (vec == 4) {
+            *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+          } else if (vec == 2) {
+            *reinterpret_cast<uint32_t*>(dst) =
+                *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            *dst = *src;
+          }
+        }
+        r += dsr;
+        j += dsj;
+        if (j >= per_row) {
+          j -= per_row;
+          ++r;
         }
       }
     }
+
+    if (more) {
+      cp_async_wait_all();
+      if constexpr (C::WG) fence_proxy_async();
+      cur_s = next_s;
+    }
+    __syncthreads();
   }
+}
+
+// The weights w (Cout, 9, Cin) laid out as the stages read them: wp
+// (tiles_n, chunks, 9, ck / 8, bn, 8), zero past Cout and Cin.
+__global__ void pad_weights(const uint16_t* __restrict__ w,
+                            uint16_t* __restrict__ wp, int Cin, int Cout,
+                            int chunks, int bn, int ck, int64_t total) {
+  const int n8 = ck / 8;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = i / 8;
+    const int e = (int)(i - r * 8);
+    const int n = (int)(r % bn);
+    r /= bn;
+    const int j = (int)(r % n8);
+    r /= n8;
+    const int tap = (int)(r % 9);
+    r /= 9;
+    const int c = (int)(r % chunks);
+    const int nn = (int)(r / chunks) * bn + n;
+    const int cin = c * ck + 8 * j + e;
+    wp[i] = (nn < Cout && cin < Cin) ? w[((int64_t)nn * 9 + tap) * Cin + cin]
+                                     : (uint16_t)0;
+  }
+}
+
+// bf16 a global access: the widest of 8, 4, 2 that divides c with ptr
+// aligned to it, else 1.
+inline int vec_of(int c, const void* ptr) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  for (int v = 8; v > 1; v >>= 1)
+    if (c % v == 0 && a % (2 * v) == 0) return v;
+  return 1;
+}
+
+template <int BN, int CK>
+int launch_config(const wgmma_conv::Plan& pl, Params p, const void* w,
+                  void* workspace, long long workspace_bytes,
+                  cudaStream_t stream) {
+  using C = Cfg<BN, CK>;
+  const long long ws = (long long)p.tiles_n * p.chunks * C::B_ELEMS;
+  // wgmma reads 8 box pixels of one row as a core matrix and a warpgroup's
+  // 64 rows as 8 box rows of one image: boxes 8 wide and at least 8 tall.
+  if (pl.smem != C::SMEM || workspace_bytes < 2 * ws ||
+      reinterpret_cast<uintptr_t>(workspace) % 16 ||
+      (C::WG && (pl.tw != 8 || pl.th < 8)))
+    return (int)cudaErrorInvalidValue;
+  p.wp = static_cast<const uint16_t*>(workspace);
+  const long long blocks = (ws + 255) / 256 < 4096 ? (ws + 255) / 256 : 4096;
+  pad_weights<<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const uint16_t*>(w), static_cast<uint16_t*>(workspace),
+      p.Cin, p.Cout, p.chunks, BN, CK, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kern = conv_kernel<BN, CK>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<pl.grid_x, THREADS, C::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// workspace: at least 2 * tiles_n * chunks * 9 * BN * chunk bytes, 16-byte
+// aligned (conv_plan.box_workspace_bytes).  Returns 0 or an error code;
+// cudaErrorInvalidValue when the plan is not one this body takes, its
+// tiles do not cover the output or the workspace is too small.
+int launch(const wgmma_conv::Plan& pl, const void* x, const void* w,
+           const float* scale, const float* shift, void* out, long long B,
+           int H, int W, int Cin, int Cout, int relu, void* workspace,
+           long long workspace_bytes, cudaStream_t stream) {
+  const int tw_log = wgmma_conv::log2_exact(pl.tw);
+  const int th_log = wgmma_conv::log2_exact(pl.th);
+  if (tw_log < 0 || th_log < 0 || pl.tb < 1 || pl.bm != BM ||
+      pl.tw * pl.th * pl.tb != BM ||
+      pl.tb * (pl.th + 2) * (pl.tw + 2) > BOX_MAX || pl.stages != 2 ||
+      pl.grid_x < 1 || pl.grid_y != 1 || pl.tiles_n < 1 || B > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)pl.tiles_w * pl.tiles_h * pl.tiles_b * pl.tiles_n;
+  if (tiles > 0x7fffffff || (long long)pl.tiles_w << tw_log < W ||
+      (long long)pl.tiles_h << th_log < H || (long long)pl.tiles_b * pl.tb < B ||
+      (long long)pl.tiles_n * pl.bn < Cout || pl.grid_x > tiles ||
+      (pl.grid_x != tiles && pl.grid_x % pl.tiles_n != 0))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = static_cast<const uint16_t*>(x);
+  p.wp = nullptr;
+  p.scale = scale;
+  p.shift = shift;
+  p.out = static_cast<uint16_t*>(out);
+  p.B = (int)B;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.tw_log = tw_log;
+  p.th_log = th_log;
+  p.tb = pl.tb;
+  p.tiles_w = pl.tiles_w;
+  p.tiles_h = pl.tiles_h;
+  p.tiles_n = pl.tiles_n;
+  p.tiles = (int)tiles;
+  p.chunks = pl.chunk > 0 ? (Cin + pl.chunk - 1) / pl.chunk : 0;
+  p.relu = relu;
+  p.vec_x = vec_of(Cin, x);
+  p.vec_out = vec_of(Cout, out);
+  // The (BN, chunk) pairs the plan may name (conv_plan.BOX_BNS x
+  // conv_plan.BOX_CHUNKS).
+#define CONV_BOX_CONFIG(BN_, CK_)                                       \
+  if (pl.bn == BN_ && pl.chunk == CK_)                                  \
+    return launch_config<BN_, CK_>(pl, p, w, workspace, workspace_bytes, \
+                                   stream);
+  CONV_BOX_CONFIG(16, 8)
+  CONV_BOX_CONFIG(32, 8)
+  CONV_BOX_CONFIG(48, 8)
+  CONV_BOX_CONFIG(64, 8)
+  CONV_BOX_CONFIG(16, 32)
+  CONV_BOX_CONFIG(32, 32)
+  CONV_BOX_CONFIG(48, 32)
+  CONV_BOX_CONFIG(64, 32)
+#undef CONV_BOX_CONFIG
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace bf16
@@ -423,47 +935,49 @@ conv_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out share it; scale and shift
 // are float32).  x (B, H, W, Cin), w (Cout, 9, Cin) K-major, out (B, H, W,
 // Cout), all contiguous.  plan: wgmma_conv::PLAN_INTS ints from
-// ops/kernels/conv_plan.py (body, box, BN, stages, grid, tiles).  Returns 0,
-// or the error of a refused tensor-map encode, shared-memory attribute or
-// launch, or cudaErrorInvalidValue for a plan the body does not take or
-// whose grid does not cover the output.
+// ops/kernels/conv_plan.py (body, box, BN, stages, grid, tiles, chunk,
+// shared-memory bytes).  workspace: the mma_sync body's padded weights
+// (conv_plan.box_workspace_bytes; unused by the others).  Returns 0, or the
+// error of a refused tensor-map encode, shared-memory attribute or launch,
+// or cudaErrorInvalidValue for a plan the body does not take or whose grid
+// or tiles do not cover the output.
 extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
                                           const void* w, const void* scale,
                                           const void* shift, void* out,
                                           long long B, int H, int W, int Cin,
                                           int Cout, int relu, const int* plan,
+                                          void* workspace,
+                                          long long workspace_bytes,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const wgmma_conv::Plan pl = *reinterpret_cast<const wgmma_conv::Plan*>(plan);
   const int64_t M = (int64_t)B * H * W;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
-  const dim3 grid((unsigned)pl.grid_x, (unsigned)pl.grid_y);
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  static_assert(f32::BM == bf16::BM && f32::BN == bf16::BN,
-                "the register-staged bodies share one tile");
-  const bool covers = (int64_t)pl.grid_x * f32::BM >= M &&
-                      (int64_t)pl.grid_y * f32::BN >= Cout;
-  if (pl.body != kWgmma && !covers) {
-    return (int)cudaErrorInvalidValue;
-  } else if (dtype == 0 && pl.body == kFmaVec && Cin % 8 == 0 && aligned) {
-    f32::conv_kernel<true><<<grid, f32::THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
-        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
-  } else if (dtype == 0 && pl.body == kFma) {
-    f32::conv_kernel<false><<<grid, f32::THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
-        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
-  } else if (dtype == 1 && pl.body == kMmaSync) {
-    bf16::conv_kernel<<<grid, bf16::THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), sc,
-        sh, static_cast<__nv_bfloat16*>(out), M, H, W, Cin, Cout, relu);
+  if (dtype == 1 && pl.body == kMmaSync) {
+    return bf16::launch(pl, x, w, sc, sh, out, B, H, W, Cin, Cout, relu,
+                        workspace, workspace_bytes, s);
   } else if (dtype == 1 && pl.body == kWgmma) {
     return wgmma_conv::launch<true>(pl, x, w, sc, sh, out, B, H, W, Cin, Cout,
                                     /*halo=*/1, relu, s);
-  } else {
+  } else if (dtype != 0 || (pl.body != kFma && pl.body != kFmaVec)) {
     return (int)cudaErrorInvalidValue;
+  }
+  // float32: a (grid_x, grid_y) grid of BM-pixel x BN-channel tiles.
+  const dim3 grid((unsigned)pl.grid_x, (unsigned)pl.grid_y);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if ((int64_t)pl.grid_x * f32::BM < M || (int64_t)pl.grid_y * f32::BN < Cout)
+    return (int)cudaErrorInvalidValue;
+  if (pl.body == kFmaVec) {
+    if (Cin % 8 != 0 || !aligned) return (int)cudaErrorInvalidValue;
+    f32::conv_kernel<true><<<grid, f32::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
+        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
+  } else {
+    f32::conv_kernel<false><<<grid, f32::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
+        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
   }
   return (int)cudaGetLastError();
 }

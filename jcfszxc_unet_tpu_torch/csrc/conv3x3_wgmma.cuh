@@ -516,11 +516,13 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
 }
 
 // The launch plan, as computed by ops/kernels/conv_plan.py (ConvPlan.ints).
+// chunk and smem are the mma_sync body's (channels a K step, shared-memory
+// bytes a block); the wgmma body reads neither.
 struct Plan {
   int body, bm, tw, th, tb, bn, stages, strip, grid_x, grid_y, tiles_w,
-      tiles_h, tiles_b, tiles_n;
+      tiles_h, tiles_b, tiles_n, chunk, smem;
 };
-constexpr int PLAN_INTS = 14;
+constexpr int PLAN_INTS = 16;
 
 inline int log2_exact(int v) {
   int l = 0;

@@ -101,7 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     plan = ctypes.POINTER(ctypes.c_int)  # conv_plan.ConvPlan.ints()
     lib.conv3x3_affine_relu_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, plan, vp]
+        i32, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, plan, vp, i64,
+        vp]
     lib.conv3x3_affine_relu_launch.restype = i32
     lib.dice_sums_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]

@@ -17,10 +17,14 @@ boxes of output pixels whose out-of-image taps TMA zero-fills, or as
 haloed row strips that serve three taps each, into a persistent,
 warp-specialised ``mbarrier`` ring.  It takes every bf16 call with
 Cin % 8 == 0 and 16-byte-aligned operands.  TMA needs 16-byte global
-strides, and a pixel of UNet's first conv (Cin = 3) is 6 bytes, so that
-conv keeps the register-staged ``mma.sync`` body; f32 runs on FMAs so
-that its products stay f32.  :func:`conv_plan.plan_conv` picks the body
-and the tile from the dtype, the shapes and the alignment.
+strides, and a pixel of the stem (Cin = 3) is 6 bytes, so every other bf16
+call (the stems, MultiResUNet's odd widths) takes the ``mma_sync`` body:
+one haloed input box per tile in shared memory with its channels padded
+to a multiple of 8, the nine taps as fixed offsets into it, ``ldmatrix`` +
+``mma.sync``, the weights padded once per call into a workspace that
+:func:`launch` allocates.  f32 runs on FMAs so that its products stay
+f32.  :func:`conv_plan.plan_conv` picks the body and the tile from the
+dtype, the shapes and the alignment.
 
 :func:`conv3x3_affine_relu_torch` is the plain PyTorch version.  The
 wrappers check their inputs and call the ``jcfszxc_unet::conv3x3_affine_relu``
@@ -94,12 +98,17 @@ def launch(x, w_km, scale, shift, relu: bool, plan: conv_plan.ConvPlan):
     if out.numel() == 0:
         return out
     lib = build.load_library()
+    # the mma_sync body's weights, padded by the launch into its layout
+    ws_bytes = conv_plan.box_workspace_bytes(plan, cin)
+    ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+          if ws_bytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.conv3x3_affine_relu_launch(
             _DTYPE_CODES[x.dtype], x.data_ptr(), w_km.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            b, h, wd, cin, cout, int(relu), plan.ints(), stream)
+            b, h, wd, cin, cout, int(relu), plan.ints(),
+            ws.data_ptr() if ws is not None else None, ws_bytes, stream)
     build.check(lib, code, "conv3x3_affine_relu")
     counter.add(plan.body)
     return out

@@ -12,8 +12,12 @@ Bodies:
 
 * ``wgmma``: bf16 with Cin % 8 == 0 and x, w 16-byte aligned.  TMA needs
   16-byte-aligned global strides, and the W stride of x is 2*Cin bytes.
-* ``mma_sync``: every other bf16 call (UNet's first conv, Cin = 3):
-  register-staged gather, ``mma.sync``.
+* ``mma_sync``: every other bf16 call (every model's Cin-3 stem,
+  MultiResUNet's odd widths, an unaligned view): one haloed input box per
+  tile in shared memory with the channels padded to a multiple of 8, read
+  at nine fixed offsets by ``wgmma`` (Cin > 8) or ``ldmatrix`` +
+  ``mma.sync`` (Cin <= 8); :func:`box_plan` picks its box, channel tile,
+  channel chunk and persistent grid.
 * ``fma_vec`` / ``fma``: float32 on the CUDA cores, with or without
   16-byte loads.  The im2col kernel's f32 body is ``fma``.
 """
@@ -30,9 +34,18 @@ BK = 64    # channels of one tap per K step
 
 BODIES = {"fma": 0, "fma_vec": 1, "mma_sync": 2, "wgmma": 3}
 
-# Tiles of the register-staged bodies (fma, fma_vec, mma_sync): 128 pixels
-# taken in (b, y, x) order x 64 channels.
+# Tiles of the f32 bodies (fma, fma_vec): 128 pixels taken in (b, y, x)
+# order x 64 channels.
 _SIMPLE_BM, _SIMPLE_BN = 128, 64
+
+# The mma_sync body (csrc/conv3x3_affine_relu.cu, namespace bf16): tiles of
+# BOX_BM pixels, a (TW, TH, TB) box whose haloed input, TB (TH + 2)
+# (TW + 2) pixels, is at most BOX_MAX; the channel tiles and chunks it is
+# instantiated for (CONV_BOX_CONFIG); 256 threads a block, two
+# shared-memory stages.
+BOX_BM, BOX_MAX, BOX_THREADS, BOX_STAGES = 128, 240, 256, 2
+BOX_BNS = (16, 32, 48, 64)
+BOX_CHUNKS = (8, 32)
 
 
 # (BM, BN, stages, strip) of the wgmma body that the launchers instantiate
@@ -67,7 +80,9 @@ class ConvPlan:
     stages: int                    # wgmma ring depth
     strip: int                     # 1: wgmma stages of haloed row strips
     grid: tuple[int, int]
-    tiles: tuple[int, int, int, int]  # wgmma tiles along (W, H, B, Cout)
+    tiles: tuple[int, int, int, int]  # box tiles along (W, H, B, Cout)
+    chunk: int = 0                 # mma_sync: channels a K step
+    smem: int = 0                  # mma_sync: shared-memory bytes a block
 
     @property
     def n_tiles(self) -> int:
@@ -77,7 +92,7 @@ class ConvPlan:
     def ints(self):
         """The plan as the launchers read it (``wgmma_conv::Plan``)."""
         vals = (BODIES[self.body], self.bm, *self.box, self.bn, self.stages,
-                self.strip, *self.grid, *self.tiles)
+                self.strip, *self.grid, *self.tiles, self.chunk, self.smem)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -117,8 +132,8 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
         raise ValueError("the im2col kernel's bf16 operands must have "
                          "C % 8 == 0 and be 16-byte aligned")
     if dtype == torch.bfloat16:
-        body = "mma_sync"
-    elif cin % 8 == 0 and aligned and not imcol:
+        return box_plan(b, h, w, cin, cout, sm_count)
+    if cin % 8 == 0 and aligned and not imcol:
         body = "fma_vec"
     else:
         body = "fma"
@@ -149,3 +164,97 @@ def wgmma_plan(b: int, h: int, w: int, cout: int,
 
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def box_chunk(cin: int) -> int:
+    """Channels a K step of the mma_sync body: the whole input where it
+    has at most 8 (one ``mma.sync`` m16n8k8 a tap), else chunks of 32
+    (two ``wgmma`` k16 steps a tap)."""
+    return 8 if cin <= 8 else 32
+
+
+def box_plane(bn: int, chunk: int) -> int:
+    """Box pixels of one 8-channel plane in shared memory
+    (``Cfg<BN, CK>::PLANE``): BOX_MAX, or for wgmma enough for the
+    epilogue's bf16 tile in the planes, made 2 mod 8 in 16-byte words."""
+    cst, n8 = BOX_BM * (bn + 8), chunk // 8
+    least = -(-cst // (8 * n8)) if chunk == 32 and cst > BOX_MAX * 8 * n8 \
+        else BOX_MAX
+    return least + (10 - least % 8) % 8
+
+
+def box_smem(bn: int, chunk: int) -> int:
+    """Shared-memory bytes of one block (``Cfg<BN, CK>::SMEM``): two
+    stages of the haloed box's 8-channel planes and the (9, chunk / 8, BN)
+    weight rows, and for mma.sync the epilogue's bf16 tile (wgmma's lives
+    in a finished stage)."""
+    stage = (chunk // 8) * box_plane(bn, chunk) * 8 + 9 * chunk * bn
+    cst = BOX_BM * (bn + 8)
+    return (2 * stage + (0 if chunk == 32 else cst)) * 2
+
+
+def box_workspace_bytes(plan: ConvPlan, cin: int) -> int:
+    """Bytes of the mma_sync body's padded weights, (tiles_n, chunks, 9,
+    chunk / 8, BN, 8) bf16; 0 for the other bodies."""
+    if plan.body != "mma_sync":
+        return 0
+    return 2 * plan.tiles[3] * _cdiv(cin, plan.chunk) * 9 * plan.bn * plan.chunk
+
+
+def box_blocks_per_sm(chunk: int) -> int:
+    """Blocks an SM holds (``Cfg<BN, CK>::MIN_BLOCKS``): two with wgmma
+    (two stages of up to 111 KB), three with mma.sync."""
+    return 2 if chunk == 32 else 3
+
+
+def box_bn(cout: int) -> int:
+    """The channel tile with the fewest padded channels, each tile counted
+    16 channels more for the box it loads again; ties to the wider."""
+    return min(BOX_BNS, key=lambda bn: (_cdiv(cout, bn) * (bn + 16), -bn))
+
+
+def choose_halo_box(b: int, h: int, w: int, chunk: int = 8
+                    ) -> tuple[int, int, int]:
+    """(TW, TH, TB), powers of two with TW * TH * TB = BOX_BM and a haloed
+    box of at most BOX_MAX pixels, that cover the batch of h x w maps at
+    the least cost: per tile its BOX_BM rows of products and half its box
+    pixels of loads; ties go to the widest, then tallest box.  wgmma
+    (chunk 32) reads a box row of 8 pixels as one core matrix and a
+    warpgroup's 64 rows as 8 rows of one image: TW = 8 and TH >= 8."""
+    best = None
+    bits = BOX_BM.bit_length() - 1
+    for lw in range(bits + 1):
+        for lh in range(bits + 1 - lw):
+            tw, th = 1 << lw, 1 << lh
+            tb = BOX_BM // (tw * th)
+            px = tb * (th + 2) * (tw + 2)
+            if px > BOX_MAX or (chunk == 32 and (tw != 8 or th < 8)):
+                continue
+            n = _cdiv(w, tw) * _cdiv(h, th) * _cdiv(b, tb)
+            key = (n * (2 * BOX_BM + px), -tw, -th)
+            if best is None or key < best[0]:
+                best = (key, (tw, th, tb))
+    return best[1]
+
+
+def box_plan(b: int, h: int, w: int, cin: int, cout: int,
+             sm_count: int, box: tuple[int, int, int] | None = None
+             ) -> ConvPlan:
+    """The mma_sync body's plan: :func:`box_chunk`'s chunk,
+    :func:`choose_halo_box`'s box (or ``box``), :func:`box_bn`'s channel
+    tile, and a persistent grid of at most as many blocks as the SMs hold,
+    a multiple of the channel tiles so that each block keeps its channels
+    (and, with one chunk, its weights in shared memory)."""
+    chunk = box_chunk(cin)
+    tw, th, tb = box or choose_halo_box(b, h, w, chunk)
+    if (tw * th * tb != BOX_BM or tb * (th + 2) * (tw + 2) > BOX_MAX
+            or (chunk == 32 and (tw != 8 or th < 8))):
+        raise ValueError(f"box {(tw, th, tb)} is not one the mma_sync body "
+                         f"takes at Cin {cin}")
+    bn = box_bn(cout)
+    tiles = (_cdiv(w, tw), _cdiv(h, th), _cdiv(b, tb), _cdiv(cout, bn))
+    n = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    cap = box_blocks_per_sm(chunk) * sm_count
+    cap = max(tiles[3], cap - cap % tiles[3])
+    return ConvPlan("mma_sync", BOX_BM, (tw, th, tb), bn, BOX_STAGES, 0,
+                    (min(n, cap), 1), tiles, chunk, box_smem(bn, chunk))

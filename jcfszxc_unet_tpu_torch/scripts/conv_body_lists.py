@@ -1,0 +1,253 @@
+"""Kernel 1's ``mma_sync`` body on its conv lists, on the card.
+
+The body takes every bf16 3x3 conv whose Cin is not a multiple of 8: the
+Cin-3 stem of every model (UNet's at the eval chunk of 16 x 512^2 and at
+a whole 608 x 576 image, the fractal extractor's stacked 3 -> 32 on two
+whole DRIVE images), MultiResUNet's 25 odd-width convs at 16 x 512^2 and
+the same model's 25 in space-to-depth mode.  For each list this times
+kernel 1 (through the K-major entry that ``ops/blocks`` calls), checks
+every shape against the plain version, and with ``--library`` also times
+cuDNN's ``F.conv2d`` alone (channels_last, TF32 off) and the route of
+padding Cin to a multiple of 8 with a copy of x (``F.pad``) and running
+the ``wgmma`` body on the padded operands; bounds are bytes over 3.35 TB/s
+or operations over 989 TFLOP/s.
+
+It uses only the entry every checkout of the package since kernel 1 was
+ported has, so it also times another checkout put first on
+``PYTHONPATH``; run it in turns from two checkouts to compare their
+bodies in one call (``git archive`` the other into a git-ignored
+directory first):
+
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists --library \\
+        --out new.json
+    PYTHONPATH=<other checkout> python <this file> --out other.json
+
+Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+TOL = 1e-2  # bf16 against the plain version, of max |plain|
+
+# (B, H, W, Cin, Cout, relu) -> launches per forward.
+STEMS = {
+    (16, 512, 512, 3, 64, True): 1,   # UNet's stem, eval chunk
+    (1, 608, 576, 3, 64, True): 1,    # whole image (608 x 576 padded)
+    (2, 584, 565, 3, 32, True): 1,    # fractal extractor, 2 whole images
+}
+# MultiResUNet's convs with Cin % 8 != 0 at an eval chunk of 16 x 512^2,
+# as ops/blocks records them on one patch (chip_smoke.py's zoo_eval and
+# s2d phases hold the model's recorded lists to these).
+MULTIRES = {
+    (16, 512, 512, 3, 8, True): 1, (16, 512, 512, 17, 26, True): 2,
+    (16, 512, 512, 51, 32, True): 1, (16, 256, 256, 17, 35, True): 2,
+    (16, 256, 256, 35, 53, True): 2, (16, 256, 256, 51, 17, True): 1,
+    (16, 256, 256, 105, 64, True): 1, (16, 128, 128, 35, 71, True): 2,
+    (16, 128, 128, 71, 106, True): 2, (16, 128, 128, 105, 35, True): 1,
+    (16, 128, 128, 212, 128, True): 1, (16, 64, 64, 71, 142, True): 2,
+    (16, 64, 64, 142, 213, True): 2, (16, 64, 64, 212, 71, True): 1,
+    (16, 64, 64, 426, 256, True): 1, (16, 32, 32, 142, 284, True): 1,
+    (16, 32, 32, 284, 427, True): 1, (16, 32, 32, 426, 142, True): 1,
+}
+MULTIRES_S2D = {
+    (16, 256, 256, 12, 32, True): 1, (16, 256, 256, 68, 104, True): 2,
+    (16, 256, 256, 204, 128, True): 1, (16, 128, 128, 35, 71, True): 2,
+    (16, 128, 128, 68, 140, True): 2, (16, 128, 128, 71, 106, True): 2,
+    (16, 128, 128, 105, 35, True): 1, (16, 128, 128, 140, 212, True): 2,
+    (16, 128, 128, 204, 68, True): 1, (16, 128, 128, 212, 128, True): 1,
+    (16, 128, 128, 420, 256, True): 1, (16, 64, 64, 71, 142, True): 2,
+    (16, 64, 64, 142, 213, True): 2, (16, 64, 64, 212, 71, True): 1,
+    (16, 64, 64, 426, 256, True): 1, (16, 32, 32, 142, 284, True): 1,
+    (16, 32, 32, 284, 427, True): 1, (16, 32, 32, 426, 142, True): 1,
+}
+LISTS = {"stems": STEMS, "multires": MULTIRES, "multires_s2d": MULTIRES_S2D}
+
+
+def conv_cost(b, h, w, cin, cout):
+    """(flops, bytes) of one bf16 fused conv: x, w, scale, shift read
+    once, out written once."""
+    m = b * h * w
+    flops = 2 * m * cout * 9 * cin + 3 * m * cout
+    nbytes = (m * cin + 9 * cin * cout + m * cout) * 2 + 2 * cout * 4
+    return flops, nbytes
+
+
+def bound_ms(flops, nbytes):
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def time_ms(fn, target_ms=20.0, max_reps=50):
+    """Mean device time of ``fn`` by CUDA events over back-to-back calls,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    reps = int(min(max_reps, max(3, math.ceil(target_ms / max(first, 1e-3)))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pad8_inputs(x, w_km):
+    """x and the K-major weights with Cin zero-padded to a multiple of 8
+    (fresh, 16-byte-aligned tensors: the wgmma body's operands)."""
+    import torch.nn.functional as F
+
+    pad = -x.shape[3] % 8
+    return (F.pad(x, (0, pad)).contiguous(),
+            F.pad(w_km, (0, pad)).contiguous())
+
+
+def pad8_route(x, w_km, scale, shift, relu, target_ms=20.0):
+    """The route of padding Cin to a multiple of 8 with a copy of x and
+    running kernel 1 on the padded operands (the wgmma body): ms of the
+    copy, ms of kernel 1 on the copies, the body that ran, and its output
+    (f32) for a check."""
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_kmajor,
+    )
+
+    xp, wp = pad8_inputs(x, w_km)
+    out = {"pad_ms": time_ms(lambda: pad8_inputs(x, w_km)[0], target_ms),
+           "pad8_wgmma_ms": time_ms(lambda: conv3x3_affine_relu_kmajor(
+               xp, wp, scale, shift, relu), target_ms),
+           "pad8_body": conv_fused.plan_for(xp, wp).body}
+    return out, conv3x3_affine_relu_kmajor(xp, wp, scale, shift,
+                                           relu).float()
+
+
+def run_list(calls, library, seed=7, target_ms=20.0):
+    """Rows per shape and weighted totals of one list."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_kmajor,
+        conv3x3_affine_relu_torch,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for (b, h, wd, cin, cout, relu), n in calls.items():
+        x = torch.randn((b, h, wd, cin), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device="cuda")
+             / math.sqrt(9 * cin)).to(torch.bfloat16)
+        scale = 0.5 + torch.rand((cout,), generator=g, device="cuda")
+        shift = 0.1 * torch.randn((cout,), generator=g, device="cuda")
+        w_km = w.permute(3, 0, 1, 2).contiguous()
+        before = dict(conv_fused.counter.bodies)
+        got = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu).float()
+        body = [k for k, v in conv_fused.counter.bodies.items()
+                if v != before.get(k, 0)]
+        want = conv3x3_affine_relu_torch(x, w, scale, shift, relu).float()
+        err = float((got - want).abs().max())
+        ref = float(want.abs().max())
+        del got, want
+        flops, nbytes = conv_cost(b, h, wd, cin, cout)
+        row = {"shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
+               "body": body[0] if body else None,
+               "max_abs_err": err, "max_abs_plain": ref,
+               "ok": err <= TOL * ref, "flops": flops, "bytes": nbytes,
+               "bound_ms": bound_ms(flops, nbytes),
+               "ms": time_ms(lambda: conv3x3_affine_relu_kmajor(
+                   x, w_km, scale, shift, relu), target_ms)}
+        row["tflops"] = flops / row["ms"] / 1e9
+        if library:
+            x_cl = x.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            row["library_ms"] = time_ms(
+                lambda: F.conv2d(x_cl, w_oihw, padding=1), target_ms)
+            if cin % 8:
+                pad, got = pad8_route(x, w_km, scale, shift, relu, target_ms)
+                want = conv3x3_affine_relu_torch(x, w, scale, shift,
+                                                 relu).float()
+                row.update(pad, pad8_max_abs_err=float(
+                    (got - want).abs().max()))
+                row["pad8_ok"] = row["pad8_max_abs_err"] <= TOL * ref
+                del got, want
+            else:
+                row["pad_ms"] = 0.0
+                row["pad8_wgmma_ms"] = row["ms"]
+        rows.append(row)
+        del x, w, w_km
+    keys = ["ms", "bound_ms", "flops", "bytes"]
+    if library:
+        keys += ["library_ms", "pad_ms", "pad8_wgmma_ms"]
+    total = {k: sum(r["count"] * r[k] for r in rows) for k in keys}
+    total["n_convs"] = sum(calls.values())
+    total["tflops"] = total["flops"] / total["ms"] / 1e9
+    total["checks_ok"] = sum(r["ok"] for r in rows)
+    total["checks"] = len(rows)
+    total["max_err_rel"] = max(r["max_abs_err"] / r["max_abs_plain"]
+                               for r in rows)
+    return {"rows": rows, "total": total}
+
+
+def gpu_name_and_power():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as err:
+        return f"nvidia-smi failed: {err}"
+
+
+def main():
+    import torch
+
+    import jcfszxc_unet_tpu_torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--library", action="store_true",
+                    help="also time cuDNN and the pad-to-8 + wgmma route")
+    ap.add_argument("--out", default=None, help="write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_body_lists needs a CUDA GPU")
+    res = {"package": jcfszxc_unet_tpu_torch.__file__,
+           "gpu": gpu_name_and_power(),
+           "lists": {name: run_list(calls, args.library)
+                     for name, calls in LISTS.items()}}
+    for name, lst in res["lists"].items():
+        t = lst["total"]
+        extra = (f", cuDNN {t['library_ms']:.3f} ms, pad {t['pad_ms']:.3f} + "
+                 f"wgmma {t['pad8_wgmma_ms']:.3f} ms" if args.library else "")
+        print(f"{name}: {t['n_convs']} convs, kernel {t['ms']:.3f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), bound {t['bound_ms']:.3f} ms"
+              f"{extra}; {t['checks_ok']}/{t['checks']} within {TOL} "
+              f"(max {t['max_err_rel']:.2e})", flush=True)
+    print(res["gpu"], flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    if any(r["total"]["checks_ok"] != r["total"]["checks"]
+           or not all(row.get("pad8_ok", True) for row in r["rows"])
+           for r in res["lists"].values()):
+        raise SystemExit("a shape disagrees with the plain version")
+
+
+if __name__ == "__main__":
+    main()

@@ -218,6 +218,8 @@ def test_body_choice():
     assert body(3, bf16) == "mma_sync"             # UNet's first conv
     assert body(8, bf16) == "wgmma"                # MultiResUNet's Cin 8
     assert body(17, bf16) == "mma_sync"            # and its odd widths
+    for cin in (12, 68, 204):                      # and its s2d widths
+        assert body(cin, bf16) == "mma_sync"
     assert body(64, bf16, aligned=False) == "mma_sync"
     assert body(64, f32) == "fma_vec"
     assert body(3, f32) == "fma"
@@ -234,7 +236,7 @@ def test_wgmma_plan_is_persistent_and_covers_the_output():
     small = plan_conv(1, 8, 16, 64, 96, torch.bfloat16, True, sm_count=132)
     assert (small.bn, small.n_tiles, small.grid) == (128, 1, (1, 1))
     ints = list(plan.ints())
-    assert len(ints) == 14 and ints[0] == 3  # wgmma_conv::Plan, body code
+    assert len(ints) == 16 and ints[0] == 3  # wgmma_conv::Plan, body code
 
 
 @pytest.mark.parametrize("config", [c for c in WGMMA_CONFIGS

@@ -42,6 +42,8 @@ from jcfszxc_unet_tpu_torch.ops.kernels.dice_fused import (
     dice_sums_torch,
 )
 
+from .test_torch_port_conv_box import CASES as CONV_BOX_CASES
+
 # (B, H, W, Cin, Cout, relu): UNet's inc (Cin 3 -> 64), a 16 -> 128 conv,
 # ReLU off, and a ragged 7 x 10 image.
 CONV_CASES = [
@@ -281,6 +283,19 @@ def test_conv_kernel_plan_edges_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
 def test_conv_kernel_zoo_shapes_on_gpu(cuda_device, dtype, tol, b, h, w, cin,
                                        cout, relu):
     _check_conv_on_gpu(cuda_device, dtype, tol, b, h, w, cin, cout, relu)
+
+
+# The mma_sync body (bf16, Cin % 8 != 0) at the shapes its CPU emulation
+# covers (tests/test_torch_port_conv_box.py), beside the plain version.
+BOX_CASES = [case[:6] for case in CONV_BOX_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,relu", BOX_CASES)
+def test_conv_box_body_matches_plain_on_gpu(cuda_device, b, h, w, cin, cout,
+                                            relu):
+    _check_conv_on_gpu(cuda_device, torch.bfloat16, 1e-2, b, h, w, cin, cout,
+                       relu)
 
 
 @pytest.mark.cuda
