@@ -21,7 +21,8 @@ Phases, each of which must pass:
    kernel's mma_sync body (bf16, Cin % 8 != 0) on its own lists (the
    stems, MultiResUNet's 25 odd-width convs plain and s2d at 16 x 512^2),
    beside cuDNN and the route of padding Cin to 8 with a copy and running
-   the wgmma body;
+   the wgmma body; every f32 call on the f32_box body, and two f32 calls
+   on the same inputs bit-identical;
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -182,6 +183,7 @@ when a phase fails or no GPU is available.  Details go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -862,18 +864,26 @@ def phase_f32_end_to_end(report, state):
     patches = extract_patches(img, centers, PATCH)
     pred = Predictor(model, compute_dtype=torch.float32, patch_size=PATCH,
                      device="cuda")
+    reset_counts()
     got = pred.predict_patches(patches)[..., 0]
+    _, bodies = launch_counts()
     with torch.inference_mode():
         logits = plain_unet_forward(model, patches.permute(0, 3, 1, 2))
         want = torch.sigmoid(logits.float())[:, 0]
     diff = float((got - want).abs().max())
     report["f32_end_to_end"] = {"n_patches": int(patches.shape[0]),
                                 "max_abs_dprob": diff, "tolerance": 1e-3,
-                                "prob_std": float(want.std())}
+                                "prob_std": float(want.std()),
+                                "conv_bodies": bodies}
     print(f"[f32] port vs plain forward on {patches.shape[0]} patches: "
-          f"max |dprob| = {diff:.3e} (tolerance 1e-3)", flush=True)
+          f"max |dprob| = {diff:.3e} (tolerance 1e-3); conv bodies "
+          f"{bodies}", flush=True)
     if not np.isfinite(diff) or diff > 1e-3:
         raise AssertionError(f"f32 end-to-end max |dprob| {diff} > 1e-3")
+    # one forward of one chunk: UNet's 18 convs, every one on f32_box
+    if bodies != {"f32_box": 18}:
+        raise AssertionError(f"f32 forward's conv bodies {bodies}, "
+                             f"expected {{'f32_box': 18}}")
 
 
 def phase_kernels(report, state):
@@ -952,18 +962,17 @@ def phase_kernels(report, state):
               f" TFLOP/s), plain {total['plain_ms']:.2f} ms, cuDNN conv "
               f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms "
               f"({total['bound_by']})", flush=True)
-        if dtype == torch.bfloat16:
-            print("[conv] per layer, bf16: size Cin->Cout body ms TFLOP/s "
-                  "bound_ms cuDNN_ms", flush=True)
-            for r in rows:
-                print(f"    {r['hw']:4d}^2 {r['cin']:5d}->{r['cout']:<5d} "
-                      f"{r['body']:8s} {r['ms']:7.3f} {r['tflops']:6.1f} "
-                      f"{r['bound_ms']:7.3f} {r['library_ms']:7.3f}",
-                      flush=True)
-            with open(os.path.join(OUT_DIR, "conv_layers.json"), "w") as f:
-                json.dump({"gpu": gpu_name_and_power(), **conv_times[name]},
-                          f, indent=1)
+        print(f"[conv] per layer, {name}: size Cin->Cout body ms TFLOP/s "
+              f"bound_ms cuDNN_ms plain_ms", flush=True)
+        for r in rows:
+            print(f"    {r['hw']:4d}^2 {r['cin']:5d}->{r['cout']:<5d} "
+                  f"{r['body']:8s} {r['ms']:7.3f} {r['tflops']:6.1f} "
+                  f"{r['bound_ms']:7.3f} {r['library_ms']:7.3f} "
+                  f"{r['plain_ms']:7.3f}", flush=True)
+    with open(os.path.join(OUT_DIR, "conv_layers.json"), "w") as f:
+        json.dump({"gpu": gpu_name_and_power(), **conv_times}, f, indent=1)
     total = conv_times["bfloat16"]["total"]
+    report["f32_repeatable"] = f32_repeatable(g, b)
     state["conv_by_body"] = conv_by_body(conv_times, state["conv_bodies"])
     state["mma_sync_lists"] = mma_sync_lists(checks)
     report["conv_by_body"] = state["conv_by_body"]
@@ -979,12 +988,17 @@ def phase_kernels(report, state):
               f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max "
               f"err / max|plain| {err16:.2e}", flush=True)
     failures = [c for c in checks if not c["ok"]]
-    wrong_body = [c for c in checks if c["dtype"] == "bfloat16"
-                  and c["body"] != ("wgmma" if c["shape"][3] % 8 == 0
-                                    else "mma_sync")]
+    wrong_body = [c for c in checks if c["body"] != (
+        "f32_box" if c["dtype"] == "float32"
+        else "wgmma" if c["shape"][3] % 8 == 0 else "mma_sync")]
     if wrong_body:
-        failures.append({"bf16 Cin % 8 == 0 off the wgmma body or "
-                         "Cin % 8 != 0 off the mma_sync body": wrong_body})
+        failures.append({"f32 off the f32_box body, bf16 Cin % 8 == 0 off "
+                         "the wgmma body or Cin % 8 != 0 off the mma_sync "
+                         "body": wrong_body})
+    unequal = [r for r in report["f32_repeatable"] if not r["identical"]]
+    if unequal:
+        failures.append({"f32 kernel 1 not bit-identical across two calls":
+                         unequal})
 
     # Dice: correctness on 20 x 584 x 565, times at the main path's shape.
     dice_rows = {}
@@ -1050,11 +1064,45 @@ def phase_kernels(report, state):
     ]
 
 
+# Shapes (B taken from the main path) at which two f32 calls of kernel 1
+# on the same inputs must give identical outputs: UNet's stem, its widest
+# map, its deepest conv, and MultiResUNet's first odd-width conv.
+F32_REPEAT_SHAPES = [(512, 3, 64), (512, 64, 64), (32, 1024, 1024),
+                     (512, 17, 26)]
+
+
+def f32_repeatable(g, b):
+    """Kernel 1 (``f32_box``: one accumulation order per output, no
+    atomics) twice on the same f32 inputs at F32_REPEAT_SHAPES, batch
+    ``b``: whether the two outputs are bit-identical."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu,
+    )
+
+    rows = []
+    for hw, cin, cout in F32_REPEAT_SHAPES:
+        x, w, scale, shift = conv_inputs(g, b, hw, hw, cin, cout,
+                                         torch.float32)
+        first = conv3x3_affine_relu(x, w, scale, shift)
+        second = conv3x3_affine_relu(x, w, scale, shift)
+        torch.cuda.synchronize()
+        rows.append({"shape": [b, hw, hw, cin, cout],
+                     "identical": bool(torch.equal(first, second)),
+                     "max_abs_diff": float((first - second).abs().max())})
+        del x, w, first, second
+    print(f"[conv] f32 kernel 1 twice on the same inputs: "
+          f"{sum(r['identical'] for r in rows)}/{len(rows)} shapes "
+          f"bit-identical", flush=True)
+    return rows
+
+
 def conv_by_body(conv_times, bodies):
     """Kernel 1 on UNet's eval-chunk lists split by body (bf16: ``wgmma``
-    and ``mma_sync``; f32: ``fma_vec`` and ``fma``): convs, ms, bound and
-    cuDNN ms per 16-patch forward, and the body's launches on the main
-    path."""
+    and ``mma_sync``; f32: ``f32_box``): convs, ms, bound, plain and cuDNN
+    ms per 16-patch forward (cuDNN with TF32 off), and the body's launches
+    on the main path."""
     out = {}
     for dtype, t in conv_times.items():
         for r in t["rows"]:
@@ -1195,24 +1243,66 @@ def reset_counts():
     jobs.reset_counts()
 
 
+@contextlib.contextmanager
+def shared_pool_windows():
+    """SegNet unpools each 2x2 window to its first maximum, so two f32
+    forwards whose convs sum in different orders can pick different
+    positions where a window's top two values lie a few ulps apart, and
+    the output then moves by ~1e-2 whatever the kernel: on 2 patches of
+    128^2 a window or two flips in some runs under either f32 body of
+    kernel 1.  Inside this block the first forward
+    (the card's) records each window's choice and the next one (the CPU
+    copy's) takes it, counting in ``["flipped"]`` the windows whose own
+    choice differed, so that the comparison measures the arithmetic."""
+    from jcfszxc_unet_tpu_torch.models import SegNet as segnet
+
+    real = segnet.max_pool2d_with_indices
+    log = {"recorded": [], "replay": None, "flipped": 0}
+
+    def pool(x):
+        pooled, onehot = real(x)
+        if log["replay"] is None:
+            log["recorded"].append(onehot.cpu())
+            return pooled, onehot
+        theirs = log["recorded"][log["replay"]].to(onehot.device)
+        log["replay"] += 1
+        log["flipped"] += int((theirs != onehot).any(dim=3).sum())
+        return pooled, theirs
+
+    segnet.max_pool2d_with_indices = pool
+    try:
+        yield log
+    finally:
+        segnet.max_pool2d_with_indices = real
+
+
 def f32_against_cpu_copy(model, fn, **predictor_kwargs):
     """max |dprob| between ``fn(predictor)`` on the card and on a CPU copy
     of ``model``, both f32 (on the CPU the wrappers take their plain
-    versions), and the reference's std; ``predictor_kwargs`` go to both
-    predictors."""
+    versions), with SegNet's pooling windows shared
+    (:func:`shared_pool_windows`), and the reference's std;
+    ``predictor_kwargs`` go to both predictors."""
     import copy
 
     import torch
 
     from jcfszxc_unet_tpu_torch.eval.predictor import Predictor
 
-    got = fn(Predictor(model, compute_dtype=torch.float32, device="cuda",
-                       **predictor_kwargs))
-    cpu = Predictor(copy.deepcopy(model).cpu(), compute_dtype=torch.float32,
-                    device="cpu", **predictor_kwargs)
-    want = fn(cpu)
-    del cpu
+    with shared_pool_windows() as windows:
+        got = fn(Predictor(model, compute_dtype=torch.float32, device="cuda",
+                           **predictor_kwargs))
+        cpu = Predictor(copy.deepcopy(model).cpu(),
+                        compute_dtype=torch.float32, device="cpu",
+                        **predictor_kwargs)
+        windows["replay"] = 0
+        want = fn(cpu)
     diff = float((got.cpu() - want).abs().max())
+    if windows["recorded"]:  # the CPU copy once more with its own choices
+        own = float((got.cpu() - fn(cpu)).abs().max())
+        print(f"[f32] pooling windows: {windows['flipped']} of the CPU "
+              f"copy's chose another first maximum; max |dprob| {diff:.2e} "
+              f"with the card's choices, {own:.2e} with its own", flush=True)
+    del cpu
     return diff, float(want.std())
 
 
@@ -2135,8 +2225,10 @@ def phase_train_val_f32(report, state):
 
     model = state["train_model"]
     val_imgs, val_labs = state["train_val"]
+    reset_counts()
     metrics, probs = make_val_fn(model, compute_dtype=torch.float32)(
         val_imgs, val_labs)
+    _, bodies = launch_counts()
     model.eval()
     with torch.no_grad():
         want = torch.cat([
@@ -2158,15 +2250,21 @@ def phase_train_val_f32(report, state):
         "prob_tolerance": 1e-3, "dice_abs_diff": ddice,
         "dice_tolerance": 1e-3, "kernel_path": {
             k: float(metrics[k]) for k in ("dice", "dice_fg", "dice_avg")},
-        "plain_path": plain, "prob_std": float(want.std())}
+        "plain_path": plain, "prob_std": float(want.std()),
+        "conv_bodies": bodies}
+    n_chunks = math.ceil(val_imgs.shape[0] / VAL_CHUNK)
     print(f"[train-f32] val through the kernels vs plain forward on "
           f"{val_imgs.shape[0]} patches: max |dprob| {dprob:.3e} (tolerance "
           f"1e-3), |ddice| {ddice['dice']:.3e}, |ddice_fg| "
-          f"{ddice['dice_fg']:.3e} (tolerance 1e-3)", flush=True)
+          f"{ddice['dice_fg']:.3e} (tolerance 1e-3); conv bodies {bodies}",
+          flush=True)
     if not (np.isfinite(dprob) and dprob <= 1e-3
             and all(v <= 1e-3 for v in ddice.values())):
         raise AssertionError(
             f"train val f32: max |dprob| {dprob}, |ddice| {ddice}")
+    if bodies != {"f32_box": 18 * n_chunks}:
+        raise AssertionError(f"train val f32 conv bodies {bodies}, expected "
+                             f"{{'f32_box': {18 * n_chunks}}}")
 
 
 def plain_extractor_forward(ext, x):
@@ -3257,6 +3355,8 @@ def phase_multi_device(report, state):
                      backend=backend, timeout_s=MULTI_TIMEOUT_S,
                      join_timeout_s=MULTI_JOIN_S)
     spawn_s = time.perf_counter() - t0
+    state.setdefault("f32_rank_launches", {})["multi_device"] = \
+        rank_f32_launches(tasks, per_rank)
     single = jobs.train_steps(None, device="cuda", **steps)
     maps32 = jobs.tiled_maps(None, device="cuda",
                              **dict(tiled, compute_dtype=torch.float32))
@@ -3427,6 +3527,8 @@ def phase_spatial_sharded(report, state):
                      backend=backend, timeout_s=MULTI_TIMEOUT_S,
                      join_timeout_s=MULTI_JOIN_S)
     spawn_s = time.perf_counter() - t0
+    state.setdefault("f32_rank_launches", {})["spatial_sharded"] = \
+        rank_f32_launches(tasks, per_rank)
 
     # This process, on the images padded as the ranks pad them (H to a
     # multiple of 32 x the ranks; predict_spatial pads W).
@@ -3569,6 +3671,49 @@ def phase_spatial_sharded(report, state):
         raise AssertionError(f"spatial_sharded checks failed: {bad}")
 
 
+def count_bodies_by_phase(state):
+    """Tally kernel 1's launches in this process by phase and body, its
+    checks and timing loops included, into ``state["phase_bodies"]``: the
+    counter's ``add`` (called where the wrapper launches, and nowhere
+    else) also adds to the tally of the phase that ``tally["phase"]``
+    names.  Returns that control dict."""
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+
+    control = {"phase": None}
+    by_phase = state.setdefault("phase_bodies", {})
+    real_add = conv_fused.counter.add
+
+    def add(body):
+        real_add(body)
+        row = by_phase.setdefault(control["phase"], {})
+        row[body] = row.get(body, 0) + 1
+
+    conv_fused.counter.add = add
+    return control
+
+
+def rank_f32_launches(tasks, per_rank):
+    """Kernel 1's launches read in the ranks during the tasks whose compute
+    dtype is float32, all ranks summed: every f32 call of kernel 1 takes
+    the ``f32_box`` body (held in this process by the kernels phase)."""
+    import inspect
+
+    import torch
+
+    from jcfszxc_unet_tpu_torch.parallel import jobs
+
+    total = 0
+    for i, (name, kwargs) in enumerate(tasks):
+        param = inspect.signature(jobs.JOBS[name]).parameters.get(
+            "compute_dtype")
+        dtype = kwargs.get("compute_dtype",
+                           param.default if param is not None else None)
+        if dtype is torch.float32:
+            total += sum(r[i]["launches"]["conv3x3_affine_relu"]
+                         for r in per_rank)
+    return total
+
+
 def kernels_line(state):
     """The kernels of every path, each with its launches summed over the
     paths that ran it (and split by path)."""
@@ -3594,6 +3739,13 @@ def kernels_line(state):
             row["launches_by_model"] = {**state["zoo_conv_launches"],
                                         **state["s2d_conv_launches"]}
             row["by_body"] = state["conv_by_body"]
+            # f32_box launches by phase (this process, checks and timing
+            # loops included) and in the ranks' f32 tasks
+            row["f32_box_launches"] = {
+                **{phase: bodies.get("f32_box", 0) for phase, bodies
+                   in state["phase_bodies"].items()},
+                **{f"{phase}_ranks": n for phase, n
+                   in state.get("f32_rank_launches", {}).items()}}
             row["mma_sync_lists"] = {
                 name: {k: v for k, v in t.items() if k != "rows"}
                 for name, t in state["mma_sync_lists"].items()}
@@ -3627,12 +3779,13 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port's package is not importable from {ROOT}: {e}")
     os.makedirs(OUT_DIR, exist_ok=True)
+    state = {}
+    tally = count_bodies_by_phase(state)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "tf32": False}
-    state = {}
     t_start = time.perf_counter()
     failed = []
     needs = {"train_val_f32": "train_path", "serve": "train_path",
@@ -3657,6 +3810,7 @@ def main() -> None:
             failed.append(name)
             continue
         t_phase = time.perf_counter()
+        tally["phase"] = name
         try:
             if name == "build":
                 phase(report)

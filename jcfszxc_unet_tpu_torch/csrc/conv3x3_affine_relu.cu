@@ -29,10 +29,12 @@
 //     bytes (64 channels out of 3 in), so the epilogue stores each pixel's
 //     channels as 16-byte words; the odd widths by operations, which the box
 //     keeps from repeating its loads and divisions nine times;
-//   * fma (float32): an element-by-element gather in registers with a
-//     per-tap bounds test, double-buffered shared memory, 8 x 4 outputs per
-//     thread on the CUDA cores, so f32 products stay exact f32; fma_vec when
-//     Cin % 8 == 0 and x, w are 16-byte aligned (16-byte loads).
+//   * f32_box (every float32 call): on the CUDA cores, so f32 products stay
+//     exact f32.  One haloed input box per tile in shared memory as channel
+//     planes, fed by a 4-stage cp.async ring with zero fill, and each
+//     thread's 16 pixels x 4 channels (8 x 8 in boxes 8 wide)
+//     register-blocked over the three horizontal taps of a tap row
+//     (namespace f32 below).
 //
 // Offsets into x and out are 64-bit: B*H*W*C passes 2^31 at UNet's shapes.
 
@@ -46,123 +48,196 @@
 namespace {
 
 // Bodies, as numbered by ops/kernels/conv_plan.py.
-enum Body { kFma = 0, kFmaVec = 1, kMmaSync = 2, kWgmma = 3 };
+enum Body { kF32Box = 1, kMmaSync = 2, kWgmma = 3 };
 
-// Source pixel of tap `tap` (0..8, row-major 3x3) for output pixel p at
-// (py, px); false where the tap falls outside the image.
-__device__ __forceinline__ bool tap_source(int tap, int64_t p, int py, int px,
-                                           int H, int W, int64_t* src) {
-  const int dy = tap / 3 - 1;
-  const int dx = tap - (tap / 3) * 3 - 1;
-  const int yy = py + dy;
-  const int xx = px + dx;
-  if (yy < 0 || yy >= H || xx < 0 || xx >= W) return false;
-  *src = p + (int64_t)dy * W + dx;
-  return true;
+// ---------------------------------------------------------------------------
+// cp.async (both box bodies)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes, or zeros where `bytes` is 0 (nothing is read from src then).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// float32: FMA on the CUDA cores
+// float32: one haloed input box per tile, a cp.async ring over channel
+// chunks, register-blocked taps on the CUDA cores
 // ---------------------------------------------------------------------------
+//
+// A tile is BM output pixels, a (TW, TH, TB) box of powers of two with TW a
+// multiple of 8, by BN output channels.  Its input is the haloed box (TB,
+// TH + 2, TW + 2) of x, brought into shared memory once per chunk of CK = 4
+// channels as four channel planes, each box row TW + 4 floats (16-byte
+// aligned rows).  Every box value is one 4-byte cp.async, zero-filled
+// (source size 0) outside the image and past Cin, so the products read no
+// bounds test; each input value is read from device memory once per tile,
+// not once per tap.  Four neighbouring
+// threads copy the four channels of one box pixel, so a warp's copy
+// touches 8 pixels' 16-byte runs; each box pixel's source and plane offset
+// are worked out once per tile into a table after the ring.
+//
+// The weights are laid out once per call by pad_weights into a workspace of
+// (channel tile, chunk, 9, CK, BN) runs, zero past Cout and Cin: a stage's
+// weights are one contiguous run that 16-byte cp.asyncs copy.  STAGES
+// stages ring over the chunks, with one cp.async group and one barrier a
+// chunk.
+//
+// Products.  A thread owns TM consecutive pixels of one box row by TN
+// channels (4 * cg .. + 3, and for TN = 8 also BN / 2 + 4 * cg .. + 3, so a
+// quarter-warp's 16-byte weight reads fall in distinct banks).  For each
+// channel of the chunk and tap row dy it reads the TM + 2 box pixels
+// x0 - 1 .. x0 + TM once (16-byte reads and one 8-byte read) and applies
+// the three horizontal taps from registers, as slices [0..TM-1],
+// [1..TM] and [2..TM+1]: at TM = 16, TN = 4, 5 + 3 shared-memory reads
+// for 192 FFMAs (TM = 8, TN = 8: 3 + 6).  A warp is 8 channel groups by 4
+// pixel groups, so its input reads are broadcasts.
+//
+// Epilogue: scale, shift and ReLU on the accumulators, each pixel's channels
+// stored as 16-byte words (a warp writes 128 contiguous bytes a pixel)
+// where Cout % 4 == 0, else one float at a time.  One accumulation order per
+// output and no atomics: the result is bit-identical from call to call.
+//
+// Bound: 2 * 9 * Cin flops per output value against 4 * (Cin + Cout) bytes,
+// so every UNet conv but the stem is bound by the FFMA pipe (67 TFLOP/s);
+// products stay exact f32 (no TF32).
 
 namespace f32 {
 
-constexpr int BM = 128;   // output pixels per block
-constexpr int BN = 64;    // output channels per block
-constexpr int BK = 16;    // K step
-constexpr int TM = 8;     // pixels per thread
-constexpr int TN = 4;     // channels per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int LDB = BN + 4;  // B row stride: 2-way store conflicts at most
+constexpr int THREADS = 256;  // 8 warps
+constexpr int CK = 4;         // input channels a stage
+constexpr int STAGES = 4;     // cp.async ring depth
 
-static_assert(THREADS == 256, "tile shape and thread count disagree");
-static_assert(BM * BK == THREADS * 8, "each thread gathers 8 A values");
-static_assert(BN * BK == THREADS * 4, "each thread gathers 4 B values");
+// BM pixels (BM / TM pixel groups of TM consecutive pixels of a box row)
+// by BN = TN * (THREADS / (BM / TM)) channels; PLANE floats a channel
+// plane (TB (TH + 2) (TW + 4) at most), 8 mod 32, so the four planes that
+// a unit's four threads write fall in distinct banks; then the box pixels'
+// table, (source, offset) each.
+template <int BM, int TM, int TN>
+struct Cfg {
+  static constexpr int BM_LOG = BM == 128 ? 7 : 8;
+  static constexpr int PG = BM / TM;        // pixel groups
+  static constexpr int CG = THREADS / PG;   // channel groups
+  static constexpr int BN = CG * TN;
+  static constexpr int WC = CG / 8;         // warps across the channel groups
+  static constexpr int PLANE = BM == 128 ? 424 : 616;
+  static constexpr int A_FLOATS = CK * PLANE;
+  static constexpr int B_FLOATS = 9 * CK * BN;  // one (tile, chunk)
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM = STAGES * STAGE * 4 + PLANE * 8;
+  static_assert((1 << BM_LOG) == BM && CG % 8 == 0 &&
+                    (TN == 4 || TN == 8) && (TM == 8 || TM == 16),
+                "tile layout");
+  static_assert(PLANE % 32 == 8, "plane banks");
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks an SM");
+};
 
-// Gathers this thread's 8 A values (one pixel, k in [k0, k0 + 8)) and 4 B
-// values (one output channel, 4 consecutive k) of K step kt.
-// VEC: Cin % 8 == 0 and x, w 16-byte aligned, so the 8 k's share one tap
-// and are two float4 loads, and the 4 weights are one.
-template <bool VEC>
-__device__ __forceinline__ void gather(
-    const float* __restrict__ x, const float* __restrict__ w, int kt, int K,
-    int Cin, int Cout, int H, int W, int64_t ap, bool a_valid, int ay, int ax,
-    int ak, int bk, int bn, int n0, float (&a_reg)[8], float (&b_reg)[4]) {
-  const int k0 = kt * BK + ak;
-  if (VEC) {
-    int64_t src;
-    const int tap = k0 / Cin;
-    if (a_valid && k0 < K && tap_source(tap, ap, ay, ax, H, W, &src)) {
-      const float* q = x + src * Cin + (k0 - tap * Cin);
-      const float4 lo = *reinterpret_cast<const float4*>(q);
-      const float4 hi = *reinterpret_cast<const float4*>(q + 4);
-      a_reg[0] = lo.x; a_reg[1] = lo.y; a_reg[2] = lo.z; a_reg[3] = lo.w;
-      a_reg[4] = hi.x; a_reg[5] = hi.y; a_reg[6] = hi.z; a_reg[7] = hi.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a_reg[j] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + j;
-      const int tap = k / Cin;
-      int64_t src;
-      a_reg[j] = (a_valid && k < K && tap_source(tap, ap, ay, ax, H, W, &src))
-                     ? x[src * Cin + (k - tap * Cin)]
-                     : 0.f;
-    }
-  }
-  const int kb = kt * BK + bk;
-  const int n = n0 + bn;
-  const float* wr = w + (int64_t)n * K + kb;  // four threads: 64 bytes
-  if (VEC) {  // K % 8 == 0: the 4 k's are all in or all out
-    const float4 v = (n < Cout && kb < K) ? *reinterpret_cast<const float4*>(wr)
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    b_reg[0] = v.x; b_reg[1] = v.y; b_reg[2] = v.z; b_reg[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b_reg[j] = (n < Cout && kb + j < K) ? wr[j] : 0.f;
-  }
-}
+struct Params {
+  const float* x;      // (B, H, W, Cin)
+  const float* wp;     // the laid-out weights (tiles_n, chunks, 9, CK, BN)
+  const float* scale;
+  const float* shift;
+  float* out;          // (B, H, W, Cout)
+  int B, H, W, Cin, Cout;
+  int tw_log, th_log, tb;  // box: TW = 1 << tw_log, TH = 1 << th_log
+  int rs;                  // floats a box row: TW + 4
+  int tiles_w, tiles_h, tiles_n;
+  int chunks;              // ceil(Cin / CK)
+  int relu;
+  int vec_out;             // Cout % 4 == 0 and out 16-byte aligned
+};
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ scale, const float* __restrict__ shift,
-            float* __restrict__ out, int64_t M, int H, int W, int Cin,
-            int Cout, int relu) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][LDB];
+template <int BM, int TM, int TN>
+__global__ void __launch_bounds__(THREADS, 2) conv_kernel(const Params p) {
+  using C = Cfg<BM, TM, TN>;
+  extern __shared__ __align__(16) float f32_smem[];
 
   const int tid = threadIdx.x;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * Cin;
-  const int KT = (K + BK - 1) / BK;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int TH = 1 << p.th_log;
+  const int BW = (1 << p.tw_log) + 2;
+  const int BH = TH + 2;
 
-  // Gather roles: a warp takes 32 consecutive pixels at one k offset, so
-  // its shared-memory stores hit 32 different banks; for B, one output
-  // channel and 4 consecutive k, four threads to a channel, so a warp
-  // reads 8 channels' 64-byte runs of k.
-  const int am = tid % BM;
-  const int ak = (tid / BM) * 8;
-  const int64_t ap = m0 + am;
-  const bool a_valid = ap < M;
-  int ay = 0;
-  int ax = 0;
-  if (a_valid) {
-    const int64_t row = ap / W;
-    ax = (int)(ap - row * W);
-    ay = (int)(row % H);
+  // The tile: channel tile fastest, so the blocks that read one box run
+  // together.
+  int t = blockIdx.x;
+  const int nt = t % p.tiles_n;
+  t /= p.tiles_n;
+  const int x0 = (t % p.tiles_w) << p.tw_log;
+  t /= p.tiles_w;
+  const int y0 = (t % p.tiles_h) << p.th_log;
+  const int b0 = t / p.tiles_h * p.tb;
+  const int n0 = nt * C::BN;
+
+  // The box pixels' table, after the ring: the pixel of x each copies (-1
+  // outside the image) and its offset in a plane, fixed over the chunks.
+  int2* tab = reinterpret_cast<int2*>(f32_smem + STAGES * C::STAGE);
+  const int box_px = p.tb * BH * BW;
+  for (int e = tid; e < box_px; e += THREADS) {
+    const int r = e / BW;
+    const int px = e - r * BW;
+    const int pb = r / BH;
+    const int py = r - pb * BH;
+    const int xx = x0 - 1 + px;
+    const int yy = y0 - 1 + py;
+    const int bb = b0 + pb;
+    const bool in = bb < p.B && (unsigned)yy < (unsigned)p.H &&
+                    (unsigned)xx < (unsigned)p.W;
+    tab[e] = make_int2(in ? (bb * p.H + yy) * p.W + xx : -1, r * p.rs + px);
   }
-  const int bn = tid / (BK / 4);
-  const int bk = (tid % (BK / 4)) * 4;
+  __syncthreads();
 
-  // Compute roles: TM pixels x TN channels per thread.
-  const int tn = tid % (BN / TN);
-  const int tm = tid / (BN / TN);
+  const uint32_t ring = wgmma_conv::smem_u32(f32_smem);
+  // Chunk k into stage `slot`: channel lc of box pixels tid / 4, + 64, ...
+  // (a unit), then the weights.
+  const int lc = tid & (CK - 1);
+  auto load = [&](int k, int slot) {
+    const uint32_t sa = ring + slot * (C::STAGE * 4);
+    const uint32_t sp = sa + lc * (C::PLANE * 4);
+    const int ch = k * CK + lc;
+    for (int e = tid / CK; e < box_px; e += THREADS / CK) {
+      const int2 t = tab[e];
+      const bool ok = t.x >= 0 && ch < p.Cin;
+      cp_async4(sp + t.y * 4, ok ? p.x + (int64_t)t.x * p.Cin + ch : p.x,
+                ok ? 4 : 0);
+    }
+    const float* wsrc = p.wp + ((int64_t)nt * p.chunks + k) * C::B_FLOATS;
+    const uint32_t sb = sa + C::A_FLOATS * 4;
+    for (int i = tid; i < C::B_FLOATS / 4; i += THREADS)
+      cp_async16(sb + 16 * i, wsrc + 4 * i);
+  };
+
+  // Products: pixel group pg (TM consecutive pixels of one box row, the
+  // groups numbered down the tile's rows first, so that a warp's four
+  // groups read four rows, in distinct banks), channel group cg.
+  const int cg = (warp % C::WC) * 8 + (lane & 7);
+  const int pg = (warp / C::WC) * 4 + (lane >> 3);
+  const int rows_log = C::BM_LOG - p.tw_log;  // tile rows: TB * TH
+  const int row = pg & ((1 << rows_log) - 1);  // (image, y) in the box
+  const int xl = (pg >> rows_log) * TM;
+  const int bl = row >> p.th_log;
+  const int yl = row & (TH - 1);
+  // top-left tap of the thread's first pixel, and its weights' column
+  const int a_off = (bl * BH + yl) * p.rs + xl;
+  const int b_off = 4 * cg;
 
   float acc[TM][TN];
 #pragma unroll
@@ -170,59 +245,211 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  float a_reg[8];
-  float b_reg[4];
-  auto stage = [&](int buf) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) As[buf][ak + j][am] = a_reg[j];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Bs[buf][bk + j][bn] = b_reg[j];
-  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < p.chunks) load(s, s);
+    cp_async_commit();
+  }
+  for (int k = 0; k < p.chunks; ++k) {
+    cp_async_wait<STAGES - 2>();  // chunk k has landed (this thread's part)
+    __syncthreads();              // everyone's part; chunk k - 1 is read
+    if (k + STAGES - 1 < p.chunks)
+      load(k + STAGES - 1, (k + STAGES - 1) % STAGES);
+    cp_async_commit();
 
-  gather<VEC>(x, w, 0, K, Cin, Cout, H, W, ap, a_valid, ay, ax, ak, bk, bn,
-              n0, a_reg, b_reg);
-  stage(0);
-  __syncthreads();
-
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < KT;
-    if (more) {
-      gather<VEC>(x, w, kt + 1, K, Cin, Cout, H, W, ap, a_valid, ay, ax, ak,
-                  bk, bn, n0, a_reg, b_reg);
+    const float* as = f32_smem + (k % STAGES) * C::STAGE + a_off;
+    const float* bs =
+        f32_smem + (k % STAGES) * C::STAGE + C::A_FLOATS + b_off;
+#pragma unroll
+    for (int c = 0; c < CK; ++c) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const float* ap = as + c * C::PLANE + dy * p.rs;
+        float a[TM + 2];
+#pragma unroll
+        for (int q = 0; q < TM / 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(ap + 4 * q);
+          a[4 * q] = v.x;
+          a[4 * q + 1] = v.y;
+          a[4 * q + 2] = v.z;
+          a[4 * q + 3] = v.w;
+        }
+        const float2 v = *reinterpret_cast<const float2*>(ap + TM);
+        a[TM] = v.x;
+        a[TM + 1] = v.y;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* bp = bs + ((dy * 3 + dx) * CK + c) * C::BN;
+          float b[TN];
+          const float4 lo = *reinterpret_cast<const float4*>(bp);
+          b[0] = lo.x;
+          b[1] = lo.y;
+          b[2] = lo.z;
+          b[3] = lo.w;
+          if constexpr (TN == 8) {
+            const float4 hi =
+                *reinterpret_cast<const float4*>(bp + C::BN / 2);
+            b[4] = hi.x;
+            b[5] = hi.y;
+            b[6] = hi.z;
+            b[7] = hi.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(a[i + dx], b[j], acc[i][j]);
+        }
+      }
     }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][tm * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][k][tm * TM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[cur][k][tn * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    if (more) stage(cur ^ 1);
-    __syncthreads();
   }
 
+  // Epilogue: this thread's channels n0 + nb + e (nb = 4 cg, and for TN = 8
+  // also BN / 2 + 4 cg) of its TM pixels.
+  const int oy = y0 + yl;
+  const int ob = b0 + bl;
+  if (oy >= p.H || ob >= p.B) return;
+  float sc[TN], sh[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
-    const int n = n0 + tn * TN + j;
-    if (n >= Cout) continue;
-    const float sc = scale[n];
-    const float sh = shift[n];
+    const int n = n0 + (j >> 2) * (C::BN / 2) + b_off + (j & 3);
+    sc[j] = n < p.Cout ? __ldg(p.scale + n) : 0.f;
+    sh[j] = n < p.Cout ? __ldg(p.shift + n) : 0.f;
+  }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t p = m0 + tm * TM + i;
-      if (p >= M) continue;
-      float v = fmaf(acc[i][j], sc, sh);
-      if (relu) v = fmaxf(v, 0.f);
-      out[p * Cout + n] = v;
+  for (int i = 0; i < TM; ++i) {
+    const int ox = x0 + xl + i;
+    if (ox < p.W) {
+      float* dst = p.out + ((int64_t)(ob * p.H + oy) * p.W + ox) * p.Cout + n0;
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const int nb = h * (C::BN / 2) + b_off;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = fmaf(acc[i][4 * h + e], sc[4 * h + e], sh[4 * h + e]);
+          if (p.relu) v[e] = fmaxf(v[e], 0.f);
+        }
+        if (p.vec_out && n0 + nb + 4 <= p.Cout) {
+          *reinterpret_cast<float4*>(dst + nb) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n0 + nb + e < p.Cout) dst[nb + e] = v[e];
+        }
+      }
     }
   }
+}
+
+// The weights w (Cout, 9, Cin) laid out as the stages read them: wp
+// (tiles_n, chunks, 9, CK, bn), zero past Cout and Cin.  Element i is taken
+// in (tile, chunk, tap, n, c) order, c fastest, so that neighbouring threads
+// read one output channel's CK consecutive weights and a warp writes 8
+// consecutive floats of each of CK rows.
+__global__ void pad_weights(const float* __restrict__ w,
+                            float* __restrict__ wp, int Cin, int Cout,
+                            int chunks, int bn, int64_t total) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = i / CK;
+    const int c = (int)(i - r * CK);
+    const int n = (int)(r % bn);
+    r /= bn;
+    const int tap = (int)(r % 9);
+    r /= 9;  // tile * chunks + chunk
+    const int k = (int)(r % chunks);
+    const int nn = (int)(r / chunks) * bn + n;
+    const int cin = k * CK + c;
+    wp[((r * 9 + tap) * CK + c) * bn + n] =
+        nn < Cout && cin < Cin ? w[((int64_t)nn * 9 + tap) * Cin + cin]
+                               : 0.f;
+  }
+}
+
+template <int BM, int TM, int TN>
+int launch_config(const wgmma_conv::Plan& pl, Params p, const float* w,
+                  void* workspace, long long workspace_bytes,
+                  cudaStream_t stream) {
+  using C = Cfg<BM, TM, TN>;
+  const long long ws = (long long)p.tiles_n * p.chunks * C::B_FLOATS;
+  if (pl.smem != C::SMEM || pl.tw < TM || workspace_bytes < 4 * ws ||
+      reinterpret_cast<uintptr_t>(workspace) % 16 ||
+      (long long)p.tb * ((1 << p.th_log) + 2) * p.rs > C::PLANE)
+    return (int)cudaErrorInvalidValue;
+  p.wp = static_cast<const float*>(workspace);
+  const long long blocks = (ws + 255) / 256 < 4096 ? (ws + 255) / 256 : 4096;
+  pad_weights<<<(unsigned)blocks, 256, 0, stream>>>(
+      w, static_cast<float*>(workspace), p.Cin, p.Cout, p.chunks, C::BN, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kern = conv_kernel<BM, TM, TN>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<pl.grid_x, THREADS, C::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// workspace: at least 4 * tiles_n * chunks * 9 * CK * BN bytes, 16-byte
+// aligned (conv_plan.box_workspace_bytes).  Returns 0 or an error code;
+// cudaErrorInvalidValue when the plan is not one this body takes, its
+// tiles do not cover the output, its box overflows a plane or the workspace
+// is too small.
+int launch(const wgmma_conv::Plan& pl, const float* x, const float* w,
+           const float* scale, const float* shift, float* out, long long B,
+           int H, int W, int Cin, int Cout, int relu, void* workspace,
+           long long workspace_bytes, cudaStream_t stream) {
+  const int tw_log = wgmma_conv::log2_exact(pl.tw);
+  const int th_log = wgmma_conv::log2_exact(pl.th);
+  if (tw_log < 3 || th_log < 0 || pl.tb < 1 ||
+      pl.tw * pl.th * pl.tb != pl.bm || pl.stages != STAGES ||
+      pl.chunk != CK || pl.grid_y != 1 || pl.tiles_n < 1 ||
+      B * H * W > 0x7fffffffll)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)pl.tiles_w * pl.tiles_h * pl.tiles_b * pl.tiles_n;
+  if (tiles > 0x7fffffff || (long long)pl.tiles_w << tw_log < W ||
+      (long long)pl.tiles_h << th_log < H || (long long)pl.tiles_b * pl.tb < B ||
+      (long long)pl.tiles_n * pl.bn < Cout || pl.grid_x != tiles)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = x;
+  p.wp = nullptr;
+  p.scale = scale;
+  p.shift = shift;
+  p.out = out;
+  p.B = (int)B;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.tw_log = tw_log;
+  p.th_log = th_log;
+  p.tb = pl.tb;
+  p.rs = pl.tw + 4;
+  p.tiles_w = pl.tiles_w;
+  p.tiles_h = pl.tiles_h;
+  p.tiles_n = pl.tiles_n;
+  p.chunks = (Cin + CK - 1) / CK;
+  p.relu = relu;
+  p.vec_out = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // The (BM, BN) tiles the plan may name (conv_plan.F32_TILES), each with
+  // its thread tile, TM pixels by TN channels: 16-pixel rows where the box
+  // is at least 16 wide, else 8, and 8 for BN = 32 (conv_plan.f32_tm).
+  const int tm = pl.bn == 32 || pl.tw < 16 ? 8 : 16;
+#define CONV_F32_CONFIG(BM_, TM_, TN_)                                   \
+  if (pl.bm == BM_ && pl.bn == Cfg<BM_, TM_, TN_>::BN && tm == TM_)      \
+    return launch_config<BM_, TM_, TN_>(pl, p, w, workspace,             \
+                                        workspace_bytes, stream);
+  CONV_F32_CONFIG(128, 16, 4)
+  CONV_F32_CONFIG(128, 8, 8)
+  CONV_F32_CONFIG(256, 16, 4)
+  CONV_F32_CONFIG(256, 8, 8)
+  CONV_F32_CONFIG(256, 8, 4)
+#undef CONV_F32_CONFIG
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace f32
@@ -340,20 +567,6 @@ __device__ __forceinline__ void ldsm_x1(uint32_t addr, uint32_t& r0) {
                : "=r"(r0)
                : "r"(addr)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Makes this thread's shared-memory writes (stores, cp.async) visible to
@@ -649,7 +862,7 @@ conv_kernel(const Params p) {
   cp_async_commit();
   load_box<CK>(p, cur_s, un, pre);
   store_box<CK>(box_smem, un, C::PLANE, pre);
-  cp_async_wait_all();
+  cp_async_wait<0>();
   if constexpr (C::WG) fence_proxy_async();
   __syncthreads();
 
@@ -798,7 +1011,7 @@ conv_kernel(const Params p) {
     }
 
     if (more) {
-      cp_async_wait_all();
+      cp_async_wait<0>();
       if constexpr (C::WG) fence_proxy_async();
       cur_s = next_s;
     }
@@ -936,11 +1149,11 @@ int launch(const wgmma_conv::Plan& pl, const void* x, const void* w,
 // are float32).  x (B, H, W, Cin), w (Cout, 9, Cin) K-major, out (B, H, W,
 // Cout), all contiguous.  plan: wgmma_conv::PLAN_INTS ints from
 // ops/kernels/conv_plan.py (body, box, BN, stages, grid, tiles, chunk,
-// shared-memory bytes).  workspace: the mma_sync body's padded weights
-// (conv_plan.box_workspace_bytes; unused by the others).  Returns 0, or the
-// error of a refused tensor-map encode, shared-memory attribute or launch,
-// or cudaErrorInvalidValue for a plan the body does not take or whose grid
-// or tiles do not cover the output.
+// shared-memory bytes).  workspace: the weights laid out by the mma_sync
+// and f32_box bodies (conv_plan.box_workspace_bytes; unused by wgmma).
+// Returns 0, or the error of a refused tensor-map encode, shared-memory
+// attribute or launch, or cudaErrorInvalidValue for a plan the body does
+// not take or whose grid or tiles do not cover the output.
 extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
                                           const void* w, const void* scale,
                                           const void* shift, void* out,
@@ -951,7 +1164,6 @@ extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const wgmma_conv::Plan pl = *reinterpret_cast<const wgmma_conv::Plan*>(plan);
-  const int64_t M = (int64_t)B * H * W;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   if (dtype == 1 && pl.body == kMmaSync) {
@@ -960,26 +1172,13 @@ extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
   } else if (dtype == 1 && pl.body == kWgmma) {
     return wgmma_conv::launch<true>(pl, x, w, sc, sh, out, B, H, W, Cin, Cout,
                                     /*halo=*/1, relu, s);
-  } else if (dtype != 0 || (pl.body != kFma && pl.body != kFmaVec)) {
-    return (int)cudaErrorInvalidValue;
+  } else if (dtype == 0 && pl.body == kF32Box) {
+    return f32::launch(pl, static_cast<const float*>(x),
+                       static_cast<const float*>(w), sc, sh,
+                       static_cast<float*>(out), B, H, W, Cin, Cout, relu,
+                       workspace, workspace_bytes, s);
   }
-  // float32: a (grid_x, grid_y) grid of BM-pixel x BN-channel tiles.
-  const dim3 grid((unsigned)pl.grid_x, (unsigned)pl.grid_y);
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if ((int64_t)pl.grid_x * f32::BM < M || (int64_t)pl.grid_y * f32::BN < Cout)
-    return (int)cudaErrorInvalidValue;
-  if (pl.body == kFmaVec) {
-    if (Cin % 8 != 0 || !aligned) return (int)cudaErrorInvalidValue;
-    f32::conv_kernel<true><<<grid, f32::THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
-        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
-  } else {
-    f32::conv_kernel<false><<<grid, f32::THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
-        static_cast<float*>(out), M, H, W, Cin, Cout, relu);
-  }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // Message for a code returned by a launch function of this library.

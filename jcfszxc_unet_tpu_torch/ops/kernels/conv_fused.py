@@ -22,9 +22,13 @@ call (the stems, MultiResUNet's odd widths) takes the ``mma_sync`` body:
 one haloed input box per tile in shared memory with its channels padded
 to a multiple of 8, the nine taps as fixed offsets into it, ``ldmatrix`` +
 ``mma.sync``, the weights padded once per call into a workspace that
-:func:`launch` allocates.  f32 runs on FMAs so that its products stay
-f32.  :func:`conv_plan.plan_conv` picks the body and the tile from the
-dtype, the shapes and the alignment.
+:func:`launch` allocates.  f32 runs on the CUDA cores so that its
+products stay f32, in the ``f32_box`` body: the same haloed box per tile,
+here as channel planes fed by a ``cp.async`` ring, each thread's 16
+pixels of a box row by 4 channels (8 by 8 in boxes 8 wide) register-blocked
+over a tap row, the weights laid out once per call into the workspace
+too.  :func:`conv_plan.plan_conv` picks the
+body and the tile from the dtype, the shapes and the alignment.
 
 :func:`conv3x3_affine_relu_torch` is the plain PyTorch version.  The
 wrappers check their inputs and call the ``jcfszxc_unet::conv3x3_affine_relu``
@@ -46,12 +50,13 @@ counter = build.LaunchCounter()
 
 
 def conv3x3_affine_relu_torch(x, w, scale, shift, relu: bool = True):
-    """Plain version: ``F.conv2d`` on f32-upcast inputs, then the affine,
-    the optional ReLU and one cast to ``x.dtype``.  Returns contiguous
-    NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                 w.permute(3, 2, 0, 1).float(), padding=1)
-    y = y * scale.float().view(1, -1, 1, 1) + shift.float().view(1, -1, 1, 1)
+    """Plain version: ``F.conv2d`` on inputs upcast to f32 (f64 stays f64,
+    for the CPU replays of the kernel's addressing), then the affine, the
+    optional ReLU and one cast to ``x.dtype``.  Returns contiguous NHWC."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(ct), w.permute(3, 2, 0, 1).to(ct),
+                 padding=1)
+    y = y * scale.to(ct).view(1, -1, 1, 1) + shift.to(ct).view(1, -1, 1, 1)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
@@ -98,7 +103,7 @@ def launch(x, w_km, scale, shift, relu: bool, plan: conv_plan.ConvPlan):
     if out.numel() == 0:
         return out
     lib = build.load_library()
-    # the mma_sync body's weights, padded by the launch into its layout
+    # the box bodies' weights, laid out by the launch in their stages' order
     ws_bytes = conv_plan.box_workspace_bytes(plan, cin)
     ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
           if ws_bytes else None)

@@ -18,8 +18,14 @@ Bodies:
   at nine fixed offsets by ``wgmma`` (Cin > 8) or ``ldmatrix`` +
   ``mma.sync`` (Cin <= 8); :func:`box_plan` picks its box, channel tile,
   channel chunk and persistent grid.
-* ``fma_vec`` / ``fma``: float32 on the CUDA cores, with or without
-  16-byte loads.  The im2col kernel's f32 body is ``fma``.
+* ``f32_box``: every float32 call, on the CUDA cores: one haloed input
+  box per tile in shared memory as channel planes, fed by a cp.async ring
+  over chunks of 4 channels, each thread's 16 pixels of a box row by 4
+  channels (8 by 8 in boxes 8 wide, 8 by 4 in 32-channel tiles)
+  register-blocked over a tap row; :func:`f32_plan` picks its tile, box
+  and grid.
+* ``fma``: the im2col kernel's f32 body (an element-by-element K loop on
+  the CUDA cores).
 """
 
 from __future__ import annotations
@@ -32,11 +38,31 @@ import torch
 
 BK = 64    # channels of one tap per K step
 
-BODIES = {"fma": 0, "fma_vec": 1, "mma_sync": 2, "wgmma": 3}
+BODIES = {"fma": 0, "f32_box": 1, "mma_sync": 2, "wgmma": 3}
 
-# Tiles of the f32 bodies (fma, fma_vec): 128 pixels taken in (b, y, x)
-# order x 64 channels.
+# Tiles of the im2col kernel's f32 body (fma): 128 pixels taken in (b, y,
+# x) order x 64 channels.
 _SIMPLE_BM, _SIMPLE_BN = 128, 64
+
+# The f32_box body (csrc/conv3x3_affine_relu.cu, namespace f32): 256
+# threads, chunks of F32_CHUNK channels through an F32_STAGES-deep cp.async
+# ring; the (BM, BN) tiles it is instantiated for (CONV_F32_CONFIG), each
+# thread TM = f32_tm(tile, TW) consecutive pixels of a box row by BN /
+# (256 / (BM / TM)) channels; the floats of one channel plane of the haloed
+# box (``Cfg<BM, TM, TN>::PLANE``, 8 mod 32), TB (TH + 2) (TW + 4) at most.
+F32_THREADS, F32_CHUNK, F32_STAGES = 256, 4, 4
+F32_TILES = ((128, 128), (256, 64), (256, 32))
+F32_PLANE = {128: 424, 256: 616}
+# Device time per output of each (BM, BN, TM), relative to 128 x 128 with
+# 16-pixel rows: scripts/conv_tile_sweep.py --f32 on the H100 at 16 x
+# 256^2, 128 -> 128 (48.2 TFLOP/s; 128 x 128 with 8-pixel rows 46.3;
+# 256 x 64 46.4-46.6, with 8-pixel rows 44.5; 256 x 32 42.4).
+F32_COST = {(128, 128, 16): 1.0, (128, 128, 8): 1.04, (256, 64, 16): 1.04,
+            (256, 64, 8): 1.08, (256, 32, 8): 1.14}
+# Two blocks that share an SM take this many times as long as one alone
+# (a grid of 144 blocks on 132 SMs against 120: 1.7x, the row-sharded
+# forward's 22 x 36 slab, 512 -> 1024).
+F32_SHARED_SM = 1.7
 
 # The mma_sync body (csrc/conv3x3_affine_relu.cu, namespace bf16): tiles of
 # BOX_BM pixels, a (TW, TH, TB) box whose haloed input, TB (TH + 2)
@@ -77,12 +103,12 @@ class ConvPlan:
     bm: int                        # output pixels per tile: TW * TH * TB
     box: tuple[int, int, int]      # (TW, TH, TB) of a wgmma tile
     bn: int                        # output channels per tile
-    stages: int                    # wgmma ring depth
+    stages: int                    # ring depth
     strip: int                     # 1: wgmma stages of haloed row strips
     grid: tuple[int, int]
     tiles: tuple[int, int, int, int]  # box tiles along (W, H, B, Cout)
-    chunk: int = 0                 # mma_sync: channels a K step
-    smem: int = 0                  # mma_sync: shared-memory bytes a block
+    chunk: int = 0                 # box bodies: channels a K step
+    smem: int = 0                  # box bodies: shared-memory bytes a block
 
     @property
     def n_tiles(self) -> int:
@@ -133,12 +159,10 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
                          "C % 8 == 0 and be 16-byte aligned")
     if dtype == torch.bfloat16:
         return box_plan(b, h, w, cin, cout, sm_count)
-    if cin % 8 == 0 and aligned and not imcol:
-        body = "fma_vec"
-    else:
-        body = "fma"
+    if not imcol:
+        return f32_plan(b, h, w, cout, sm_count)
     grid = (_cdiv(b * h * w, _SIMPLE_BM), _cdiv(cout, _SIMPLE_BN))
-    return ConvPlan(body, _SIMPLE_BM, (0, 0, 0), _SIMPLE_BN, 0, 0, grid,
+    return ConvPlan("fma", _SIMPLE_BM, (0, 0, 0), _SIMPLE_BN, 0, 0, grid,
                     (0, 0, 0, 0))
 
 
@@ -194,11 +218,14 @@ def box_smem(bn: int, chunk: int) -> int:
 
 
 def box_workspace_bytes(plan: ConvPlan, cin: int) -> int:
-    """Bytes of the mma_sync body's padded weights, (tiles_n, chunks, 9,
-    chunk / 8, BN, 8) bf16; 0 for the other bodies."""
-    if plan.body != "mma_sync":
+    """Bytes of the weights that the two box bodies lay out once per
+    call: mma_sync's (tiles_n, chunks, 9, chunk / 8, BN, 8) bf16, f32_box's
+    (tiles_n, chunks, 9, chunk, BN) f32; 0 for the other bodies."""
+    size = {"mma_sync": 2, "f32_box": 4}.get(plan.body)
+    if size is None:
         return 0
-    return 2 * plan.tiles[3] * _cdiv(cin, plan.chunk) * 9 * plan.bn * plan.chunk
+    return (size * plan.tiles[3] * _cdiv(cin, plan.chunk) * 9 * plan.bn
+            * plan.chunk)
 
 
 def box_blocks_per_sm(chunk: int) -> int:
@@ -258,3 +285,72 @@ def box_plan(b: int, h: int, w: int, cin: int, cout: int,
     cap = max(tiles[3], cap - cap % tiles[3])
     return ConvPlan("mma_sync", BOX_BM, (tw, th, tb), bn, BOX_STAGES, 0,
                     (min(n, cap), 1), tiles, chunk, box_smem(bn, chunk))
+
+
+def f32_smem(bm: int, bn: int) -> int:
+    """Shared-memory bytes of one f32_box block (``Cfg<BM, TM, TN>::SMEM``):
+    F32_STAGES stages of F32_CHUNK channel planes of the haloed box and the
+    (9, F32_CHUNK, BN) weights, then the box pixels' table (two ints a
+    pixel)."""
+    return (4 * F32_STAGES * F32_CHUNK * (F32_PLANE[bm] + 9 * bn)
+            + 8 * F32_PLANE[bm])
+
+
+def f32_plane(box: tuple[int, int, int]) -> int:
+    """Floats of one channel plane of a (TW, TH, TB) box: TB (TH + 2)
+    rows of TW + 4 floats (the haloed row, 16-byte aligned)."""
+    tw, th, tb = box
+    return tb * (th + 2) * (tw + 4)
+
+
+def f32_tm(tile: tuple[int, int], tw: int) -> int:
+    """Pixels of a thread's box row (TM) for ``tile`` and a box TW wide:
+    16 where the box is at least 16 wide (fewer shared-memory reads a
+    product), else 8; 8 for the 256 x 32 tile."""
+    return 16 if tile != (256, 32) and tw >= 16 else 8
+
+
+def f32_boxes(bm: int):
+    """Every (TW, TH, TB) of powers of two with TW >= 8 and TW * TH * TB
+    = bm whose channel plane fits F32_PLANE[bm]."""
+    bits = bm.bit_length() - 1
+    for lw in range(3, bits + 1):
+        for lh in range(bits + 1 - lw):
+            box = (1 << lw, 1 << lh, bm >> (lw + lh))
+            if f32_plane(box) <= F32_PLANE[bm]:
+                yield box
+
+
+def f32_plan(b: int, h: int, w: int, cout: int, sm_count: int = 132,
+             tile: tuple[int, int] | None = None,
+             box: tuple[int, int, int] | None = None) -> ConvPlan:
+    """The f32_box body's plan, one block a tile, the channel tile
+    fastest: of the tiles (or ``tile``) and boxes (or ``box``), the one
+    whose grid takes the least time by F32_COST, counting a grid that
+    fits the SMs once as one block's time and each further round of
+    blocks on an SM as F32_SHARED_SM / 2 of it; ties go to the least
+    padded work, the smaller plane, then the narrower, taller box."""
+    best = None
+    for bm, bn in [tile] if tile else F32_TILES:
+        if (bm, bn) not in F32_TILES:
+            raise ValueError(f"no f32_box tile {(bm, bn)}")
+        for tw, th, tb in [box] if box else f32_boxes(bm):
+            if (tw * th * tb != bm or tw < 8 or tw & (tw - 1)
+                    or th & (th - 1)
+                    or f32_plane((tw, th, tb)) > F32_PLANE[bm]):
+                raise ValueError(f"box {(tw, th, tb)} is not one the "
+                                 f"f32_box body takes with {bm}-pixel "
+                                 f"tiles")
+            tiles = (_cdiv(w, tw), _cdiv(h, th), _cdiv(b, tb),
+                     _cdiv(cout, bn))
+            n = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+            block = bm * bn * F32_COST[bm, bn, f32_tm((bm, bn), tw)]
+            rounds = _cdiv(n, sm_count)
+            time = (1.0 if rounds == 1 else F32_SHARED_SM / 2 * rounds) \
+                * block
+            key = (time, n * block, f32_plane((tw, th, tb)), tw, -th)
+            if best is None or key < best[0]:
+                best = (key, (bm, bn), (tw, th, tb), tiles, n)
+    _, (bm, bn), box, tiles, n = best
+    return ConvPlan("f32_box", bm, box, bn, F32_STAGES, 0, (n, 1), tiles,
+                    F32_CHUNK, f32_smem(bm, bn))

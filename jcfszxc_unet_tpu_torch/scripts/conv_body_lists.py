@@ -1,16 +1,21 @@
-"""Kernel 1's ``mma_sync`` body on its conv lists, on the card.
+"""Kernel 1's box bodies on their conv lists, on the card.
 
-The body takes every bf16 3x3 conv whose Cin is not a multiple of 8: the
-Cin-3 stem of every model (UNet's at the eval chunk of 16 x 512^2 and at
-a whole 608 x 576 image, the fractal extractor's stacked 3 -> 32 on two
-whole DRIVE images), MultiResUNet's 25 odd-width convs at 16 x 512^2 and
-the same model's 25 in space-to-depth mode.  For each list this times
+bf16 (the default): the ``mma_sync`` body takes every bf16 3x3 conv whose
+Cin is not a multiple of 8: the Cin-3 stem of every model (UNet's at the
+eval chunk of 16 x 512^2 and at a whole 608 x 576 image, the fractal
+extractor's stacked 3 -> 32 on two whole DRIVE images), MultiResUNet's 25
+odd-width convs at 16 x 512^2 and the same model's 25 in space-to-depth
+mode.  ``--dtype float32``: the ``f32_box`` body takes every f32 conv;
+its lists are UNet's 18 at 16 x 512^2, the same stems, MultiResUNet's 25
+and the row-sharded forward's 18 slab convs (2 images padded to 640 x 576,
+320 rows a rank and a halo row on each side).  For each list this times
 kernel 1 (through the K-major entry that ``ops/blocks`` calls), checks
-every shape against the plain version, and with ``--library`` also times
-cuDNN's ``F.conv2d`` alone (channels_last, TF32 off) and the route of
-padding Cin to a multiple of 8 with a copy of x (``F.pad``) and running
-the ``wgmma`` body on the padded operands; bounds are bytes over 3.35 TB/s
-or operations over 989 TFLOP/s.
+every shape against the plain version (1e-2 of max |plain| in bf16, 1e-4
+in f32), and with ``--library`` also times cuDNN's ``F.conv2d`` alone
+(channels_last, TF32 off) and, in bf16, the route of padding Cin to a
+multiple of 8 with a copy of x (``F.pad``) and running the ``wgmma`` body
+on the padded operands; bounds are bytes over 3.35 TB/s or operations
+over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 CUDA cores).
 
 It uses only the entry every checkout of the package since kernel 1 was
 ported has, so it also times another checkout put first on
@@ -21,6 +26,8 @@ directory first):
     python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists --library \\
         --out new.json
     PYTHONPATH=<other checkout> python <this file> --out other.json
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
+        --dtype float32 --library --out new_f32.json
 
 Needs a CUDA GPU.
 """
@@ -34,8 +41,9 @@ import subprocess
 import time
 
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-TOL = 1e-2  # bf16 against the plain version, of max |plain|
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # against the plain version,
+                                            # of max |plain|
 
 # (B, H, W, Cin, Cout, relu) -> launches per forward.
 STEMS = {
@@ -70,18 +78,42 @@ MULTIRES_S2D = {
 }
 LISTS = {"stems": STEMS, "multires": MULTIRES, "multires_s2d": MULTIRES_S2D}
 
+# UNet's 18 convs as (level, Cin, Cout), level k at 1 / 2^k of the input.
+UNET = [(0, 3, 64), (0, 64, 64), (1, 64, 128), (1, 128, 128),
+        (2, 128, 256), (2, 256, 256), (3, 256, 512), (3, 512, 512),
+        (4, 512, 1024), (4, 1024, 1024), (3, 1024, 512), (3, 512, 512),
+        (2, 512, 256), (2, 256, 256), (1, 256, 128), (1, 128, 128),
+        (0, 128, 64), (0, 64, 64)]
 
-def conv_cost(b, h, w, cin, cout):
-    """(flops, bytes) of one bf16 fused conv: x, w, scale, shift read
-    once, out written once."""
+
+def _counted(keys):
+    out = {}
+    for key in keys:
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+# f32: UNet's eval chunk (16 x 512^2) and the row-sharded forward's slabs
+# (chip_smoke.py's spatial_sharded shapes: 2 images of 640 x 576, 2 ranks).
+UNET_F32 = _counted((16, 512 >> k, 512 >> k, cin, cout, True)
+                    for k, cin, cout in UNET)
+SLAB_F32 = _counted((2, (640 >> k) // 2 + 2, 576 >> k, cin, cout, True)
+                    for k, cin, cout in UNET)
+F32_LISTS = {"unet": UNET_F32, "stems": STEMS, "multires": MULTIRES,
+             "slab": SLAB_F32}
+
+
+def conv_cost(b, h, w, cin, cout, itemsize=2):
+    """(flops, bytes) of one fused conv: x, w, scale, shift read once, out
+    written once."""
     m = b * h * w
     flops = 2 * m * cout * 9 * cin + 3 * m * cout
-    nbytes = (m * cin + 9 * cin * cout + m * cout) * 2 + 2 * cout * 4
+    nbytes = (m * cin + 9 * cin * cout + m * cout) * itemsize + 2 * cout * 4
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+def bound_ms(flops, nbytes, dtype="bfloat16"):
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
 
 
 def time_ms(fn, target_ms=20.0, max_reps=50):
@@ -135,7 +167,7 @@ def pad8_route(x, w_km, scale, shift, relu, target_ms=20.0):
                                            relu).float()
 
 
-def run_list(calls, library, seed=7, target_ms=20.0):
+def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
     """Rows per shape and weighted totals of one list."""
     import torch
     import torch.nn.functional as F
@@ -149,11 +181,12 @@ def run_list(calls, library, seed=7, target_ms=20.0):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
+    tdtype = getattr(torch, dtype)
     for (b, h, wd, cin, cout, relu), n in calls.items():
         x = torch.randn((b, h, wd, cin), generator=g,
-                        device="cuda").to(torch.bfloat16)
+                        device="cuda").to(tdtype)
         w = (torch.randn((3, 3, cin, cout), generator=g, device="cuda")
-             / math.sqrt(9 * cin)).to(torch.bfloat16)
+             / math.sqrt(9 * cin)).to(tdtype)
         scale = 0.5 + torch.rand((cout,), generator=g, device="cuda")
         shift = 0.1 * torch.randn((cout,), generator=g, device="cuda")
         w_km = w.permute(3, 0, 1, 2).contiguous()
@@ -165,12 +198,12 @@ def run_list(calls, library, seed=7, target_ms=20.0):
         err = float((got - want).abs().max())
         ref = float(want.abs().max())
         del got, want
-        flops, nbytes = conv_cost(b, h, wd, cin, cout)
+        flops, nbytes = conv_cost(b, h, wd, cin, cout, x.element_size())
         row = {"shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
                "body": body[0] if body else None,
                "max_abs_err": err, "max_abs_plain": ref,
-               "ok": err <= TOL * ref, "flops": flops, "bytes": nbytes,
-               "bound_ms": bound_ms(flops, nbytes),
+               "ok": err <= TOL[dtype] * ref, "flops": flops,
+               "bytes": nbytes, "bound_ms": bound_ms(flops, nbytes, dtype),
                "ms": time_ms(lambda: conv3x3_affine_relu_kmajor(
                    x, w_km, scale, shift, relu), target_ms)}
         row["tflops"] = flops / row["ms"] / 1e9
@@ -179,13 +212,15 @@ def run_list(calls, library, seed=7, target_ms=20.0):
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
             row["library_ms"] = time_ms(
                 lambda: F.conv2d(x_cl, w_oihw, padding=1), target_ms)
-            if cin % 8:
+            if dtype == "float32":
+                pass
+            elif cin % 8:
                 pad, got = pad8_route(x, w_km, scale, shift, relu, target_ms)
                 want = conv3x3_affine_relu_torch(x, w, scale, shift,
                                                  relu).float()
                 row.update(pad, pad8_max_abs_err=float(
                     (got - want).abs().max()))
-                row["pad8_ok"] = row["pad8_max_abs_err"] <= TOL * ref
+                row["pad8_ok"] = row["pad8_max_abs_err"] <= TOL[dtype] * ref
                 del got, want
             else:
                 row["pad_ms"] = 0.0
@@ -194,12 +229,17 @@ def run_list(calls, library, seed=7, target_ms=20.0):
         del x, w, w_km
     keys = ["ms", "bound_ms", "flops", "bytes"]
     if library:
-        keys += ["library_ms", "pad_ms", "pad8_wgmma_ms"]
+        keys += ["library_ms"]
+        if dtype == "bfloat16":
+            keys += ["pad_ms", "pad8_wgmma_ms"]
     total = {k: sum(r["count"] * r[k] for r in rows) for k in keys}
     total["n_convs"] = sum(calls.values())
     total["tflops"] = total["flops"] / total["ms"] / 1e9
     total["checks_ok"] = sum(r["ok"] for r in rows)
     total["checks"] = len(rows)
+    total["bound_by"] = ("operations" if total["flops"] / PEAK_FLOPS[dtype]
+                         > total["bytes"] / HBM_BYTES_PER_S else "bytes")
+    total["bodies"] = sorted({r["body"] for r in rows})
     total["max_err_rel"] = max(r["max_abs_err"] / r["max_abs_plain"]
                                for r in rows)
     return {"rows": rows, "total": total}
@@ -222,22 +262,34 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--library", action="store_true",
-                    help="also time cuDNN and the pad-to-8 + wgmma route")
+                    help="also time cuDNN and (bf16) the pad-to-8 + wgmma "
+                         "route")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="bfloat16: the mma_sync lists; float32: the "
+                         "f32_box lists")
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_body_lists needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lists = LISTS if args.dtype == "bfloat16" else F32_LISTS
     res = {"package": jcfszxc_unet_tpu_torch.__file__,
-           "gpu": gpu_name_and_power(),
-           "lists": {name: run_list(calls, args.library)
-                     for name, calls in LISTS.items()}}
+           "gpu": gpu_name_and_power(), "dtype": args.dtype,
+           "lists": {name: run_list(calls, args.library, dtype=args.dtype)
+                     for name, calls in lists.items()}}
     for name, lst in res["lists"].items():
         t = lst["total"]
-        extra = (f", cuDNN {t['library_ms']:.3f} ms, pad {t['pad_ms']:.3f} + "
-                 f"wgmma {t['pad8_wgmma_ms']:.3f} ms" if args.library else "")
-        print(f"{name}: {t['n_convs']} convs, kernel {t['ms']:.3f} ms "
-              f"({t['tflops']:.1f} TFLOP/s), bound {t['bound_ms']:.3f} ms"
-              f"{extra}; {t['checks_ok']}/{t['checks']} within {TOL} "
+        extra = ""
+        if args.library:
+            extra = f", cuDNN {t['library_ms']:.3f} ms"
+        if args.library and args.dtype == "bfloat16":
+            extra += (f", pad {t['pad_ms']:.3f} + wgmma "
+                      f"{t['pad8_wgmma_ms']:.3f} ms")
+        print(f"{name}: {t['n_convs']} convs ({'/'.join(t['bodies'])}), "
+              f"kernel {t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), bound "
+              f"{t['bound_ms']:.3f} ms ({t['bound_by']}){extra}; "
+              f"{t['checks_ok']}/{t['checks']} within {TOL[args.dtype]} "
               f"(max {t['max_err_rel']:.2e})", flush=True)
     print(res["gpu"], flush=True)
     if args.out:

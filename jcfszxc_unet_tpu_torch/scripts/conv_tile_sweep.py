@@ -18,7 +18,16 @@ and, for the eval shapes at 512^2 and 256^2, a few boxes beside the one
 version (within 1e-2 of max|plain|) before it is timed; cuDNN's conv on
 the same input is timed beside it.
 
+With ``--f32`` it sweeps the ``f32_box`` body instead: every tile of
+``conv_plan.F32_TILES`` at UNet's 3x3 convs in f32 at batch 16 (one
+16-patch chunk of 512^2 patches, the stem too), with the box that
+``f32_plan`` picks for the tile and, at 512^2 and 256^2, the other
+one-image boxes whose channel plane fits (8-wide boxes run 8-pixel thread
+rows, wider ones 16); checked within 1e-4 of max|plain|, beside cuDNN with
+TF32 off; ``planned`` marks the plan ``f32_plan`` picks.
+
     python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep [out.json]
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep --f32 [out.json]
 
 Needs a CUDA GPU.
 """
@@ -159,13 +168,85 @@ def sweep():
             "rows": rows}
 
 
+def f32_boxes(b, hw, tile):
+    """The box ``f32_plan`` picks for ``tile`` and, at 256^2 and above,
+    every other one-image box whose channel plane fits."""
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_plan
+
+    best = conv_plan.f32_plan(b, hw, hw, 64, tile=tile).box
+    if hw < 256:
+        return [best]
+    return [best] + [box for box in conv_plan.f32_boxes(tile[0])
+                     if box != best and box[2] == 1]
+
+
+def sweep_f32():
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
+        F32_TILES,
+        f32_plan,
+        f32_tm,
+    )
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the sweep times CUDA kernels: it needs a GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    b = 16
+    for hw, cin, cout in [(512, 3, 64)] + SHAPES:
+        x = torch.randn((b, hw, hw, cin), generator=g, device=dev)
+        w = (torch.randn((cout, 3, 3, cin), generator=g, device=dev)
+             / math.sqrt(9 * cin))
+        scale = 0.5 + torch.rand((cout,), generator=g, device=dev)
+        shift = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        want = conv_fused.conv3x3_affine_relu_torch(
+            x, w.permute(1, 2, 3, 0), scale, shift)
+        ref = float(want.abs().max())
+        x_cl = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(0, 3, 1, 2).contiguous()
+        lib_ms = _event_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
+        flops = 2 * b * hw * hw * cout * 9 * cin
+        planned = f32_plan(b, hw, hw, cout)
+        for tile in F32_TILES:
+            for box in f32_boxes(b, hw, tile):
+                plan = f32_plan(b, hw, hw, cout, tile=tile, box=box)
+                got = conv_fused.launch(x, w, scale, shift, True, plan)
+                err = float((got - want).abs().max())
+                del got
+                ms = _event_ms(lambda: conv_fused.launch(
+                    x, w, scale, shift, True, plan))
+                rows.append({"path": "f32", "b": b, "hw": hw, "cin": cin,
+                             "cout": cout, "tile": list(tile),
+                             "tm": f32_tm(tile, box[0]), "box": list(box),
+                             "ms": ms, "tflops": flops / ms / 1e9,
+                             "cudnn_ms": lib_ms, "planned": plan == planned,
+                             "ok": err <= 1e-4 * ref})
+                print(f"f32   B{b:<3d} {hw:4d}^2 {cin:5d}->{cout:<5d} "
+                      f"{str(tile):11s} TM {rows[-1]['tm']:2d} box "
+                      f"{str(box):13s} {ms:8.3f} ms "
+                      f"{flops / ms / 1e9:6.1f} TFLOP/s (cuDNN "
+                      f"{lib_ms:.3f} ms)"
+                      f"{' planned' if rows[-1]['planned'] else ''}"
+                      f" {'ok' if rows[-1]['ok'] else 'BAD'}", flush=True)
+        del x, w, want, x_cl, w_oihw
+    return {"device": torch.cuda.get_device_name(0), "rows": rows}
+
+
 def main():
-    res = sweep()
-    if len(sys.argv) > 1:
-        with open(sys.argv[1], "w") as f:
+    args = [a for a in sys.argv[1:] if a != "--f32"]
+    f32 = len(args) < len(sys.argv) - 1
+    res = sweep_f32() if f32 else sweep()
+    if args:
+        with open(args[0], "w") as f:
             json.dump(res, f, indent=1)
     bad = [r for r in res["rows"] if not r["ok"]]
-    print(f"{len(res['rows'])} timings, {len(bad)} outside 1e-2 of max|plain|")
+    print(f"{len(res['rows'])} timings, {len(bad)} outside "
+          f"{'1e-4' if f32 else '1e-2'} of max|plain|")
     if bad:
         sys.exit(1)
 

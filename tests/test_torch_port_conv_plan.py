@@ -221,8 +221,9 @@ def test_body_choice():
     for cin in (12, 68, 204):                      # and its s2d widths
         assert body(cin, bf16) == "mma_sync"
     assert body(64, bf16, aligned=False) == "mma_sync"
-    assert body(64, f32) == "fma_vec"
-    assert body(3, f32) == "fma"
+    assert body(64, f32) == "f32_box"               # every f32 call
+    assert body(3, f32) == "f32_box"
+    assert body(17, f32, aligned=False) == "f32_box"
     assert body(8, bf16, imcol=True) == "wgmma"
     assert body(8, f32, imcol=True) == "fma"
     with pytest.raises(ValueError):

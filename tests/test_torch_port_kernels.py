@@ -251,7 +251,7 @@ def _check_conv_on_gpu(device, dtype, tol, b, h, w, cin, cout, relu):
     torch.cuda.synchronize()
     assert conv_fused.counter.launches == before + 1
     # the body that ran: wgmma for every bf16 call with Cin % 8 == 0
-    body = {torch.float32: "fma_vec" if cin % 8 == 0 else "fma",
+    body = {torch.float32: "f32_box",
             torch.bfloat16: "wgmma" if cin % 8 == 0 else "mma_sync"}[dtype]
     assert conv_fused.counter.bodies.get(body, 0) == bodies.get(body, 0) + 1
     # both accumulate in f32: summation order and (bf16) one rounding
