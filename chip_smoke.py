@@ -21,8 +21,10 @@ Phases, each of which must pass:
    kernel's mma_sync body (bf16, Cin % 8 != 0) on its own lists (the
    stems, MultiResUNet's 25 odd-width convs plain and s2d at 16 x 512^2),
    beside cuDNN and the route of padding Cin to 8 with a copy and running
-   the wgmma body; every f32 call on the f32_box body, and two f32 calls
-   on the same inputs bit-identical;
+   the wgmma body; the wgmma body's times split by schedule (ping-pong,
+   with the operands swapped or not, and cooperative; ``[conv] by body``
+   lines); every f32 call on the f32_box body, and two calls on the same
+   inputs bit-identical in f32 and in bf16 (every body and schedule);
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -179,6 +181,12 @@ Prints the kernels line, the GPU's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``; exits non-zero, printing no result,
 when a phase fails or no GPU is available.  Details go to
 ``chiprun_out/chip_smoke/report.json``.
+
+``python3 chip_smoke.py --pool-gaps N`` runs only zoo_eval's f32 check of
+SegNet against a CPU copy, for N weight seeds from the zoo's, and prints
+each flipped pooling window's gap over its map's largest |value| (the
+measure that ``check_pool_windows`` bounds by POOL_TIE_REL) as one JSON
+line, without failing on them.
 """
 
 from __future__ import annotations
@@ -632,7 +640,7 @@ def conv_list(calls, dtype, path, seed=7, target_ms=20.0):
     import torch
     import torch.nn.functional as F
 
-    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_plan
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
         conv3x3_affine_relu_kmajor,
         conv3x3_affine_relu_torch,
@@ -644,7 +652,8 @@ def conv_list(calls, dtype, path, seed=7, target_ms=20.0):
     for (b, h, wd, cin, cout, relu), n in sorted(calls.items()):
         x, w, scale, shift = conv_inputs(g, b, h, wd, cin, cout, dtype)
         w_km = w.permute(3, 0, 1, 2).contiguous()
-        body = conv_fused.plan_for(x, w_km).body
+        plan = conv_fused.plan_for(x, w_km)
+        body = plan.body
         checks.append(conv_check(
             path, [b, h, wd, cin, cout], relu, dtype, body,
             conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu).float(),
@@ -656,7 +665,8 @@ def conv_list(calls, dtype, path, seed=7, target_ms=20.0):
             x, w_km, scale, shift, relu), target_ms)
         rows.append({
             "shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
-            "body": body, "ms": ms, "tflops": flops / ms / 1e9,
+            "body": body, "schedule": conv_plan.schedule(plan),
+            "tile": [plan.bm, plan.bn], "ms": ms, "tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: conv3x3_affine_relu_torch(
                 x, w, scale, shift, relu), target_ms),
             "library_ms": time_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1),
@@ -720,8 +730,10 @@ def phase_main_path(report, state):
     launches = {"conv3x3_affine_relu": conv_fused.counter.launches,
                 "dice_sums": dice_fused.counter.launches}
     bodies = dict(conv_fused.counter.bodies)
+    schedules = dict(conv_fused.counter.schedules)
     state["launches"] = launches
     state["conv_bodies"] = {"eval": bodies}
+    state["conv_schedules"] = {"eval": schedules}
     pm = res["pred_maps"]
     checks = {
         "pred_shape": pm.shape == (N_IMAGES, IMG_H, IMG_W),
@@ -745,13 +757,13 @@ def phase_main_path(report, state):
     report["main_path"] = {
         "n_images": N_IMAGES, "image_hw": [IMG_H, IMG_W], "patch": PATCH,
         "n_patches": n_patches, "n_chunks": n_chunks, "dtype": "bfloat16",
-        "launches": launches, "conv_bodies": bodies, "dice": res["dice"],
-        "auc": res["auc"],
+        "launches": launches, "conv_bodies": bodies,
+        "conv_schedules": schedules, "dice": res["dice"], "auc": res["auc"],
         "prob_mean": float(pm.mean()), "prob_std": float(pm.std()),
         "eval_seconds": dt, "images_per_s": N_IMAGES / dt, "checks": checks,
     }
     print(f"[main] {n_patches} patches in {n_chunks} chunk(s); launches "
-          f"{launches}, conv bodies {bodies}; dice "
+          f"{launches}, conv bodies {bodies} ({schedules}); dice "
           f"{[round(d, 4) for d in res['dice']]}; "
           f"auc {[round(a, 4) for a in res['auc']]}", flush=True)
     print(f"[main] eval of {N_IMAGES} images: {dt:.3f} s = "
@@ -962,20 +974,33 @@ def phase_kernels(report, state):
               f" TFLOP/s), plain {total['plain_ms']:.2f} ms, cuDNN conv "
               f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms "
               f"({total['bound_by']})", flush=True)
-        print(f"[conv] per layer, {name}: size Cin->Cout body ms TFLOP/s "
-              f"bound_ms cuDNN_ms plain_ms", flush=True)
+        print(f"[conv] per layer, {name}: size Cin->Cout body/schedule "
+              f"BMxBN ms TFLOP/s bound_ms cuDNN_ms plain_ms", flush=True)
         for r in rows:
+            kind = "/".join(k for k in (r["body"], r["schedule"]) if k)
             print(f"    {r['hw']:4d}^2 {r['cin']:5d}->{r['cout']:<5d} "
-                  f"{r['body']:8s} {r['ms']:7.3f} {r['tflops']:6.1f} "
+                  f"{kind:18s} {r['tile'][0]:3d}x{r['tile'][1]:<3d} "
+                  f"{r['ms']:7.3f} {r['tflops']:6.1f} "
                   f"{r['bound_ms']:7.3f} {r['library_ms']:7.3f} "
                   f"{r['plain_ms']:7.3f}", flush=True)
     with open(os.path.join(OUT_DIR, "conv_layers.json"), "w") as f:
         json.dump({"gpu": gpu_name_and_power(), **conv_times}, f, indent=1)
     total = conv_times["bfloat16"]["total"]
-    report["f32_repeatable"] = f32_repeatable(g, b)
-    state["conv_by_body"] = conv_by_body(conv_times, state["conv_bodies"])
+    report["f32_repeatable"] = repeatable(g, b, torch.float32)
+    report["bf16_repeatable"] = repeatable(g, b, torch.bfloat16)
+    state["conv_by_body"] = conv_by_body(conv_times, state["conv_bodies"],
+                                         state["conv_schedules"])
     state["mma_sync_lists"] = mma_sync_lists(checks)
     report["conv_by_body"] = state["conv_by_body"]
+    for body, row in state["conv_by_body"].items():
+        parts = [(body, row)] + [(f"{body}/{name}", sub) for name, sub
+                                 in row.get("schedules", {}).items()]
+        for name, r in parts:
+            print(f"[conv] by body: {name} ({row['dtype']}): {r['convs']} "
+                  f"of UNet's convs, kernel {r['ms']:.3f} ms, cuDNN "
+                  f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; "
+                  f"{r['launches_main_path']} launches on the main path",
+                  flush=True)
     report["mma_sync_lists"] = state["mma_sync_lists"]
     for path in ("eval", "eval_chunk", "train_val", "plan_edge", "zoo",
                  "whole_image", *(f"mma_sync_{name}" for name in
@@ -995,10 +1020,12 @@ def phase_kernels(report, state):
         failures.append({"f32 off the f32_box body, bf16 Cin % 8 == 0 off "
                          "the wgmma body or Cin % 8 != 0 off the mma_sync "
                          "body": wrong_body})
-    unequal = [r for r in report["f32_repeatable"] if not r["identical"]]
-    if unequal:
-        failures.append({"f32 kernel 1 not bit-identical across two calls":
-                         unequal})
+    for name in ("f32", "bf16"):
+        unequal = [r for r in report[f"{name}_repeatable"]
+                   if not r["identical"]]
+        if unequal:
+            failures.append({f"{name} kernel 1 not bit-identical across two "
+                             f"calls": unequal})
 
     # Dice: correctness on 20 x 584 x 565, times at the main path's shape.
     dice_rows = {}
@@ -1064,55 +1091,78 @@ def phase_kernels(report, state):
     ]
 
 
-# Shapes (B taken from the main path) at which two f32 calls of kernel 1
-# on the same inputs must give identical outputs: UNet's stem, its widest
-# map, its deepest conv, and MultiResUNet's first odd-width conv.
-F32_REPEAT_SHAPES = [(512, 3, 64), (512, 64, 64), (32, 1024, 1024),
-                     (512, 17, 26)]
+# Shapes (B taken from the main path) at which two calls of kernel 1 on
+# the same inputs must give identical outputs.  f32: UNet's stem, its
+# widest map, its deepest conv, and MultiResUNet's first odd-width conv.
+# bf16: UNet's stem (mma_sync), its Cout <= 256 convs on maps at least
+# 128 wide (ping-pong, operands swapped: strips, TMA stores), a 64^2 one
+# (swapped boxes), Cin 256 into Cout 128 at 64^2 (ping-pong 128 x 128, TMA
+# stores), an odd Cout (ping-pong, register stores), and its deepest conv
+# (cooperative).
+REPEAT_SHAPES = {
+    "float32": [(512, 3, 64), (512, 64, 64), (32, 1024, 1024),
+                (512, 17, 26)],
+    "bfloat16": [(512, 3, 64), (512, 64, 64), (256, 64, 128),
+                 (512, 128, 64), (128, 512, 256), (64, 128, 128),
+                 (64, 256, 128), (128, 64, 17), (32, 1024, 1024)],
+}
 
 
-def f32_repeatable(g, b):
-    """Kernel 1 (``f32_box``: one accumulation order per output, no
-    atomics) twice on the same f32 inputs at F32_REPEAT_SHAPES, batch
-    ``b``: whether the two outputs are bit-identical."""
+def repeatable(g, b, dtype):
+    """Kernel 1 (one accumulation order per output, no atomics, on every
+    body and schedule) twice on the same inputs of ``dtype`` at
+    REPEAT_SHAPES, batch ``b``: whether the two outputs are
+    bit-identical."""
     import torch
 
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
         conv3x3_affine_relu,
     )
 
+    name = str(dtype).split(".")[-1]
     rows = []
-    for hw, cin, cout in F32_REPEAT_SHAPES:
-        x, w, scale, shift = conv_inputs(g, b, hw, hw, cin, cout,
-                                         torch.float32)
+    for hw, cin, cout in REPEAT_SHAPES[name]:
+        x, w, scale, shift = conv_inputs(g, b, hw, hw, cin, cout, dtype)
         first = conv3x3_affine_relu(x, w, scale, shift)
         second = conv3x3_affine_relu(x, w, scale, shift)
         torch.cuda.synchronize()
         rows.append({"shape": [b, hw, hw, cin, cout],
                      "identical": bool(torch.equal(first, second)),
-                     "max_abs_diff": float((first - second).abs().max())})
+                     "max_abs_diff": float((first.float()
+                                            - second.float()).abs().max())})
         del x, w, first, second
-    print(f"[conv] f32 kernel 1 twice on the same inputs: "
+    print(f"[conv] {name} kernel 1 twice on the same inputs: "
           f"{sum(r['identical'] for r in rows)}/{len(rows)} shapes "
           f"bit-identical", flush=True)
     return rows
 
 
-def conv_by_body(conv_times, bodies):
+def conv_by_body(conv_times, bodies, schedules):
     """Kernel 1 on UNet's eval-chunk lists split by body (bf16: ``wgmma``
-    and ``mma_sync``; f32: ``f32_box``): convs, ms, bound, plain and cuDNN
-    ms per 16-patch forward (cuDNN with TF32 off), and the body's launches
-    on the main path."""
+    and ``mma_sync``; f32: ``f32_box``) and, for ``wgmma``, by schedule
+    (``pingpong``, ``cooperative``): convs, ms, bound, plain and cuDNN ms
+    per 16-patch forward (cuDNN with TF32 off), and the launches on the
+    main path."""
+    keys = ("ms", "bound_ms", "library_ms", "plain_ms")
     out = {}
     for dtype, t in conv_times.items():
         for r in t["rows"]:
             row = out.setdefault(r["body"], {
-                "dtype": dtype, "convs": 0, "ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "plain_ms": 0.0,
+                "dtype": dtype, "convs": 0, **{k: 0.0 for k in keys},
                 "launches_main_path": bodies["eval"].get(r["body"], 0)})
             row["convs"] += 1
-            for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+            for key in keys:
                 row[key] += r[key]
+            if r["schedule"] is None:
+                continue
+            name = f"{r['body']}/{r['schedule']}"
+            sub = row.setdefault("schedules", {}).setdefault(
+                r["schedule"], {
+                    "convs": 0, **{k: 0.0 for k in keys},
+                    "launches_main_path": schedules["eval"].get(name, 0)})
+            sub["convs"] += 1
+            for key in keys:
+                sub[key] += r[key]
     return out
 
 
@@ -1243,6 +1293,36 @@ def reset_counts():
     jobs.reset_counts()
 
 
+# SegNet's pooling windows in an f32 check against a CPU copy
+# (shared_pool_windows): a window where the CPU copy's first maximum is
+# not the card's passes only as a tie, its value at the card's choice
+# within POOL_TIE_REL of the pooled map's largest |value| (the f32 conv
+# check's tolerance, CONV_TOL, taken of the map that pools) below that
+# maximum in the CPU copy, or within POOL_TIE_ABS of it near zero; at
+# most POOL_MAX_FLIPPED windows may flip in one comparison.  The gap is
+# taken against the map and not the window: a value that rounding moves
+# across zero before the ReLU is a tie (1e-8 against 0), though it lies
+# millions of ulps from the window's maximum.  On 2 patches of 128^2
+# (about a million windows) the f32 forwards of 8 weight seeds flipped 0
+# to 2 windows each, with gaps of at most 7.2e-7 of the map (``--pool-gaps
+# 8`` on an H100), where a choice that no rounding explains is off by
+# ~1e-2 of it or more.
+POOL_TIE_REL = CONV_TOL["float32"]
+POOL_TIE_ABS = 1e-12
+POOL_MAX_FLIPPED = 8
+
+
+def _pool_windows(x):
+    """x (N, C, H, W) -> its 2x2 windows (N, H/2, W/2, 4, C), positions in
+    (row, column) order as ``ops.layers.max_pool2d_with_indices`` takes
+    them."""
+    from jcfszxc_unet_tpu_torch.ops.layers import nhwc
+
+    n, c, h, w = x.shape
+    xw = nhwc(x).reshape(n, h // 2, 2, w // 2, 2, c)
+    return xw.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4, c)
+
+
 @contextlib.contextmanager
 def shared_pool_windows():
     """SegNet unpools each 2x2 window to its first maximum, so two f32
@@ -1253,11 +1333,20 @@ def shared_pool_windows():
     kernel 1.  Inside this block the first forward
     (the card's) records each window's choice and the next one (the CPU
     copy's) takes it, counting in ``["flipped"]`` the windows whose own
-    choice differed, so that the comparison measures the arithmetic."""
+    choice differed and in ``["untied"]`` those of them whose value at
+    the card's choice lies more than POOL_TIE_REL of the map's largest
+    |value| (and POOL_TIE_ABS) below the CPU copy's maximum
+    (``["gaps_rel"]``: each flipped window's gap over that largest
+    |value|), so that the comparison measures the arithmetic and
+    :func:`check_pool_windows` fails on a choice that no rounding
+    explains."""
+    import torch
+
     from jcfszxc_unet_tpu_torch.models import SegNet as segnet
 
     real = segnet.max_pool2d_with_indices
-    log = {"recorded": [], "replay": None, "flipped": 0}
+    log = {"recorded": [], "replay": None, "flipped": 0, "untied": 0,
+           "gaps_rel": []}
 
     def pool(x):
         pooled, onehot = real(x)
@@ -1266,7 +1355,17 @@ def shared_pool_windows():
             return pooled, onehot
         theirs = log["recorded"][log["replay"]].to(onehot.device)
         log["replay"] += 1
-        log["flipped"] += int((theirs != onehot).any(dim=3).sum())
+        flipped = (theirs != onehot).any(dim=3)
+        if bool(flipped.any()):
+            xw = _pool_windows(x)
+            top = xw.amax(dim=3)[flipped]
+            chosen = (xw * theirs).sum(dim=3)[flipped]  # one marked value
+            scale = float(x.abs().max())
+            gaps = (top - chosen).tolist()
+            log["gaps_rel"] += [g / scale for g in gaps]
+            log["untied"] += sum(g > POOL_TIE_REL * scale + POOL_TIE_ABS
+                                 for g in gaps)
+        log["flipped"] += int(flipped.sum())
         return pooled, theirs
 
     segnet.max_pool2d_with_indices = pool
@@ -1276,12 +1375,32 @@ def shared_pool_windows():
         segnet.max_pool2d_with_indices = real
 
 
+def check_pool_windows(log):
+    """Raise unless every window that :func:`shared_pool_windows` gave the
+    CPU copy against its own choice was a tie, and at most
+    POOL_MAX_FLIPPED of them."""
+    if log["untied"] or log["flipped"] > POOL_MAX_FLIPPED:
+        raise AssertionError(
+            f"pooling windows: {log['flipped']} flipped (at most "
+            f"{POOL_MAX_FLIPPED}), {log['untied']} of them not ties within "
+            f"{POOL_TIE_REL} of the map (gaps over its largest |value|: "
+            f"{sorted(log['gaps_rel'])[-8:]})")
+
+
 def f32_against_cpu_copy(model, fn, **predictor_kwargs):
     """max |dprob| between ``fn(predictor)`` on the card and on a CPU copy
     of ``model``, both f32 (on the CPU the wrappers take their plain
     versions), with SegNet's pooling windows shared
     (:func:`shared_pool_windows`), and the reference's std;
     ``predictor_kwargs`` go to both predictors."""
+    diff, std, windows = f32_pair(model, fn, **predictor_kwargs)
+    check_pool_windows(windows)
+    return diff, std
+
+
+def f32_pair(model, fn, **predictor_kwargs):
+    """:func:`f32_against_cpu_copy`'s comparison, returning also the log
+    of :func:`shared_pool_windows` unchecked."""
     import copy
 
     import torch
@@ -1299,11 +1418,49 @@ def f32_against_cpu_copy(model, fn, **predictor_kwargs):
     diff = float((got.cpu() - want).abs().max())
     if windows["recorded"]:  # the CPU copy once more with its own choices
         own = float((got.cpu() - fn(cpu)).abs().max())
+        gaps = windows["gaps_rel"]
         print(f"[f32] pooling windows: {windows['flipped']} of the CPU "
-              f"copy's chose another first maximum; max |dprob| {diff:.2e} "
+              f"copy's chose another first maximum ({windows['untied']} "
+              f"not ties within {POOL_TIE_REL} of the map; largest gap "
+              f"{max(gaps, default=0):.2e} of it); max |dprob| {diff:.2e} "
               f"with the card's choices, {own:.2e} with its own", flush=True)
     del cpu
-    return diff, float(want.std())
+    return diff, float(want.std()), windows
+
+
+def pool_gaps(n_seeds):
+    """``--pool-gaps N``: zoo_eval's f32 check of SegNet (2 patches of
+    128^2 from the main path's images) for weight seeds 11 (zoo_eval's)
+    .. 10 + N; one JSON line of each seed's flipped windows and their gaps
+    over the map's largest |value|."""
+    import numpy as np
+    import torch
+
+    from jcfszxc_unet_tpu_torch.data.sampler import extract_patches
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, _, _ = synthetic_drive(N_IMAGES, IMG_H, IMG_W, seed=0)
+    centers = np.array([[0, IMG_H // 2, IMG_W // 2],
+                        [1, IMG_H // 3, IMG_W // 3]][:ZOO_F32_PATCHES])
+    patches = extract_patches(torch.as_tensor(images[:2], device=dev),
+                              centers, ZOO_F32_HW)
+    seed0 = 10 + list(ZOO).index("SegNet.SegNet")
+    runs = []
+    for seed in range(seed0, seed0 + n_seeds):
+        model = build_model(dev, seed=seed, name="SegNet.SegNet")
+        diff, _, log = f32_pair(
+            model, lambda p: p.predict_patches(patches.to(p.device)))
+        runs.append({"seed": seed, "flipped": log["flipped"],
+                     "untied": log["untied"], "gaps_rel": log["gaps_rel"],
+                     "max_abs_dprob": diff})
+        del model
+    gaps = [g for r in runs for g in r["gaps_rel"]]
+    print(json.dumps({"pool_gaps": runs, "tie_rel": POOL_TIE_REL,
+                      "max_flipped": max(r["flipped"] for r in runs),
+                      "max_gap_rel": max(gaps, default=0.0),
+                      "gpu": gpu_name_and_power()}))
 
 
 def phase_zoo_eval(report, state):
@@ -3204,6 +3361,7 @@ def phase_probe(report, state):
     torch.cuda.synchronize()
     launches = conv_imcol.counter.launches
     bodies = dict(conv_imcol.counter.bodies)
+    schedules = dict(conv_imcol.counter.schedules)
 
     # Correctness: the probe geometry in bf16 and (at B 8) f32, and a
     # ragged shape in both.  Both sides accumulate in f32 and differ in
@@ -3254,12 +3412,13 @@ def phase_probe(report, state):
         "kernel_bound_ms": bound_ms(flops, kernel_bytes, BF16_FLOPS),
         "flops": flops, "bytes": nbytes, "kernel_bytes": kernel_bytes,
     }
-    report["probe"] = {"launches": launches, "bodies": bodies, "run": res,
+    report["probe"] = {"launches": launches, "bodies": bodies,
+                       "schedules": schedules, "run": res,
                        "checks": checks, "times": times}
     n_ok = sum(c["ok"] for c in checks)
     print(f"[probe] imcol kernel vs plain: {n_ok}/{len(checks)} cases within "
           f"1e-2 (bf16) / 1e-4 (f32) of max|plain|; launches on the probe "
-          f"path {launches} ({bodies})", flush=True)
+          f"path {launches} ({bodies}, {schedules})", flush=True)
     print(f"[probe] B{b} {h}x{w} {cin}->{cout} bf16: wrapper "
           f"{times['ms']:.3f} ms (pad {times['pad_ms']:.3f} + kernel "
           f"{times['kernel_ms']:.3f}, {flops / times['kernel_ms'] / 1e9:.1f} "
@@ -3276,6 +3435,7 @@ def phase_probe(report, state):
         "source": "jcfszxc_unet_tpu_torch/csrc/conv3x3_relu_imcol.cu",
         "replaces": "scripts/tpu_imcol_conv_probe.py:52",
         "launches": launches, "launches_by_body": {"probe": bodies},
+        "launches_by_schedule": {"probe": schedules},
         "max_abs_err": max(c["max_abs_err"] for c in checks
                            if c["dtype"] == "bfloat16"),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
@@ -3683,8 +3843,8 @@ def count_bodies_by_phase(state):
     by_phase = state.setdefault("phase_bodies", {})
     real_add = conv_fused.counter.add
 
-    def add(body):
-        real_add(body)
+    def add(body, schedule=None):
+        real_add(body, schedule)
         row = by_phase.setdefault(control["phase"], {})
         row[body] = row.get(body, 0) + 1
 
@@ -3736,6 +3896,7 @@ def kernels_line(state):
         row["launches_by_path"] = by_path
         if row["name"] == "conv3x3_affine_relu":
             row["launches_by_body"] = state["conv_bodies"]
+            row["launches_by_schedule"] = state["conv_schedules"]
             row["launches_by_model"] = {**state["zoo_conv_launches"],
                                         **state["s2d_conv_launches"]}
             row["by_body"] = state["conv_by_body"]
@@ -3770,6 +3931,9 @@ def main() -> None:
         orbax_child(sys.argv[2])
         return
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--pool-gaps"]:
+        pool_gaps(int(sys.argv[2]))
+        return
     import torch
 
     if not torch.cuda.is_available():

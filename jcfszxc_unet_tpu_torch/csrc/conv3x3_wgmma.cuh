@@ -29,21 +29,58 @@
 //
 // A block is persistent: it walks tiles blockIdx.x, + gridDim.x, ...  Warp 8
 // is the producer: its lane 0 keeps a ring of STAGES stages in flight, each
-// with a full and an empty mbarrier.  Warps 0-7 are two consumer warpgroups;
-// warpgroup g multiplies rows (BM/2)g .. of the A tile, one or two m64
-// blocks, by the B tile with wgmma.mma_async m64nBNk16, keeps one wgmma
-// group in flight and frees a stage once its group has retired.  The
-// accumulators are f32 registers; the epilogue applies scale/shift (AFFINE)
-// and the optional ReLU in f32 and stores bf16 once, masking rows outside
-// the image or batch and channels past Cout.  While it runs, the producer
-// already fills the ring with the next tile's operands.
+// with a full and an empty mbarrier, tile after tile, K step after K step.
+// Warps 0-7 are two consumer warpgroups, which multiply with
+// wgmma.mma_async m64nBNk16 into f32 registers, keep one wgmma group in
+// flight and free a stage once its group has retired.  Two schedules:
+//
+//   * cooperative (the 128 x 256 and 256 x 128 tiles of the deep layers,
+//     Cin > 128 and Cout > 128): both warpgroups share each tile,
+//     warpgroup g taking rows (BM/2)g .., and both run its epilogue after
+//     its last K step.  The tensor cores idle meanwhile;
+//     at Cout > 128 a tile has 4-36x more K steps than its epilogue is
+//     long.
+//   * PINGPONG (the rest): each warpgroup owns whole tiles, warpgroup 0
+//     the block's even local tiles and warpgroup 1 the odd ones, and waits
+//     only on its own tiles' stages.  A pair of named barriers hands the
+//     tensor cores over: warpgroup g issues tile j's products only after
+//     the other one has issued tile j - 1's, so that the epilogue of one
+//     tile runs while the other warpgroup's products are in flight.  The
+//     turn also keeps the stage parities right: when a warpgroup waits on
+//     a stage, every earlier fill of it has landed and the next cannot
+//     start before this warpgroup frees it, so the full barrier is at most
+//     one phase from the one waited for.  A warpgroup holds a whole tile's
+//     accumulators: BM x BN <= 16384, 128 f32 registers a thread.
+//   * SWAP (ping-pong, 64 channels a tile, Cout % 8 == 0; the plan takes
+//     it up to Cout 256): the same schedule with the operands' roles
+//     swapped, D (channels x pixels) = W (64 x K) * X (pixels x K)^T: the
+//     64 output channels are the wgmma's M and the tile's pixels its N, so
+//     a K step is one m64n256k16 (or, for strips, one m64n128k16 a row)
+//     instead of four m64n64k16.  Both operands stay K-major in the
+//     same stages.  The epilogue writes the channels-by-pixels tile into
+//     the staging tile transposed, with stmatrix .trans.
+//
+// The epilogue applies scale/shift (AFFINE) and the optional ReLU in f32
+// and rounds to bf16 once.  The cooperative schedule, and PINGPONG where
+// Cout % 8 != 0, store channel pairs from registers, masking rows outside
+// the image or batch and channels past Cout.  PINGPONG with Cout % 8 == 0
+// (the plan's tma_store) writes the tile into the warpgroup's own staging
+// tile in shared memory as TMA's 128-byte swizzle lays it out (BN / 64 boxes of BM rows of 128
+// bytes) and one thread stores each box with cp.async.bulk.tensor over a
+// 4-D map of out (Cout, W, H, B); TMA drops what lies past the tensor,
+// which replaces the masks.  The staging tile is written again only once
+// the previous tile's stores have read it.
+//
+// Every output is one sum over the same K order whichever schedule or
+// tile runs, so a forward reproduces bit for bit.
 //
 // What bounds it: at UNet's shapes the work is 2 * 9 * Cin flops per output
 // value, far above the H100's ridge point, so the tensor cores' rate, which
 // only wgmma reaches.  Below that, where Cout <= 128 and K is short, the
-// operand bytes each stage pulls from L2 (tall tiles and strips cut them).
-// TMA moves the operands with no thread spending an instruction or a
-// register on them.
+// operand bytes each stage pulls from L2 (tall tiles and strips cut them)
+// and the epilogue (which PINGPONG overlaps with the other warpgroup's
+// products).  TMA moves the operands and the output with no thread
+// spending an instruction or a register on the copy.
 //
 // Host side: the tensor maps are encoded per launch with
 // cuTensorMapEncodeTiled (taken through the runtime's driver entry point, so
@@ -60,7 +97,7 @@
 namespace wgmma_conv {
 
 constexpr int BK = 64;         // channels of one tap per K step: 128 bytes
-constexpr int CONSUMERS = 2;   // consumer warpgroups, BM / 2 rows each
+constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int PRODUCER_WARP = CONSUMERS * 4;
 constexpr int THREADS = CONSUMERS * 128 + 32;
 
@@ -74,6 +111,7 @@ struct Params {
   int tiles_w, tiles_h, tiles_n, tiles;
   int halo;                // 1: unpadded x; 0: padded xp
   int relu;
+  int tma_store;           // ping-pong: the epilogue stores through map_out
   const float* scale;      // AFFINE only
   const float* shift;
   __nv_bfloat16* out;      // (B, H, W, Cout)
@@ -82,6 +120,9 @@ struct Params {
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
+
+// The wgmma body's schedules (conv_plan.SCHEDULES).
+constexpr int SCHED_COOPERATIVE = 0, SCHED_PINGPONG = 1, SCHED_SWAP = 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -150,6 +191,69 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Shared -> global: the 4-D box at (c0, c1, c2, c3) of `map`, clipped to
+// the tensor, in the thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until the thread's committed bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Until the thread's committed bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to TMA (the async
+// proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from a warp's registers, each stored
+// transposed: r[i] of lane l holds row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of matrix i; lane 8 i + k gives the address of the
+// 16-byte memory row k of matrix i, which receives the matrix's column k.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Named barriers (id 0 is __syncthreads): `count` threads, whole warps.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Shared-memory matrix descriptor of a K-major tile stored as rows of 128
@@ -306,22 +410,268 @@ __device__ __forceinline__ void tile_origin(const Params& p, int tile, int bn,
   n0 = nt * bn;
 }
 
-template <int BM, int BN, int STAGES, bool STRIP, bool AFFINE>
-__global__ void __launch_bounds__(THREADS, 1)
-conv_kernel(const __grid_constant__ CUtensorMap map_x,
-            const __grid_constant__ CUtensorMap map_w, const Params p) {
-  static_assert(BM == 128 || BM == 256, "tile rows: one or two m64 a warpgroup");
-  static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma tile width");
-  constexpr int MI = BM / 128;  // m64 blocks per consumer warpgroup
+// Named barriers of the consumers (id 0 is __syncthreads).  PINGPONG:
+// BAR_TURN + g lets warpgroup g issue its next tile's products, once the
+// other warpgroup has issued its previous tile's (both warpgroups, 256
+// threads); BAR_STAGING + g orders warpgroup g's writes to its staging
+// tile around the TMA stores (128 threads).
+constexpr int BAR_TURN = 1;
+constexpr int BAR_STAGING = 3;
+
+// The sizes of a (BM, BN, STAGES, STRIP, SCHED) configuration.
+template <int BM_, int BN_, int STAGES_, bool STRIP_, int SCHED_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_;
+  static constexpr bool STRIP = STRIP_;
+  static constexpr bool PINGPONG = SCHED_ != SCHED_COOPERATIVE;
+  static constexpr bool SWAP = SCHED_ == SCHED_SWAP;
+  // rows of the A tile one consumer warpgroup multiplies, m64 blocks of it
+  static constexpr int ROWS = PINGPONG ? BM : BM / CONSUMERS;
+  static constexpr int MI = ROWS / 64;
+  // The accumulators: AM wgmma blocks of 64 rows x AN columns.  Pixels x
+  // channels: MI blocks of BN; SWAP, channels x pixels: one block of the
+  // tile's pixels, or one a strip row (a row's 128 pixels are contiguous
+  // in the stage, two rows are not).
+  static constexpr int AM = SWAP ? (STRIP ? BM / 128 : 1) : MI;
+  static constexpr int AN = SWAP ? BM / AM : BN;
   // A stage holds one tap's box and weights, or (STRIP) TH = BM / 128 rows
   // of 130 pixels and the weights of the taps (dy, 0..2).
-  constexpr int TAPS = STRIP ? 3 : 1;  // taps per stage
-  constexpr int A_BYTES =
-      STRIP ? ((130 * (BM / 128) * BK * 2 + 1023) / 1024) * 1024 : BM * BK * 2;
-  constexpr int A_TX = STRIP ? 130 * (BM / 128) * BK * 2 : A_BYTES;
-  constexpr int B_BYTES = BN * BK * 2;  // one tap
-  constexpr int STAGE_BYTES = A_BYTES + TAPS * B_BYTES;
-  static_assert(STAGE_BYTES % 1024 == 0, "stages on swizzle-atom boundaries");
+  static constexpr int TAPS = STRIP ? 3 : 1;  // taps per stage
+  static constexpr int A_TX = STRIP ? 130 * (BM / 128) * BK * 2 : BM * BK * 2;
+  static constexpr int A_BYTES = (A_TX + 1023) / 1024 * 1024;
+  static constexpr int B_BYTES = BN * BK * 2;  // one tap
+  static constexpr int STAGE_BYTES = A_BYTES + TAPS * B_BYTES;
+  // a warpgroup's bf16 staging tile (PINGPONG): BN / 64 boxes of BM rows
+  static constexpr int OUT_BYTES = PINGPONG ? BM * BN * 2 : 0;
+  // dynamic shared memory a block: the ring, the staging tiles, and 1024
+  // bytes to align the ring to the swizzle's atom
+  static constexpr int SMEM =
+      STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + 1024;
+
+  static_assert(BM == 128 || BM == 256, "tile rows");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma tile width");
+  static_assert(MI >= 1 && AM * AN / 2 <= 128,
+                "a warpgroup's accumulators: at most 128 registers");
+  static_assert(!SWAP || BN == 64, "SWAP: the 64 channels are wgmma's M");
+  static_assert(!STRIP || BM % 128 == 0, "strips are rows of 128 pixels");
+  static_assert(STAGE_BYTES % 1024 == 0 && OUT_BYTES % 1024 == 0,
+                "stages and staging tiles on swizzle-atom boundaries");
+  static_assert(SMEM + 2 * STAGES * 8 <= 232448, "shared memory of a block");
+};
+
+// The K steps of one tile: waits for each stage (it = the ring's count of
+// the tile's first step), issues its products into acc (rows row0 .. of
+// the A tile), keeps one wgmma group in flight and frees a stage once its
+// group has retired.  Returns the last stage, which the caller frees after
+// wgmma_wait<0>.
+template <class T>
+__device__ __forceinline__ int mainloop(float (&acc)[T::AM][T::AN / 2],
+                                        uint32_t ring, uint64_t* full,
+                                        uint64_t* empty, int it, int KT,
+                                        int row0, int lane) {
+  int prev = 0;
+  for (int kt = 0; kt < KT; ++kt, ++it) {
+    const int s = it % T::STAGES;
+    mbar_wait(&full[s], (it / T::STAGES) & 1);
+    const uint32_t a = ring + s * T::STAGE_BYTES;
+    const uint32_t b = a + T::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int dx = 0; dx < T::TAPS; ++dx)
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+#pragma unroll
+        for (int mi = 0; mi < T::AM; ++mi) {
+          // first A row of block mi: 64 pixels, or (SWAP) AN pixels as
+          // wgmma's columns, the weights' 64 channels as its rows
+          const int r0 = row0 + mi * (T::SWAP ? T::AN : 64);
+          const int row = T::STRIP ? (r0 / 128) * 130 + r0 % 128 + dx : r0;
+          const uint64_t dp = smem_desc(a + row * 128 + 32 * k);
+          const uint64_t dw = smem_desc(b + dx * T::B_BYTES + 32 * k);
+          wgmma_m64nk16(acc[mi], T::SWAP ? dw : dp, T::SWAP ? dp : dw,
+                        (kt > 0 || dx > 0 || k > 0) ? 1 : 0);
+        }
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_wait<1>();  // the previous step's group has retired
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+  }
+  return prev;
+}
+
+// The epilogue's f32 arithmetic on one pair of columns n, n + 1.
+template <bool AFFINE>
+__device__ __forceinline__ void affine_relu(const Params& p, int n, bool two,
+                                            float& v0, float& v1) {
+  if constexpr (AFFINE) {
+    if (n < p.Cout) v0 = fmaf(v0, __ldg(p.scale + n), __ldg(p.shift + n));
+    if (two) v1 = fmaf(v1, __ldg(p.scale + n + 1), __ldg(p.shift + n + 1));
+  }
+  if (p.relu) {
+    v0 = fmaxf(v0, 0.f);
+    v1 = fmaxf(v1, 0.f);
+  }
+}
+
+// Epilogue from registers.  Accumulator [mi][j*4 + h*2 + e] holds row
+// row0 + 64*mi + 16*(t/32) + (t%32)/4 + 8*h and column 8*j + 2*(t%4) + e
+// of the tile (t: thread in the warpgroup); tile row r is box pixel
+// (r >> (tw+th), (r >> tw) % TH, r % TW).
+template <class T, bool AFFINE>
+__device__ __forceinline__ void store_registers(
+    const float (&acc)[T::AM][T::AN / 2], const Params& p, int x0, int y0,
+    int b0, int n0, int row0, int t) {
+  const int tw_mask = (1 << p.tw_log) - 1;
+  const int th_mask = (1 << p.th_log) - 1;
+  const bool pairs = (p.Cout & 1) == 0;  // 4-byte aligned bf16 pairs
+#pragma unroll
+  for (int mh = 0; mh < 2 * T::MI; ++mh) {
+    const int mi = mh / 2;
+    const int h = mh % 2;
+    const int r = row0 + 64 * mi + 16 * (t / 32) + (t % 32) / 4 + 8 * h;
+    const int xx = x0 + (r & tw_mask);
+    const int yy = y0 + ((r >> p.tw_log) & th_mask);
+    const int bb = b0 + (r >> (p.tw_log + p.th_log));
+    if (xx >= p.W || yy >= p.H || bb >= p.B) continue;
+    __nv_bfloat16* row =
+        p.out + (((int64_t)bb * p.H + yy) * p.W + xx) * p.Cout;
+#pragma unroll
+    for (int j = 0; j < T::BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (t % 4);
+      if (n >= p.Cout) continue;
+      const bool two = n + 1 < p.Cout;
+      float v0 = acc[mi][j * 4 + h * 2];
+      float v1 = acc[mi][j * 4 + h * 2 + 1];
+      affine_relu<AFFINE>(p, n, two, v0, v1);
+      if (two && pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(row + n) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        row[n] = __float2bfloat16_rn(v0);
+        if (two) row[n + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// The bf16 tile into the warpgroup's staging tile, laid out as the output
+// map's boxes: BN / 64 boxes of BM rows of 128 bytes in the tile's row
+// order (which is the box's pixel order), 16-byte chunk c of row r at
+// chunk c ^ (r % 8) (the 128-byte swizzle).  A warp's 4-byte writes of
+// channel pairs cover 8 rows of one chunk column, which the swizzle
+// spreads over all 32 banks.
+template <class T, bool AFFINE>
+__device__ __forceinline__ void stage_pairs(
+    const float (&acc)[T::AM][T::AN / 2], const Params& p, uint32_t staging,
+    int n0, int t) {
+  const int sw = (t % 32) / 4;  // r % 8 of both of this thread's rows
+#pragma unroll
+  for (int mh = 0; mh < 2 * T::MI; ++mh) {
+    const int mi = mh / 2;
+    const int h = mh % 2;
+    const int r = 64 * mi + 16 * (t / 32) + (t % 32) / 4 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < T::BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (t % 4);
+      float v0 = acc[mi][j * 4 + h * 2];
+      float v1 = acc[mi][j * 4 + h * 2 + 1];
+      affine_relu<AFFINE>(p, n, n < p.Cout, v0, v1);
+      st_shared_u32(staging + (j / 8) * (T::BM * 128) + r * 128 +
+                        (((j % 8) ^ sw) << 4) + (t % 4) * 4,
+                    pack_bf16x2(v0, v1));
+    }
+  }
+}
+
+// The same staging tile from SWAP's channels-by-pixels accumulators:
+// [mb][j*4 + h*2 + e] holds channel 16*(t/32) + (t%32)/4 + 8*h and pixel
+// AN*mb + 8*j + 2*(t%4) + e, so a warp holds 8 x 8 matrices (j, h) with
+// the channels as rows and each thread needs the scale and shift of two
+// channels only.  stmatrix .trans stores each matrix as 8 pixel rows of
+// 8 channels, one 16-byte chunk of the staging row: lane l addresses row
+// l % 8 of matrix l / 8 = (j - j0) * 2 + h, chunk 2*(t/32) + h of pixel
+// AN*mb + 8*j + l % 8, at chunk ^ (pixel % 8); the 8 rows of a matrix
+// land in 8 distinct chunk columns, all 32 banks.
+template <class T, bool AFFINE>
+__device__ __forceinline__ void stage_transposed(
+    const float (&acc)[T::AM][T::AN / 2], const Params& p, uint32_t staging,
+    int n0, int t) {
+  const int lane = t % 32;
+  const int k = lane % 8;
+  const uint32_t chunk = ((2 * (t / 32) + (lane / 8) % 2) ^ k) << 4;
+  float sc[2] = {1.f, 1.f}, sh[2] = {0.f, 0.f};
+  if constexpr (AFFINE) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 16 * (t / 32) + lane / 4 + 8 * h;
+      if (n < p.Cout) {
+        sc[h] = __ldg(p.scale + n);
+        sh[h] = __ldg(p.shift + n);
+      }
+    }
+  }
+#pragma unroll
+  for (int mb = 0; mb < T::AM; ++mb)
+#pragma unroll
+    for (int j0 = 0; j0 < T::AN / 8; j0 += 2) {
+      uint32_t r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + i / 2;
+        const int h = i % 2;
+        float v0 = acc[mb][j * 4 + h * 2];
+        float v1 = acc[mb][j * 4 + h * 2 + 1];
+        if constexpr (AFFINE) {
+          v0 = fmaf(v0, sc[h], sh[h]);
+          v1 = fmaf(v1, sc[h], sh[h]);
+        }
+        if (p.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        r[i] = pack_bf16x2(v0, v1);
+      }
+      const int pixel = T::AN * mb + 8 * (j0 + lane / 16) + k;
+      stmatrix_x4_trans(staging + pixel * 128 + chunk, r);
+    }
+}
+
+// Epilogue through the warpgroup's staging tile (ping-pong, Cout % 8 ==
+// 0): once the previous tile's boxes have been read from it, the bf16
+// tile goes in (stage_pairs, or stage_transposed for SWAP), and thread 0
+// stores each box that starts below Cout with TMA.
+template <class T, bool AFFINE>
+__device__ __forceinline__ void store_tma(
+    const float (&acc)[T::AM][T::AN / 2], const Params& p,
+    const CUtensorMap* map_out, uint32_t staging, int x0, int y0, int b0,
+    int n0, int wg, int t) {
+  if (t == 0) bulk_wait_read();
+  bar_sync(BAR_STAGING + wg, 128);
+  if constexpr (T::SWAP)
+    stage_transposed<T, AFFINE>(acc, p, staging, n0, t);
+  else
+    stage_pairs<T, AFFINE>(acc, p, staging, n0, t);
+  fence_proxy_async();
+  bar_sync(BAR_STAGING + wg, 128);
+  if (t == 0) {
+#pragma unroll
+    for (int q = 0; q < T::BN / 64; ++q)
+      if (n0 + 64 * q < p.Cout)
+        tma_store_4d(map_out, staging + q * (T::BM * 128), n0 + 64 * q, x0,
+                     y0, b0);
+    bulk_commit();
+  }
+}
+
+template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_kernel(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_w,
+            const __grid_constant__ CUtensorMap map_out, const Params p) {
+  using T = Tile<BM, BN, STAGES, STRIP, SCHED>;
+  constexpr bool PINGPONG = T::PINGPONG;
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[STAGES];
@@ -333,14 +683,15 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+      // one arrival per warp of the warpgroups that multiply the stage
+      mbar_init(&empty[s], (PINGPONG ? 1 : CONSUMERS) * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int chunks = (p.Cin + BK - 1) / BK;  // K steps per tap
-  const int KT = (9 / TAPS) * chunks;
+  const int KT = (9 / T::TAPS) * chunks;
 
   if (warp == PRODUCER_WARP) {
     if (lane == 0) {
@@ -359,20 +710,20 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           const int step = kt / chunks;  // tap, or the strip's dy
           const int c0 = (kt - step * chunks) * BK;
-          const uint32_t a = ring + s * STAGE_BYTES;
-          mbar_expect_tx(&full[s], A_TX + TAPS * B_BYTES);
+          const uint32_t a = ring + s * T::STAGE_BYTES;
+          mbar_expect_tx(&full[s], T::A_TX + T::TAPS * T::B_BYTES);
           if constexpr (STRIP) {
             tma_load_4d(a, &map_x, &full[s], c0, x0 - p.halo,
                         y0 + step - p.halo, b0);
             for (int dx = 0; dx < 3; ++dx)
-              tma_load_3d(a + A_BYTES + dx * B_BYTES, &map_w, &full[s], c0,
-                          3 * step + dx, n0);
+              tma_load_3d(a + T::A_BYTES + dx * T::B_BYTES, &map_w, &full[s],
+                          c0, 3 * step + dx, n0);
           } else {
             const int dy = step / 3;
             const int dx = step - dy * 3;
             tma_load_4d(a, &map_x, &full[s], c0, x0 + dx - p.halo,
                         y0 + dy - p.halo, b0);
-            tma_load_3d(a + A_BYTES, &map_w, &full[s], c0, step, n0);
+            tma_load_3d(a + T::A_BYTES, &map_w, &full[s], c0, step, n0);
           }
         }
       }
@@ -380,88 +731,53 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
   } else {
     const int wg = warp / 4;
     const int t = threadIdx.x % 128;  // thread in the warpgroup
-    float acc[MI][BN / 2];
+    float acc[T::AM][T::AN / 2];
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < T::AM; ++mi)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[mi][i] = 0.f;
-    int it = 0;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      int x0, y0, b0, n0;
-      tile_origin(p, tile, BN, x0, y0, b0, n0);
-      int prev = 0;
-      for (int kt = 0; kt < KT; ++kt, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const uint32_t a = ring + s * STAGE_BYTES;
-        const uint32_t b = a + A_BYTES;
-        wgmma_fence();
-#pragma unroll
-        for (int dx = 0; dx < TAPS; ++dx)
-#pragma unroll
-          for (int k = 0; k < BK / 16; ++k)
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-              // first A row of this warpgroup's m64 block mi
-              const int r0 = wg * (BM / 2) + mi * 64;
-              const int row = STRIP ? (r0 / 128) * 130 + r0 % 128 + dx : r0;
-              wgmma_m64nk16(
-                  acc[mi], smem_desc(a + row * 128 + 32 * k),
-                  smem_desc(b + dx * B_BYTES + 32 * k),
-                  (kt > 0 || dx > 0 || k > 0) ? 1 : 0);
-            }
-        wgmma_commit();
-        if (kt > 0) {
-          wgmma_wait<1>();  // the previous step's group has retired
-          if (lane == 0) mbar_arrive(&empty[prev]);
+      for (int i = 0; i < T::AN / 2; ++i) acc[mi][i] = 0.f;
+    if constexpr (PINGPONG) {
+      // This block's tiles are j = 0 .. n_local - 1 (tile blockIdx.x + j *
+      // gridDim.x, ring steps j * KT ..); warpgroup wg takes j = wg, wg + 2,
+      // ...  Tile j waits for the other warpgroup to have issued tile
+      // j - 1, and lets it start tile j + 1 once its own products are
+      // issued: each bar_sync on BAR_TURN + wg meets exactly one
+      // bar_arrive from the other warpgroup.
+      const int n_local =
+          (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+      const uint32_t staging = ring + STAGES * T::STAGE_BYTES +
+                               wg * T::OUT_BYTES;
+      for (int j = wg; j < n_local; j += CONSUMERS) {
+        int x0, y0, b0, n0;
+        tile_origin(p, blockIdx.x + j * gridDim.x, BN, x0, y0, b0, n0);
+        if (j > 0) bar_sync(BAR_TURN + wg, CONSUMERS * 128);
+        const int last = mainloop<T>(acc, ring, full, empty, j * KT, KT, 0,
+                                     lane);
+        if (j + 1 < n_local) bar_arrive(BAR_TURN + (wg ^ 1), CONSUMERS * 128);
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[last]);
+        if constexpr (T::SWAP) {  // the launcher ensures p.tma_store
+          store_tma<T, AFFINE>(acc, p, &map_out, staging, x0, y0, b0, n0, wg,
+                               t);
+        } else if (p.tma_store) {
+          store_tma<T, AFFINE>(acc, p, &map_out, staging, x0, y0, b0, n0, wg,
+                               t);
+        } else {
+          store_registers<T, AFFINE>(acc, p, x0, y0, b0, n0, 0, t);
         }
-        prev = s;
       }
-      wgmma_wait<0>();
-      if (lane == 0) mbar_arrive(&empty[prev]);
-
-      // Epilogue.  Accumulator [mi][j*4 + h*2 + e] holds row
-      // (BM/2)*wg + 64*mi + 16*(t/32) + (t%32)/4 + 8*h and column
-      // 8*j + 2*(t%4) + e of the tile; tile row r is box pixel
-      // (r >> (tw+th), (r >> tw) % TH, r % TW).
-      const int tw_mask = (1 << p.tw_log) - 1;
-      const int th_mask = (1 << p.th_log) - 1;
-      const bool pairs = (p.Cout & 1) == 0;  // 4-byte aligned bf16 pairs
-#pragma unroll
-      for (int mh = 0; mh < 2 * MI; ++mh) {
-        const int mi = mh / 2;
-        const int h = mh % 2;
-        const int r = (BM / 2) * wg + 64 * mi + 16 * (t / 32) + (t % 32) / 4 +
-                      8 * h;
-        const int xx = x0 + (r & tw_mask);
-        const int yy = y0 + ((r >> p.tw_log) & th_mask);
-        const int bb = b0 + (r >> (p.tw_log + p.th_log));
-        if (xx >= p.W || yy >= p.H || bb >= p.B) continue;
-        __nv_bfloat16* row =
-            p.out + (((int64_t)bb * p.H + yy) * p.W + xx) * p.Cout;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int n = n0 + 8 * j + 2 * (t % 4);
-          if (n >= p.Cout) continue;
-          const bool two = n + 1 < p.Cout;
-          float v0 = acc[mi][j * 4 + h * 2];
-          float v1 = acc[mi][j * 4 + h * 2 + 1];
-          if constexpr (AFFINE) {
-            v0 = fmaf(v0, __ldg(p.scale + n), __ldg(p.shift + n));
-            if (two) v1 = fmaf(v1, __ldg(p.scale + n + 1), __ldg(p.shift + n + 1));
-          }
-          if (p.relu) {
-            v0 = fmaxf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f);
-          }
-          if (two && pairs) {
-            *reinterpret_cast<__nv_bfloat162*>(row + n) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            row[n] = __float2bfloat16_rn(v0);
-            if (two) row[n + 1] = __float2bfloat16_rn(v1);
-          }
-        }
+      if (p.tma_store && t == 0) bulk_wait();
+    } else {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < p.tiles;
+           tile += gridDim.x, it += KT) {
+        int x0, y0, b0, n0;
+        tile_origin(p, tile, BN, x0, y0, b0, n0);
+        const int last = mainloop<T>(acc, ring, full, empty, it, KT,
+                                     wg * T::ROWS, lane);
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[last]);
+        store_registers<T, AFFINE>(acc, p, x0, y0, b0, n0, wg * T::ROWS, t);
       }
     }
   }
@@ -516,13 +832,15 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
 }
 
 // The launch plan, as computed by ops/kernels/conv_plan.py (ConvPlan.ints).
-// chunk and smem are the mma_sync body's (channels a K step, shared-memory
-// bytes a block); the wgmma body reads neither.
+// schedule is the wgmma body's (SCHED_COOPERATIVE, SCHED_PINGPONG,
+// SCHED_SWAP) and tma_store whether its epilogue stores by TMA;
+// chunk and smem are the box bodies' (channels a K step, shared-memory
+// bytes a block), which the wgmma body reads neither of.
 struct Plan {
-  int body, bm, tw, th, tb, bn, stages, strip, grid_x, grid_y, tiles_w,
-      tiles_h, tiles_b, tiles_n, chunk, smem;
+  int body, bm, tw, th, tb, bn, stages, strip, schedule, tma_store, grid_x,
+      grid_y, tiles_w, tiles_h, tiles_b, tiles_n, chunk, smem;
 };
-constexpr int PLAN_INTS = 16;
+constexpr int PLAN_INTS = 18;
 
 inline int log2_exact(int v) {
   int l = 0;
@@ -530,25 +848,27 @@ inline int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-template <int BM, int BN, int STAGES, bool STRIP, bool AFFINE>
+template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE>
 int launch_config(const CUtensorMap& mx, const CUtensorMap& mw,
-                  const Params& p, int grid, cudaStream_t stream) {
-  auto kern = conv_kernel<BM, BN, STAGES, STRIP, AFFINE>;
-  const int a_bytes =
-      STRIP ? ((130 * (BM / 128) * BK * 2 + 1023) / 1024) * 1024 : BM * BK * 2;
-  const int smem =
-      STAGES * (a_bytes + (STRIP ? 3 : 1) * BN * BK * 2) + 1024;  // + align
+                  const CUtensorMap& mo, const Params& p, int grid,
+                  cudaStream_t stream) {
+  auto kern = conv_kernel<BM, BN, STAGES, STRIP, SCHED, AFFINE>;
+  const int smem = Tile<BM, BN, STAGES, STRIP, SCHED>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, THREADS, smem, stream>>>(mx, mw, p);
+  kern<<<grid, THREADS, smem, stream>>>(mx, mw, mo, p);
   return (int)cudaGetLastError();
 }
 
 // x: (B, Hx, Wx, C) bf16 with Hx, Wx = H, W (halo 1) or H+2, W+2 (halo 0);
-// w: (Cout, 9, C) bf16; out: (B, H, W, Cout) bf16.  Returns 0 or an error
-// code; cudaErrorInvalidValue when the plan is not one this body takes or
-// its tiles do not cover the output.
+// w: (Cout, 9, C) bf16; out: (B, H, W, Cout) bf16.  The plan's tma_store
+// says whether out is stored by TMA (ping-pong plans with Cout % 8 == 0,
+// TMA's 16-byte strides) or from registers.  Returns 0 or an error code;
+// cudaErrorInvalidValue when the plan is not one this body takes, its
+// tiles do not cover the output, or its tma_store is not what the
+// schedule, Cout and out's 16-byte alignment allow (a SWAP plan stores
+// only by TMA).
 template <bool AFFINE>
 int launch(const Plan& pl, const void* x, const void* w, const float* scale,
            const float* shift, void* out, long long B, int H, int W, int C,
@@ -583,6 +903,22 @@ int launch(const Plan& pl, const void* x, const void* w, const float* scale,
   const cuuint32_t wb[3] = {BK, 1, (cuuint32_t)pl.bn};
   err = encode_map(&mw, w, 3, wd, ws, wb);
   if (err) return err;
+  CUtensorMap mo = {};
+  const bool tma_store = pl.tma_store != 0;
+  if (tma_store != (pl.schedule != SCHED_COOPERATIVE && Cout % 8 == 0) ||
+      (tma_store && reinterpret_cast<uintptr_t>(out) % 16) ||
+      (pl.schedule == SCHED_SWAP && !tma_store))
+    return (int)cudaErrorInvalidValue;
+  if (tma_store) {
+    const cuuint64_t od[4] = {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+    const cuuint64_t os[3] = {(cuuint64_t)Cout * 2, (cuuint64_t)W * Cout * 2,
+                              (cuuint64_t)H * W * Cout * 2};
+    const cuuint32_t ob[4] = {BK, (cuuint32_t)pl.tw, (cuuint32_t)pl.th,
+                              (cuuint32_t)pl.tb};
+    err = encode_map(&mo, out, 4, od, os, ob);
+    if (err) return err;
+  }
 
   Params p;
   p.B = (int)B;
@@ -599,19 +935,24 @@ int launch(const Plan& pl, const void* x, const void* w, const float* scale,
   p.tiles = (int)tiles;
   p.halo = halo;
   p.relu = relu;
+  p.tma_store = tma_store;
   p.scale = scale;
   p.shift = shift;
   p.out = static_cast<__nv_bfloat16*>(out);
-  // The (BM, BN, stages, strip) configurations the plan may name
+  // The (BM, BN, stages, strip, schedule) configurations the plan may name
   // (conv_plan.WGMMA_CONFIGS).
-#define CONV_WGMMA_CONFIG(BM_, BN_, ST_, SP_)                                 \
-  if (pl.bm == BM_ && pl.bn == BN_ && pl.stages == ST_ && pl.strip == SP_) \
-    return launch_config<BM_, BN_, ST_, SP_, AFFINE>(mx, mw, p, pl.grid_x,  \
-                                                     stream);
-  CONV_WGMMA_CONFIG(256, 64, 4, 0)
-  CONV_WGMMA_CONFIG(256, 64, 3, 1)
-  CONV_WGMMA_CONFIG(256, 128, 4, 0)
-  CONV_WGMMA_CONFIG(128, 256, 3, 0)
+#define CONV_WGMMA_CONFIG(BM_, BN_, ST_, SP_, SC_)                         \
+  if (pl.bm == BM_ && pl.bn == BN_ && pl.stages == ST_ && pl.strip == SP_ && \
+      pl.schedule == SC_)                                                  \
+    return launch_config<BM_, BN_, ST_, SP_, SC_, AFFINE>(                 \
+        mx, mw, mo, p, pl.grid_x, stream);
+  CONV_WGMMA_CONFIG(256, 128, 4, 0, 0)
+  CONV_WGMMA_CONFIG(128, 256, 3, 0, 0)
+  CONV_WGMMA_CONFIG(256, 64, 4, 0, 1)
+  CONV_WGMMA_CONFIG(128, 64, 4, 1, 1)
+  CONV_WGMMA_CONFIG(128, 128, 5, 0, 1)
+  CONV_WGMMA_CONFIG(256, 64, 4, 0, 2)
+  CONV_WGMMA_CONFIG(128, 64, 4, 1, 2)
 #undef CONV_WGMMA_CONFIG
   return (int)cudaErrorInvalidValue;
 }

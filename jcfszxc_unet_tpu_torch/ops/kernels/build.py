@@ -139,7 +139,9 @@ def load_library() -> ctypes.CDLL:
 class LaunchCounter:
     """Launches of one kernel since the last reset; its wrapper adds one
     where it launches the kernel and nowhere else.  ``bodies`` splits the
-    count by the body that ran, for kernels with more than one."""
+    count by the body that ran, for kernels with more than one, and
+    ``schedules`` by body and schedule (``"wgmma/pingpong"``) where a body
+    has more than one schedule."""
 
     def __init__(self):
         self.reset()
@@ -147,10 +149,14 @@ class LaunchCounter:
     def reset(self):
         self.launches = 0
         self.bodies: dict[str, int] = {}
+        self.schedules: dict[str, int] = {}
 
-    def add(self, body: str) -> None:
+    def add(self, body: str, schedule: str | None = None) -> None:
         self.launches += 1
         self.bodies[body] = self.bodies.get(body, 0) + 1
+        if schedule is not None:
+            key = f"{body}/{schedule}"
+            self.schedules[key] = self.schedules.get(key, 0) + 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -115,7 +115,7 @@ def launch(x, w_km, scale, shift, relu: bool, plan: conv_plan.ConvPlan):
             b, h, wd, cin, cout, int(relu), plan.ints(),
             ws.data_ptr() if ws is not None else None, ws_bytes, stream)
     build.check(lib, code, "conv3x3_affine_relu")
-    counter.add(plan.body)
+    counter.add(plan.body, conv_plan.schedule(plan))
     return out
 
 

@@ -130,7 +130,7 @@ def launch(xp, wt, plan: conv_plan.ConvPlan):
             _DTYPE_CODES[xp.dtype], xp.data_ptr(), wt.data_ptr(),
             out.data_ptr(), b, hp - 2, wp - 2, c8, cout, plan.ints(), stream)
     build.check(lib, code, "conv3x3_relu_imcol")
-    counter.add(plan.body)
+    counter.add(plan.body, conv_plan.schedule(plan))
     return out
 
 

@@ -12,6 +12,13 @@ Bodies:
 
 * ``wgmma``: bf16 with Cin % 8 == 0 and x, w 16-byte aligned.  TMA needs
   16-byte-aligned global strides, and the W stride of x is 2*Cin bytes.
+  Its schedules (:data:`SCHEDULES`): ``pingpong`` (each consumer
+  warpgroup owns alternate tiles, so that one tile's epilogue runs under
+  the next one's products, and stores through TMA where Cout % 8 == 0),
+  ``pingpong_swap`` (the same with the channels as the products' rows and
+  the pixels as their columns, 64 channels a tile, up to Cout 256 where
+  Cout % 8 == 0) and ``cooperative`` (both warpgroups share each tile;
+  the deep layers' 128 x 256 and 256 x 128 tiles).
 * ``mma_sync``: every other bf16 call (every model's Cin-3 stem,
   MultiResUNet's odd widths, an unaligned view): one haloed input box per
   tile in shared memory with the channels padded to a multiple of 8, read
@@ -74,27 +81,89 @@ BOX_BNS = (16, 32, 48, 64)
 BOX_CHUNKS = (8, 32)
 
 
-# (BM, BN, stages, strip) of the wgmma body that the launchers instantiate
-# (csrc/conv3x3_wgmma.cuh, CONV_WGMMA_CONFIG), one block per SM each.
-WGMMA_CONFIGS = ((256, 64, 4, 0), (256, 64, 3, 1), (256, 128, 4, 0),
-                 (128, 256, 3, 0))
+# The wgmma body's schedules by their code in a plan (the kernel's
+# SCHED_COOPERATIVE, SCHED_PINGPONG, SCHED_SWAP).
+SCHEDULES = ("cooperative", "pingpong", "pingpong_swap")
+
+# (BM, BN, stages, strip, schedule) of the wgmma body that the launchers
+# instantiate (csrc/conv3x3_wgmma.cuh, CONV_WGMMA_CONFIG), one block per SM
+# each; every one is some shape's pick in :func:`_wgmma_config`.
+# Cooperative (0): both consumer warpgroups share a tile, BM / 2 rows
+# each.  Ping-pong (1, and 2 with the operands swapped, BN = 64): a
+# warpgroup owns a whole BM x BN tile, BM * BN <= 16384 (128 accumulator
+# registers a thread), and has its own bf16 staging tile for the TMA
+# store beside the ring.
+WGMMA_CONFIGS = ((256, 128, 4, 0, 0), (128, 256, 3, 0, 0),
+                 (256, 64, 4, 0, 1), (128, 64, 4, 1, 1), (128, 128, 5, 0, 1),
+                 (256, 64, 4, 0, 2), (128, 64, 4, 1, 2))
+# Shared memory a block may hold on the H100 (static and dynamic), and the
+# consumer warpgroups of a wgmma block.
+SMEM_LIMIT = 232448
+WGMMA_CONSUMERS = 2
 
 
-def _wgmma_config(cout: int, w: int) -> tuple[int, int, int, int]:
-    """(BM, BN, stages, strip) of the wgmma body, the
-    fastest at UNet's shapes in scripts/conv_tile_sweep.py on the H100:
-    the tile as wide as Cout allows up to 256 (the fewest operand bytes
-    per flop), 256 pixels tall where Cout <= 128, and, where Cout is 64,
-    strips on maps at least 128 wide.  A strip is 128 pixels wide, so on
-    narrower maps part of it lies past the edge: at batch 32 the per-tap
-    boxes beat strips by 1.16-1.21x at 64^2 and matched or beat them at
-    96^2 (within 12 %), while strips won by 1.16-1.34x at 128^2 and 512^2
-    (the sweep's ``patch``, ``val``, ``probe`` and ``eval`` rows)."""
+def wgmma_smem(config: tuple[int, int, int, int, int]) -> int:
+    """Dynamic shared-memory bytes of a wgmma block (``Tile<...>::SMEM``):
+    the ring (a stage: the A box, or TH strips of 130 pixels, rounded to
+    1024 bytes, and the weights of its one or three taps), each consumer
+    warpgroup's staging tile (ping-pong), and 1024 bytes of alignment."""
+    bm, bn, stages, strip, sched = config
+    a_tx = 130 * (bm // 128) * BK * 2 if strip else bm * BK * 2
+    stage = _cdiv(a_tx, 1024) * 1024 + (3 if strip else 1) * bn * BK * 2
+    staging = bm * bn * 2 if sched else 0
+    return stages * stage + WGMMA_CONSUMERS * staging + 1024
+
+
+def schedule(plan: "ConvPlan") -> str | None:
+    """The wgmma body's schedule (a name of :data:`SCHEDULES`); None for
+    the other bodies."""
+    if plan.body != "wgmma":
+        return None
+    return SCHEDULES[plan.schedule]
+
+
+def _wgmma_config(cin: int, cout: int, w: int
+                  ) -> tuple[int, int, int, int, int]:
+    """(BM, BN, stages, strip, schedule) of the wgmma body, the fastest at
+    UNet's shapes in scripts/conv_tile_sweep.py on the H100 (three sweeps:
+    eval batch 16 at 512^2 down to 32^2, validation batch 64 at 128^2
+    down to 8^2, patches of 64^2 and 96^2 at batch 32, the probe):
+
+    * Cout % 8 == 0 (the swapped ping-pong form stores by TMA only):
+      swapped strips of one 128-pixel row by 64 channels on maps at least
+      128 wide up to Cout 256 (and 96 wide at Cout <= 64): 64 -> 64 at
+      512^2 0.557 ms against 0.762 unswapped and cuDNN's 0.642, 512 -> 256
+      at 128^2 0.881 against 0.981 for the cooperative 128 x 256 tile;
+      on narrower maps swapped 256 x 64 boxes where Cin <= 128, up to
+      Cout 256 too (64 -> 128 at 64^2, batch 64: 0.086 against 0.107);
+    * otherwise, and for Cout % 8 != 0: Cout <= 64 ping-pong 256 x 64
+      tiles, or strips where Cin > 64 on maps at least 128 wide; Cout <=
+      128 ping-pong 128 x 128 tiles, or 256 x 64 ones where Cin <= 64;
+      wider outputs ping-pong 128 x 128 where Cin <= 128, the cooperative
+      256 x 128 tile from Cin >= 512 on maps at most 16 wide (16^2
+      1024 -> 512 at batch 64: 0.233-0.235 against 0.247-0.251; at 32^2
+      the sweeps and the lists disagreed), else the cooperative 128 x 256
+      tile (64^2 512 -> 512: 0.513 against 0.602 swapped).
+
+    Strips of 128 pixels lie partly past the edge of narrower maps.  Two
+    two-stage ping-pong forms (256-pixel strips, 128 x 128 strips), which
+    fit the staging tiles beside only two stages, lost at every shape and
+    were dropped."""
+    if cout % 8 == 0 and cout <= 256:
+        if w >= 128 or (w >= 96 and cout <= 64):
+            return 128, 64, 4, 1, 2
+        if cin <= 128:
+            return 256, 64, 4, 0, 2
     if cout <= 64:
-        return (256, 64, 3, 1) if w >= 128 else (256, 64, 4, 0)
+        return (128, 64, 4, 1, 1) if w >= 128 and cin > 64 else \
+            (256, 64, 4, 0, 1)
     if cout <= 128:
-        return 256, 128, 4, 0
-    return 128, 256, 3, 0
+        return (256, 64, 4, 0, 1) if cin <= 64 else (128, 128, 5, 0, 1)
+    if cin <= 128:
+        return 128, 128, 5, 0, 1
+    if cin >= 512 and w <= 16:
+        return 256, 128, 4, 0, 0
+    return 128, 256, 3, 0, 0
 
 
 @dataclass(frozen=True)
@@ -109,6 +178,8 @@ class ConvPlan:
     tiles: tuple[int, int, int, int]  # box tiles along (W, H, B, Cout)
     chunk: int = 0                 # box bodies: channels a K step
     smem: int = 0                  # box bodies: shared-memory bytes a block
+    schedule: int = 0              # wgmma: the code of its SCHEDULES
+    tma_store: int = 0             # wgmma: 1: the epilogue stores by TMA
 
     @property
     def n_tiles(self) -> int:
@@ -118,7 +189,9 @@ class ConvPlan:
     def ints(self):
         """The plan as the launchers read it (``wgmma_conv::Plan``)."""
         vals = (BODIES[self.body], self.bm, *self.box, self.bn, self.stages,
-                self.strip, *self.grid, *self.tiles, self.chunk, self.smem)
+                self.strip, self.schedule, self.tma_store, *self.grid,
+                *self.tiles,
+                self.chunk, self.smem)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -153,7 +226,8 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
     ``imcol``: the im2col kernel (x is its padded copy; its bodies are
     ``wgmma`` and ``fma``)."""
     if dtype == torch.bfloat16 and cin % 8 == 0 and aligned:
-        return wgmma_plan(b, h, w, cout, _wgmma_config(cout, w), sm_count)
+        return wgmma_plan(b, h, w, cout, _wgmma_config(cin, cout, w),
+                          sm_count)
     if imcol and dtype == torch.bfloat16:
         raise ValueError("the im2col kernel's bf16 operands must have "
                          "C % 8 == 0 and be 16-byte aligned")
@@ -167,14 +241,19 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
 
 
 def wgmma_plan(b: int, h: int, w: int, cout: int,
-               config: tuple[int, int, int, int], sm_count: int,
+               config: tuple[int, int, int, int, int], sm_count: int,
                box: tuple[int, int, int] | None = None) -> ConvPlan:
-    """The wgmma body's plan with a given (BM, BN, stages, strip) and, by
-    default, :func:`choose_box`'s box (rows of 128 pixels for strips):
-    persistent blocks, one per SM at most, walking the tiles."""
+    """The wgmma body's plan with a given (BM, BN, stages, strip,
+    schedule) and, by default, :func:`choose_box`'s box (rows of 128
+    pixels for strips): persistent blocks, one per SM at most, walking the
+    tiles.  A ping-pong plan stores its output through TMA where Cout %
+    8 == 0 (TMA's 16-byte global strides; ``out`` is a fresh tensor, so
+    16-byte aligned, which the launcher checks), else channel pairs from
+    registers; the launcher refuses a ``pingpong_swap`` plan that cannot
+    store by TMA."""
     if config not in WGMMA_CONFIGS:
         raise ValueError(f"no wgmma configuration {config}")
-    bm, bn, stages, strip = config
+    bm, bn, stages, strip, sched = config
     if strip:
         box = (128, bm // 128, 1)
     tw, th, tb = box or choose_box(b, h, w, bm)
@@ -183,7 +262,8 @@ def wgmma_plan(b: int, h: int, w: int, cout: int,
     tiles = (_cdiv(w, tw), _cdiv(h, th), _cdiv(b, tb), _cdiv(cout, bn))
     n = tiles[0] * tiles[1] * tiles[2] * tiles[3]
     return ConvPlan("wgmma", bm, (tw, th, tb), bn, stages, strip,
-                    (min(n, sm_count), 1), tiles)
+                    (min(n, sm_count), 1), tiles, schedule=sched,
+                    tma_store=int(sched > 0 and cout % 8 == 0))
 
 
 def sm_count(device: torch.device) -> int:

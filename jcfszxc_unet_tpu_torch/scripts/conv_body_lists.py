@@ -1,4 +1,4 @@
-"""Kernel 1's box bodies on their conv lists, on the card.
+"""Kernel 1's bodies on their conv lists, on the card.
 
 bf16 (the default): the ``mma_sync`` body takes every bf16 3x3 conv whose
 Cin is not a multiple of 8: the Cin-3 stem of every model (UNet's at the
@@ -8,10 +8,15 @@ odd-width convs at 16 x 512^2 and the same model's 25 in space-to-depth
 mode.  ``--dtype float32``: the ``f32_box`` body takes every f32 conv;
 its lists are UNet's 18 at 16 x 512^2, the same stems, MultiResUNet's 25
 and the row-sharded forward's 18 slab convs (2 images padded to 640 x 576,
-320 rows a rank and a halo row on each side).  For each list this times
+320 rows a rank and a halo row on each side).  ``--body wgmma``: the bf16
+``wgmma`` body's lists, UNet's 17 convs with Cin % 8 == 0 at 16 x 512^2
+and the zoo's wgmma shapes with Cout <= 128 (``chip_smoke.py``'s
+``ZOO_CONV_CASES``), each row with the schedule that ran (``pingpong`` or
+``cooperative``, where the package counts it).  For each list this times
 kernel 1 (through the K-major entry that ``ops/blocks`` calls), checks
 every shape against the plain version (1e-2 of max |plain| in bf16, 1e-4
-in f32), and with ``--library`` also times cuDNN's ``F.conv2d`` alone
+in f32), times each call's device and host time apart too (the zoo's
+small calls time the host otherwise), and with ``--library`` also times cuDNN's ``F.conv2d`` alone
 (channels_last, TF32 off) and, in bf16, the route of padding Cin to a
 multiple of 8 with a copy of x (``F.pad``) and running the ``wgmma`` body
 on the padded operands; bounds are bytes over 3.35 TB/s or operations
@@ -28,6 +33,8 @@ directory first):
     PYTHONPATH=<other checkout> python <this file> --out other.json
     python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
         --dtype float32 --library --out new_f32.json
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
+        --body wgmma --library --out new_wgmma.json
 
 Needs a CUDA GPU.
 """
@@ -102,6 +109,26 @@ SLAB_F32 = _counted((2, (640 >> k) // 2 + 2, 576 >> k, cin, cout, True)
 F32_LISTS = {"unet": UNET_F32, "stems": STEMS, "multires": MULTIRES,
              "slab": SLAB_F32}
 
+# The wgmma body (bf16, Cin % 8 == 0): UNet's 17 at the eval chunk, and
+# the zoo's shapes with Cout <= 128 at batch 2 (chip_smoke.py's
+# ZOO_CONV_CASES with Cin % 8 == 0 and Cout <= 128: Cout 1, 2, 8, 16, 17,
+# 32, 64 and 128, ReLU off after a bias or before a gate).
+UNET_WGMMA = _counted((16, 512 >> k, 512 >> k, cin, cout, True)
+                      for k, cin, cout in UNET if cin % 8 == 0)
+ZOO_WGMMA = {
+    (2, 64, 64, 32, 32, True): 1, (2, 64, 64, 96, 32, True): 1,
+    (2, 64, 64, 160, 32, True): 1, (2, 32, 32, 192, 64, True): 1,
+    (2, 32, 32, 320, 64, True): 1, (2, 16, 16, 384, 128, True): 1,
+    (2, 64, 64, 64, 1, False): 1, (2, 64, 64, 64, 64, False): 1,
+    (2, 64, 64, 8, 17, True): 1, (2, 32, 32, 128, 17, True): 1,
+    (2, 64, 64, 64, 8, True): 1, (2, 64, 64, 64, 2, True): 1,
+    (4, 64, 64, 64, 128, False): 1, (2, 64, 64, 24, 16, True): 1,
+    (2, 64, 64, 48, 32, True): 1, (2, 64, 64, 8, 8, True): 1,
+    (2, 64, 64, 8, 16, True): 1, (2, 64, 64, 16, 32, True): 1,
+    (2, 64, 64, 32, 64, True): 1, (2, 32, 32, 128, 128, False): 1,
+}
+WGMMA_LISTS = {"unet": UNET_WGMMA, "zoo": ZOO_WGMMA}
+
 
 def conv_cost(b, h, w, cin, cout, itemsize=2):
     """(flops, bytes) of one fused conv: x, w, scale, shift read once, out
@@ -138,6 +165,39 @@ def time_ms(fn, target_ms=20.0, max_reps=50):
     return start.elapsed_time(end) / reps
 
 
+def device_host_ms(fn, reps=50):
+    """(device ms, host ms) of one call of ``fn``, over ``reps`` calls:
+    the host's is the wall time of queueing them; the device's is read by
+    CUDA events around the same calls queued behind a spin of the card
+    (``torch.cuda._sleep``) that outlasts their queueing, so that it
+    counts the card's time alone, not the host's.  The spin doubles until
+    it outlasts the queueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    cycles = int(4e6 * (host_ms * reps + 1.0))  # ~2 GHz, twice the queueing
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(8):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not start.query()  # the spin still ran: all calls queued
+        end.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / reps, host_ms
+        cycles *= 2
+    raise RuntimeError("the card's spin never outlasted the queueing")
+
+
 def pad8_inputs(x, w_km):
     """x and the K-major weights with Cin zero-padded to a multiple of 8
     (fresh, 16-byte-aligned tensors: the wgmma body's operands)."""
@@ -167,8 +227,11 @@ def pad8_route(x, w_km, scale, shift, relu, target_ms=20.0):
                                            relu).float()
 
 
-def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
-    """Rows per shape and weighted totals of one list."""
+def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16",
+             pad8=True):
+    """Rows per shape and weighted totals of one list, with kernel 1's
+    device and host ms a call apart (:func:`device_host_ms`); ``pad8``:
+    with ``library``, also the pad-to-8 route of the bf16 shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -191,9 +254,14 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
         shift = 0.1 * torch.randn((cout,), generator=g, device="cuda")
         w_km = w.permute(3, 0, 1, 2).contiguous()
         before = dict(conv_fused.counter.bodies)
+        # schedules are counted since the wgmma body has two
+        sched_before = dict(getattr(conv_fused.counter, "schedules", {}))
         got = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu).float()
         body = [k for k, v in conv_fused.counter.bodies.items()
                 if v != before.get(k, 0)]
+        sched = [k for k, v in getattr(conv_fused.counter, "schedules",
+                                       {}).items()
+                 if v != sched_before.get(k, 0)]
         want = conv3x3_affine_relu_torch(x, w, scale, shift, relu).float()
         err = float((got - want).abs().max())
         ref = float(want.abs().max())
@@ -201,18 +269,21 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
         flops, nbytes = conv_cost(b, h, wd, cin, cout, x.element_size())
         row = {"shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
                "body": body[0] if body else None,
+               "schedule": sched[0] if sched else None,
                "max_abs_err": err, "max_abs_plain": ref,
                "ok": err <= TOL[dtype] * ref, "flops": flops,
                "bytes": nbytes, "bound_ms": bound_ms(flops, nbytes, dtype),
                "ms": time_ms(lambda: conv3x3_affine_relu_kmajor(
                    x, w_km, scale, shift, relu), target_ms)}
         row["tflops"] = flops / row["ms"] / 1e9
+        row["device_ms"], row["host_ms"] = device_host_ms(
+            lambda: conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu))
         if library:
             x_cl = x.permute(0, 3, 1, 2)
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
             row["library_ms"] = time_ms(
                 lambda: F.conv2d(x_cl, w_oihw, padding=1), target_ms)
-            if dtype == "float32":
+            if dtype == "float32" or not pad8:
                 pass
             elif cin % 8:
                 pad, got = pad8_route(x, w_km, scale, shift, relu, target_ms)
@@ -227,10 +298,10 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
                 row["pad8_wgmma_ms"] = row["ms"]
         rows.append(row)
         del x, w, w_km
-    keys = ["ms", "bound_ms", "flops", "bytes"]
+    keys = ["ms", "bound_ms", "flops", "bytes", "device_ms", "host_ms"]
     if library:
         keys += ["library_ms"]
-        if dtype == "bfloat16":
+        if dtype == "bfloat16" and pad8:
             keys += ["pad_ms", "pad8_wgmma_ms"]
     total = {k: sum(r["count"] * r[k] for r in rows) for k in keys}
     total["n_convs"] = sum(calls.values())
@@ -240,6 +311,11 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16"):
     total["bound_by"] = ("operations" if total["flops"] / PEAK_FLOPS[dtype]
                          > total["bytes"] / HBM_BYTES_PER_S else "bytes")
     total["bodies"] = sorted({r["body"] for r in rows})
+    total["schedules"] = {}
+    for r in rows:
+        if r["schedule"]:
+            total["schedules"][r["schedule"]] = (
+                total["schedules"].get(r["schedule"], 0) + r["count"])
     total["max_err_rel"] = max(r["max_abs_err"] / r["max_abs_plain"]
                                for r in rows)
     return {"rows": rows, "total": total}
@@ -266,26 +342,38 @@ def main():
                          "route")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16",
-                    help="bfloat16: the mma_sync lists; float32: the "
-                         "f32_box lists")
+                    help="bfloat16: the mma_sync lists (or, with --body "
+                         "wgmma, the wgmma lists); float32: the f32_box "
+                         "lists")
+    ap.add_argument("--body", choices=("mma_sync", "wgmma"),
+                    default="mma_sync",
+                    help="bf16: the mma_sync lists or the wgmma lists")
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_body_lists needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    lists = LISTS if args.dtype == "bfloat16" else F32_LISTS
+    wgmma = args.dtype == "bfloat16" and args.body == "wgmma"
+    lists = (F32_LISTS if args.dtype == "float32" else
+             WGMMA_LISTS if wgmma else LISTS)
     res = {"package": jcfszxc_unet_tpu_torch.__file__,
            "gpu": gpu_name_and_power(), "dtype": args.dtype,
-           "lists": {name: run_list(calls, args.library, dtype=args.dtype)
+           "body": None if args.dtype == "float32" else args.body,
+           "lists": {name: run_list(calls, args.library, dtype=args.dtype,
+                                    pad8=not wgmma)
                      for name, calls in lists.items()}}
     for name, lst in res["lists"].items():
         t = lst["total"]
         extra = ""
         if args.library:
             extra = f", cuDNN {t['library_ms']:.3f} ms"
-        if args.library and args.dtype == "bfloat16":
+        if args.library and args.dtype == "bfloat16" and not wgmma:
             extra += (f", pad {t['pad_ms']:.3f} + wgmma "
                       f"{t['pad8_wgmma_ms']:.3f} ms")
+        extra += (f"; device {t['device_ms']:.3f} ms, host "
+                  f"{t['host_ms']:.3f} ms")
+        if t["schedules"]:
+            extra += f"; schedules {t['schedules']}"
         print(f"{name}: {t['n_convs']} convs ({'/'.join(t['bodies'])}), "
               f"kernel {t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), bound "
               f"{t['bound_ms']:.3f} ms ({t['bound_by']}){extra}; "

@@ -1,8 +1,10 @@
 """Tile sweep of the ``wgmma`` conv body on the card.
 
-Times every (BM, BN, stages, strip) configuration that the launchers
-instantiate (``conv_plan.WGMMA_CONFIGS``) at the shapes the main paths
-give the 3x3 conv kernels, bf16:
+Times every (BM, BN, stages, strip, schedule) configuration that the
+launchers instantiate (``conv_plan.WGMMA_CONFIGS``: the cooperative tiles
+and the ping-pong ones, whose warpgroups own alternate tiles and store
+through TMA where Cout % 8 == 0, with the operands swapped or not) at the
+shapes the main paths give the 3x3 conv kernels, bf16:
 
 * ``eval``: UNet's 3x3 convs with Cin >= 64 at batch 16 (one 16-patch
   chunk of 512^2 patches);
@@ -16,7 +18,8 @@ give the 3x3 conv kernels, bf16:
 and, for the eval shapes at 512^2 and 256^2, a few boxes beside the one
 ``choose_box`` picks.  Each configuration is checked against the plain
 version (within 1e-2 of max|plain|) before it is timed; cuDNN's conv on
-the same input is timed beside it.
+the same input is timed beside it, and ``planned`` marks the plan that
+``plan_conv`` picks.
 
 With ``--f32`` it sweeps the ``f32_box`` body instead: every tile of
 ``conv_plan.F32_TILES`` at UNet's 3x3 convs in f32 at batch 16 (one
@@ -37,6 +40,8 @@ from __future__ import annotations
 import json
 import math
 import sys
+
+from jcfszxc_unet_tpu_torch.scripts.conv_body_lists import gpu_name_and_power
 
 # (spatial size, Cin, Cout) of UNet's 3x3 convs with Cin >= 64.
 SHAPES = [(512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256),
@@ -77,6 +82,8 @@ def sweep():
     from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_imcol
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
         WGMMA_CONFIGS,
+        plan_conv,
+        schedule,
         sm_count,
         wgmma_plan,
     )
@@ -94,6 +101,9 @@ def sweep():
         ref = float(want.abs().max())
         lib_ms = _event_ms(library)
         flops = 2 * b * hw * hw * cout * 9 * cin
+        planned = plan_conv(b, hw, hw, cin + (-cin % 8), cout,
+                            torch.bfloat16, True, sms,
+                            imcol=path == "probe")
         for label, plan in plans:
             try:
                 err = float((kernel(plan).float() - want).abs().max())
@@ -107,14 +117,18 @@ def sweep():
             ms = _event_ms(lambda: kernel(plan))
             rows.append({"path": path, "b": b, "hw": hw, "cin": cin,
                          "cout": cout, "config": [plan.bm, plan.bn,
-                                                  plan.stages, plan.strip],
+                                                  plan.stages, plan.strip,
+                                                  plan.schedule],
+                         "schedule": schedule(plan),
                          "box": list(plan.box), "label": label, "ms": ms,
                          "tflops": flops / ms / 1e9, "cudnn_ms": lib_ms,
+                         "planned": plan == planned,
                          "ok": err <= 1e-2 * ref})
             print(f"{path:5s} B{b:<3d} {hw:4d}^2 {cin:5d}->{cout:<5d} "
-                  f"{label:22s} {ms:8.3f} ms {flops / ms / 1e9:7.1f} TFLOP/s "
-                  f"(cuDNN {lib_ms:.3f} ms) {'ok' if rows[-1]['ok'] else 'BAD'}",
-                  flush=True)
+                  f"{label:38s} {ms:8.3f} ms {flops / ms / 1e9:7.1f} TFLOP/s "
+                  f"(cuDNN {lib_ms:.3f} ms)"
+                  f"{' planned' if rows[-1]['planned'] else ''} "
+                  f"{'ok' if rows[-1]['ok'] else 'BAD'}", flush=True)
         del want
 
     def configs(path, b, hw, cout, boxes=False):
@@ -125,7 +139,8 @@ def sweep():
                 continue
             for box in (BOXES[cfg[0]] if boxes and not cfg[3] else (None,)):
                 plan = wgmma_plan(b, hw, hw, cout, cfg, sms, box)
-                out.append((f"{cfg} box {plan.box}", plan))
+                label = {0: "coop", 1: "ping", 2: "swap"}[cfg[4]]
+                out.append((f"{label} {cfg[:4]} box {plan.box}", plan))
         return out
 
     for path, b, shapes in (
@@ -165,7 +180,7 @@ def sweep():
         lambda: F.conv2d(x_cl, w_oihw, padding=1),
         configs("probe", b, hw, cout))
     return {"device": torch.cuda.get_device_name(0), "sm_count": sms,
-            "rows": rows}
+            "gpu": gpu_name_and_power(), "rows": rows}
 
 
 def f32_boxes(b, hw, tile):
@@ -234,7 +249,8 @@ def sweep_f32():
                       f"{' planned' if rows[-1]['planned'] else ''}"
                       f" {'ok' if rows[-1]['ok'] else 'BAD'}", flush=True)
         del x, w, want, x_cl, w_oihw
-    return {"device": torch.cuda.get_device_name(0), "rows": rows}
+    return {"device": torch.cuda.get_device_name(0),
+            "gpu": gpu_name_and_power(), "rows": rows}
 
 
 def main():
@@ -244,6 +260,7 @@ def main():
     if args:
         with open(args[0], "w") as f:
             json.dump(res, f, indent=1)
+    print(res["gpu"])
     bad = [r for r in res["rows"] if not r["ok"]]
     print(f"{len(res['rows'])} timings, {len(bad)} outside "
           f"{'1e-4' if f32 else '1e-2'} of max|plain|")

@@ -235,9 +235,11 @@ def test_wgmma_plan_is_persistent_and_covers_the_output():
     assert (plan.bn, plan.grid) == (64, (132, 1))
     assert plan.n_tiles * plan.bm == 16 * 512 * 512
     small = plan_conv(1, 8, 16, 64, 96, torch.bfloat16, True, sm_count=132)
-    assert (small.bn, small.n_tiles, small.grid) == (128, 1, (1, 1))
+    # Cin 64 into Cout <= 128: 256 x 64 ping-pong tiles, one per channel
+    # tile here, one block each
+    assert (small.bn, small.n_tiles, small.grid) == (64, 2, (2, 1))
     ints = list(plan.ints())
-    assert len(ints) == 16 and ints[0] == 3  # wgmma_conv::Plan, body code
+    assert len(ints) == 18 and ints[0] == 3  # wgmma_conv::Plan, body code
 
 
 @pytest.mark.parametrize("config", [c for c in WGMMA_CONFIGS
