@@ -15,16 +15,19 @@ Phases, each of which must pass:
    against a forward built only from the kernels' plain versions;
 4. each kernel against its plain version at the eval path's shapes (the
    conv kernel also at the train path's validation shapes and at the edges
-   of its wgmma plan, in bf16, and at the zoo's and whole-image shapes in
-   both types), and its time beside the plain version's, a library call's
+   of its wgmma plan, in bf16, one of them a deep layer at batch 2 on a
+   cluster whose last group holds a tile past the batch, and at the zoo's
+   and whole-image shapes in both types), and its time beside the plain
+   version's, a library call's
    and its bound, per layer and per body for the conv kernel; the conv
    kernel's mma_sync body (bf16, Cin % 8 != 0) on its own lists (the
    stems, MultiResUNet's 25 odd-width convs plain and s2d at 16 x 512^2),
    beside cuDNN and the route of padding Cin to 8 with a copy and running
    the wgmma body; the wgmma body's times split by schedule (ping-pong,
-   with the operands swapped or not, and cooperative; ``[conv] by body``
-   lines); every f32 call on the f32_box body, and two calls on the same
-   inputs bit-identical in f32 and in bf16 (every body and schedule);
+   with the operands swapped or not, and cooperative, each with its
+   cluster; ``[conv] by body`` lines); every f32 call on the f32_box body,
+   and two calls on the same inputs bit-identical in f32 and in bf16
+   (every body and schedule, UNet's deep layers among them);
 5. train path: full-width UNet with random weights trains on 8 synthetic
    DRIVE-geometry images through ``cli.train.train_arrays`` at the CLI
    defaults (patch 128, batch 32, bf16, lr 1e-6) with 25 % validation
@@ -236,6 +239,12 @@ PLAN_EDGE_CASES = [
     (2, 37, 29, 72, 96, False), (2, 16, 16, 64, 96, True),
     (2, 8, 8, 64, 160, False), (2, 8, 8, 256, 320, True),
 ]
+# A deep layer (64^2's 512 -> 512 with one row more) at batch 2 on the
+# wgmma body's clustered plan (pairs of CTAs along the pixel tiles): its
+# pixel-tile count is odd, so in the last tile group the second CTA of the
+# pair holds a tile past the batch and loads, for its peer, its half of
+# the shared weights.
+CLUSTER_EDGE_CASE = (2, 65, 64, 512, 512, True)
 
 # The fifteen zoo models of the zoo_eval phase: registry name -> launches
 # of the conv kernel per eval forward, by body (bf16 convs with Cin % 8 !=
@@ -903,7 +912,7 @@ def phase_kernels(report, state):
 
     import torch
 
-    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_plan
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
         conv3x3_affine_relu,
         conv3x3_affine_relu_torch,
@@ -934,6 +943,7 @@ def phase_kernels(report, state):
     cases += [("train_val", VAL_CHUNK, hw // down, hw // down, cin, cout, True,
                bf16) for hw, cin, cout in sorted(set(UNET_CONVS))]
     cases += [("plan_edge", *shape, bf16) for shape in PLAN_EDGE_CASES]
+    cases += [("cluster_edge", *CLUSTER_EDGE_CASE, bf16)]
     cases += [("zoo", *shape, both) for shape in ZOO_CONV_CASES]
     cases += [("whole_image", *shape, both)
               for shape in WHOLE_IMAGE_CONV_CASES]
@@ -1002,7 +1012,8 @@ def phase_kernels(report, state):
                   f"{r['launches_main_path']} launches on the main path",
                   flush=True)
     report["mma_sync_lists"] = state["mma_sync_lists"]
-    for path in ("eval", "eval_chunk", "train_val", "plan_edge", "zoo",
+    for path in ("eval", "eval_chunk", "train_val", "plan_edge",
+                 "cluster_edge", "zoo",
                  "whole_image", *(f"mma_sync_{name}" for name in
                                   conv_body_lists.LISTS)):
         mine = [c for c in checks if c["path"] == path]
@@ -1013,6 +1024,13 @@ def phase_kernels(report, state):
               f"within 1e-4 (f32) / 1e-2 (bf16) of max|plain|; bf16 max "
               f"err / max|plain| {err16:.2e}", flush=True)
     failures = [c for c in checks if not c["ok"]]
+    b_, h_, w_, cin_, cout_, _ = CLUSTER_EDGE_CASE
+    edge = conv_plan.plan_conv(b_, h_, w_, cin_, cout_, torch.bfloat16, True,
+                               conv_plan.sm_count(torch.device(dev)))
+    tiles_m = edge.tiles[0] * edge.tiles[1] * edge.tiles[2]
+    if edge.cluster != 2 or tiles_m % 2 == 0:
+        failures.append({"cluster_edge's plan has no pixel tile past the "
+                         "batch": [edge.cluster, tiles_m]})
     wrong_body = [c for c in checks if c["body"] != (
         "f32_box" if c["dtype"] == "float32"
         else "wgmma" if c["shape"][3] % 8 == 0 else "mma_sync")]
@@ -1094,17 +1112,20 @@ def phase_kernels(report, state):
 # Shapes (B taken from the main path) at which two calls of kernel 1 on
 # the same inputs must give identical outputs.  f32: UNet's stem, its
 # widest map, its deepest conv, and MultiResUNet's first odd-width conv.
-# bf16: UNet's stem (mma_sync), its Cout <= 256 convs on maps at least
-# 128 wide (ping-pong, operands swapped: strips, TMA stores), a 64^2 one
-# (swapped boxes), Cin 256 into Cout 128 at 64^2 (ping-pong 128 x 128, TMA
-# stores), an odd Cout (ping-pong, register stores), and its deepest conv
-# (cooperative).
+# bf16: UNet's stem (mma_sync), its Cout <= 128 convs on maps at least
+# 128 wide (ping-pong, operands swapped: strips, TMA stores), its four
+# Cout-256 convs at 128^2 (three shapes) and its six Cout >= 512 convs
+# (five shapes: the deep layers, cooperative, on their planned clusters),
+# a 64^2 one (swapped boxes), Cin 256 into Cout 128 at 64^2 (ping-pong 128
+# x 128, TMA stores) and an odd Cout (ping-pong, register stores).
 REPEAT_SHAPES = {
     "float32": [(512, 3, 64), (512, 64, 64), (32, 1024, 1024),
                 (512, 17, 26)],
     "bfloat16": [(512, 3, 64), (512, 64, 64), (256, 64, 128),
-                 (512, 128, 64), (128, 512, 256), (64, 128, 128),
-                 (64, 256, 128), (128, 64, 17), (32, 1024, 1024)],
+                 (512, 128, 64), (128, 128, 256), (128, 256, 256),
+                 (128, 512, 256), (64, 256, 512), (64, 512, 512),
+                 (64, 1024, 512), (32, 512, 1024), (32, 1024, 1024),
+                 (64, 128, 128), (64, 256, 128), (128, 64, 17)],
 }
 
 

@@ -27,19 +27,22 @@
 //     (dy, 0..2); tap dx multiplies the strip from row dx on.  A is then read
 //     from L2 three times per output instead of nine.
 //
-// A block is persistent: it walks tiles blockIdx.x, + gridDim.x, ...  Warp 8
+// A block is persistent: it walks tiles blockIdx.x, + gridDim.x, ... (in a
+// cluster, its cluster's tile groups; see CLUSTER below).  Warp 8
 // is the producer: its lane 0 keeps a ring of STAGES stages in flight, each
 // with a full and an empty mbarrier, tile after tile, K step after K step.
 // Warps 0-7 are two consumer warpgroups, which multiply with
 // wgmma.mma_async m64nBNk16 into f32 registers, keep one wgmma group in
 // flight and free a stage once its group has retired.  Two schedules:
 //
-//   * cooperative (the 128 x 256 and 256 x 128 tiles of the deep layers,
-//     Cin > 128 and Cout > 128): both warpgroups share each tile,
-//     warpgroup g taking rows (BM/2)g .., and both run its epilogue after
-//     its last K step.  The tensor cores idle meanwhile;
+//   * cooperative (the four-stage 128 x 256 and 256 x 128 tiles of the
+//     deep layers, Cin > 128 into Cout > 256 where the swapped boxes do
+//     not take them): both warpgroups share each tile, warpgroup g taking
+//     rows (BM/2)g .., and both store it from registers after its last K
+//     step.  The tensor cores idle meanwhile;
 //     at Cout > 128 a tile has 4-36x more K steps than its epilogue is
-//     long.
+//     long.  (A three-stage form with a TMA store from a staging tile, the
+//     fourth stage's room, ran 4-11 % slower and was dropped.)
 //   * PINGPONG (the rest): each warpgroup owns whole tiles, warpgroup 0
 //     the block's even local tiles and warpgroup 1 the odd ones, and waits
 //     only on its own tiles' stages.  A pair of named barriers hands the
@@ -52,13 +55,32 @@
 //     one phase from the one waited for.  A warpgroup holds a whole tile's
 //     accumulators: BM x BN <= 16384, 128 f32 registers a thread.
 //   * SWAP (ping-pong, 64 channels a tile, Cout % 8 == 0; the plan takes
-//     it up to Cout 256): the same schedule with the operands' roles
-//     swapped, D (channels x pixels) = W (64 x K) * X (pixels x K)^T: the
+//     it up to Cout 256, and to 512 from Cin <= 256): the same schedule
+//     with the operands' roles swapped,
+//     D (channels x pixels) = W (64 x K) * X (pixels x K)^T: the
 //     64 output channels are the wgmma's M and the tile's pixels its N, so
 //     a K step is one m64n256k16 (or, for strips, one m64n128k16 a row)
 //     instead of four m64n64k16.  Both operands stay K-major in the
 //     same stages.  The epilogue writes the channels-by-pixels tile into
 //     the staging tile transposed, with stmatrix .trans.
+//
+// CLUSTER (the cooperative schedule only, in the configurations that
+// CONV_WGMMA_CONFIG marks; the plan takes it for the 128 x 256 tile into
+// Cout >= 512 on maps at least 32 wide): a launch in clusters of two
+// CTAs, launched with cudaLaunchKernelEx, walks groups of two pixel tiles
+// of one Cout block in lockstep.  The two share the block's weights' box,
+// which each loads BN / 2 rows of and multicasts by TMA into the same
+// stage of both; each loads its own A box.  Each full barrier expects the
+// whole stage's bytes as without a cluster.  A stage is refilled only
+// once both CTAs have freed it: each consumer warp arrives on the empty
+// barrier of both (mapa + a remote mbarrier.arrive, one lane each), and
+// an empty barrier counts the warps of both.  A cluster barrier starts
+// and ends the kernel, so that no CTA multicasts into its peer or arrives
+// on its barriers before they exist or after it has left.  The last group
+// along an odd count of pixel tiles holds a tile past the batch: its A
+// loads are zeros, and store_registers' masks drop its stores.  Only the
+// loads change, so each output is the same sum, bit for bit, with or
+// without a cluster.
 //
 // The epilogue applies scale/shift (AFFINE) and the optional ReLU in f32
 // and rounds to bf16 once.  The cooperative schedule, and PINGPONG where
@@ -77,10 +99,11 @@
 // What bounds it: at UNet's shapes the work is 2 * 9 * Cin flops per output
 // value, far above the H100's ridge point, so the tensor cores' rate, which
 // only wgmma reaches.  Below that, where Cout <= 128 and K is short, the
-// operand bytes each stage pulls from L2 (tall tiles and strips cut them)
-// and the epilogue (which PINGPONG overlaps with the other warpgroup's
-// products).  TMA moves the operands and the output with no thread
-// spending an instruction or a register on the copy.
+// operand bytes each stage pulls from L2 (tall tiles and strips cut them;
+// so does a cluster's multicast, 48 -> 32 KB a K step of the 128 x 256
+// tile) and the epilogue (which PINGPONG overlaps with the other
+// warpgroup's products).  TMA moves the operands and the output with no
+// thread spending an instruction or a register on the copy.
 //
 // Host side: the tensor maps are encoded per launch with
 // cuTensorMapEncodeTiled (taken through the runtime's driver entry point, so
@@ -94,6 +117,8 @@
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace wgmma_conv {
 
 constexpr int BK = 64;         // channels of one tap per K step: 128 bytes
@@ -105,10 +130,29 @@ constexpr int THREADS = CONSUMERS * 128 + 32;
 constexpr int kErrEntryPoint = 10000;  // + cudaError_t of the lookup
 constexpr int kErrTensorMap = 20000;   // + CUresult of the encode
 
+// n / d for 0 <= n < 2^31 as (mulhi(n, mul) + n) >> shift, with shift =
+// ceil(log2 d) and mul = floor(2^32 (2^shift - d) / d) + 1 worked out once
+// on the host (make_divisor; the sum stays below 2^32 for n < 2^31).  The
+// tile loops divide each tile index by three launch values, and a
+// division by a value the compiler cannot see costs a reciprocal on the
+// card at each tile: on the H100, UNet's 17 convs ran 2 % longer with
+// them.  (Their registers cost the 256 x 64 ping-pong instance, at the
+// register ceiling, 16 more bytes of spills a thread, which shows on
+// calls of one tile a block: 2-3 % on the zoo's batch-2 convs.)
+struct Divisor {
+  int d;
+  uint32_t mul;
+  int shift;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((uint32_t)n, mul) + (uint32_t)n) >> shift);
+  }
+};
+
 struct Params {
   int B, H, W, Cin, Cout;  // output geometry (H, W of the output)
   int tw_log, th_log, tb;  // box: TW = 1 << tw_log, TH = 1 << th_log
-  int tiles_w, tiles_h, tiles_n, tiles;
+  Divisor tiles_w, tiles_h, tiles_n;
+  int groups;              // tile groups: one tile a CTA of the cluster
   int halo;                // 1: unpadded x; 0: padded xp
   int relu;
   int tma_store;           // ping-pong: the epilogue stores through map_out
@@ -191,6 +235,65 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The weights' load multicast: the box lands at offset `dst` of every CTA
+// of the cluster in `mask` (bit r: cluster rank r), and each of them
+// counts its bytes on its own barrier at offset `bar`.
+__device__ __forceinline__ void tma_load_3d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The weights' box (or, CLUSTER, this CTA's rows of it, multicast into
+// both CTAs of the pair) at (c0, tap, n0).
+template <bool CLUSTER>
+__device__ __forceinline__ void load_weights(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint64_t* bar, int c0, int tap,
+                                             int n0) {
+  if constexpr (CLUSTER)
+    tma_load_3d_mc(dst, map, bar, c0, tap, n0, 0x3);
+  else
+    tma_load_3d(dst, map, bar, c0, tap, n0);
+}
+
+// One arrival on the barrier at `bar`'s offset in cluster CTA `rank`
+// (the default semantics, release at the CTA's scope, as for a local
+// arrival: what it orders is this thread's reads of the stage, which its
+// wgmma_wait has completed, before the peer's next fill).
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: releases this thread's shared
+// memory writes and barrier inits to the cluster, then waits for all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
+          : "memory");
 }
 
 // Shared -> global: the 4-D box at (c0, c1, c2, c3) of `map`, clipped to
@@ -392,18 +495,23 @@ __device__ __forceinline__ void wgmma_m64nk16(float (&d)[128], uint64_t da,
 // The kernel
 // ---------------------------------------------------------------------------
 
-// Tile t -> origin (x0, y0, b0) of its pixel box and first channel n0; the
-// output-channel tile varies fastest, so the blocks sharing an A box run
-// side by side.
-__device__ __forceinline__ void tile_origin(const Params& p, int tile, int bn,
-                                            int& x0, int& y0, int& b0,
+// The tile of cluster CTA rm (of CM) in tile group g -> origin (x0, y0,
+// b0) of its pixel box and first channel n0.  Group g holds pixel tiles
+// (g / tiles_n) CM + rm of Cout block g % tiles_n; the Cout blocks vary
+// fastest, so the blocks sharing an A box run side by side.  Without a
+// cluster a group is one tile.  The last group may hold a pixel tile past
+// the batch (b0 >= B).
+template <int CM>
+__device__ __forceinline__ void tile_origin(const Params& p, int g, int rm,
+                                            int bn, int& x0, int& y0, int& b0,
                                             int& n0) {
-  const int nt = tile % p.tiles_n;
-  int m = tile / p.tiles_n;
-  const int bx = m % p.tiles_w;
-  m /= p.tiles_w;
-  const int by = m % p.tiles_h;
-  const int bb = m / p.tiles_h;
+  const int gm = p.tiles_n.div(g);
+  const int nt = g - gm * p.tiles_n.d;
+  const int m = gm * CM + rm;
+  const int q = p.tiles_w.div(m);
+  const int bx = m - q * p.tiles_w.d;
+  const int bb = p.tiles_h.div(q);
+  const int by = q - bb * p.tiles_h.d;
   x0 = bx << p.tw_log;
   y0 = by << p.th_log;
   b0 = bb * p.tb;
@@ -459,16 +567,32 @@ struct Tile {
   static_assert(SMEM + 2 * STAGES * 8 <= 232448, "shared memory of a block");
 };
 
+// Frees stage s: lane 0's arrival on this CTA's empty barrier, and in a
+// cluster lane 1's on the same barrier of the peer (`self`: this CTA's
+// rank), whose producer fills this CTA's stages too, so that neither
+// arrival waits on the other.  (The two issued one after another from
+// lane 0 with release at the cluster's scope took each K step twice as
+// long.)
+template <bool CLUSTER>
+__device__ __forceinline__ void free_stage(uint64_t* empty, int s, int lane,
+                                           uint32_t self) {
+  if (lane == 0) mbar_arrive(&empty[s]);
+  if constexpr (CLUSTER) {
+    if (lane == 1) mbar_arrive_remote(&empty[s], self ^ 1);
+  }
+}
+
 // The K steps of one tile: waits for each stage (it = the ring's count of
 // the tile's first step), issues its products into acc (rows row0 .. of
 // the A tile), keeps one wgmma group in flight and frees a stage once its
 // group has retired.  Returns the last stage, which the caller frees after
 // wgmma_wait<0>.
-template <class T>
+template <class T, bool CLUSTER>
 __device__ __forceinline__ int mainloop(float (&acc)[T::AM][T::AN / 2],
                                         uint32_t ring, uint64_t* full,
                                         uint64_t* empty, int it, int KT,
-                                        int row0, int lane) {
+                                        int row0, int lane,
+                                        uint32_t self) {
   int prev = 0;
   for (int kt = 0; kt < KT; ++kt, ++it) {
     const int s = it % T::STAGES;
@@ -494,7 +618,7 @@ __device__ __forceinline__ int mainloop(float (&acc)[T::AM][T::AN / 2],
     wgmma_commit();
     if (kt > 0) {
       wgmma_wait<1>();  // the previous step's group has retired
-      if (lane == 0) mbar_arrive(&empty[prev]);
+      free_stage<CLUSTER>(empty, prev, lane, self);
     }
     prev = s;
   }
@@ -665,13 +789,18 @@ __device__ __forceinline__ void store_tma(
   }
 }
 
-template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE>
+template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE,
+          bool CLUSTER>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_kernel(const __grid_constant__ CUtensorMap map_x,
             const __grid_constant__ CUtensorMap map_w,
             const __grid_constant__ CUtensorMap map_out, const Params p) {
   using T = Tile<BM, BN, STAGES, STRIP, SCHED>;
   constexpr bool PINGPONG = T::PINGPONG;
+  static_assert(!CLUSTER || !PINGPONG, "clusters: the cooperative schedule");
+  // CTAs a cluster: CLUSTER, two along the pixel tiles; without one, the
+  // block is its own cluster
+  constexpr int CM = CLUSTER ? 2 : 1;
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[STAGES];
@@ -680,15 +809,27 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // this CTA's rank in its cluster, which its tile and its rows of the
+  // shared weights' box follow
+  const uint32_t rank = CLUSTER ? cluster_ctarank() : 0;
+  const int cluster = blockIdx.x / CM;
+  const int n_clusters = gridDim.x / CM;
+
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      // one arrival per warp of the warpgroups that multiply the stage
-      mbar_init(&empty[s], (PINGPONG ? 1 : CONSUMERS) * 4);
+      // one arrival per warp of the warpgroups that multiply the stage, in
+      // each CTA of the cluster (the producer fills them all)
+      mbar_init(&empty[s], (PINGPONG ? 1 : CONSUMERS) * 4 * CM);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // no peer multicasts into this CTA or arrives on its barriers before
+  // they are initialised
+  if constexpr (CLUSTER)
+    cluster_sync();
+  else
+    __syncthreads();
 
   const int chunks = (p.Cin + BK - 1) / BK;  // K steps per tap
   const int KT = (9 / T::TAPS) * chunks;
@@ -701,29 +842,34 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&map_w))
                    : "memory");
+      // rows of the weights' box this CTA loads (and multicasts)
+      constexpr int WROWS = BN / CM;
       int it = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      for (int g = cluster; g < p.groups; g += n_clusters) {
         int x0, y0, b0, n0;
-        tile_origin(p, tile, BN, x0, y0, b0, n0);
+        tile_origin<CM>(p, g, rank, BN, x0, y0, b0, n0);
+        const int nw = n0 + rank * WROWS;
         for (int kt = 0; kt < KT; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           const int step = kt / chunks;  // tap, or the strip's dy
           const int c0 = (kt - step * chunks) * BK;
           const uint32_t a = ring + s * T::STAGE_BYTES;
+          const uint32_t b = a + T::A_BYTES + rank * WROWS * 128;
+          // the whole stage's bytes, whichever CTA loads them
           mbar_expect_tx(&full[s], T::A_TX + T::TAPS * T::B_BYTES);
           if constexpr (STRIP) {
             tma_load_4d(a, &map_x, &full[s], c0, x0 - p.halo,
                         y0 + step - p.halo, b0);
             for (int dx = 0; dx < 3; ++dx)
-              tma_load_3d(a + T::A_BYTES + dx * T::B_BYTES, &map_w, &full[s],
-                          c0, 3 * step + dx, n0);
+              load_weights<CLUSTER>(b + dx * T::B_BYTES, &map_w, &full[s], c0,
+                                    3 * step + dx, nw);
           } else {
             const int dy = step / 3;
             const int dx = step - dy * 3;
             tma_load_4d(a, &map_x, &full[s], c0, x0 + dx - p.halo,
                         y0 + dy - p.halo, b0);
-            tma_load_3d(a + T::A_BYTES, &map_w, &full[s], c0, step, n0);
+            load_weights<CLUSTER>(b, &map_w, &full[s], c0, step, nw);
           }
         }
       }
@@ -744,18 +890,20 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
       // issued: each bar_sync on BAR_TURN + wg meets exactly one
       // bar_arrive from the other warpgroup.
       const int n_local =
-          (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+          (p.groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
       const uint32_t staging = ring + STAGES * T::STAGE_BYTES +
                                wg * T::OUT_BYTES;
       for (int j = wg; j < n_local; j += CONSUMERS) {
-        int x0, y0, b0, n0;
-        tile_origin(p, blockIdx.x + j * gridDim.x, BN, x0, y0, b0, n0);
         if (j > 0) bar_sync(BAR_TURN + wg, CONSUMERS * 128);
-        const int last = mainloop<T>(acc, ring, full, empty, j * KT, KT, 0,
-                                     lane);
+        const int last = mainloop<T, CLUSTER>(acc, ring, full, empty, j * KT,
+                                              KT, 0, lane, rank);
         if (j + 1 < n_local) bar_arrive(BAR_TURN + (wg ^ 1), CONSUMERS * 128);
+        // the tile's origin, for the epilogue only: its divisions run under
+        // the last products, not before the first
+        int x0, y0, b0, n0;
+        tile_origin<CM>(p, blockIdx.x + j * gridDim.x, 0, BN, x0, y0, b0, n0);
         wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(&empty[last]);
+        free_stage<CLUSTER>(empty, last, lane, rank);
         if constexpr (T::SWAP) {  // the launcher ensures p.tma_store
           store_tma<T, AFFINE>(acc, p, &map_out, staging, x0, y0, b0, n0, wg,
                                t);
@@ -768,18 +916,25 @@ conv_kernel(const __grid_constant__ CUtensorMap map_x,
       }
       if (p.tma_store && t == 0) bulk_wait();
     } else {
+      // Both warpgroups share each tile, warpgroup wg its rows wg * ROWS
+      // .., and store them from registers after its last K step; the CTAs
+      // of a cluster walk the same groups.
       int it = 0;
-      for (int tile = blockIdx.x; tile < p.tiles;
-           tile += gridDim.x, it += KT) {
+      for (int g = cluster; g < p.groups; g += n_clusters, it += KT) {
+        const int last = mainloop<T, CLUSTER>(acc, ring, full, empty, it, KT,
+                                              wg * T::ROWS, lane, rank);
         int x0, y0, b0, n0;
-        tile_origin(p, tile, BN, x0, y0, b0, n0);
-        const int last = mainloop<T>(acc, ring, full, empty, it, KT,
-                                     wg * T::ROWS, lane);
+        tile_origin<CM>(p, g, rank, BN, x0, y0, b0, n0);
         wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(&empty[last]);
+        free_stage<CLUSTER>(empty, last, lane, rank);
         store_registers<T, AFFINE>(acc, p, x0, y0, b0, n0, wg * T::ROWS, t);
       }
     }
+  }
+  // no CTA leaves while its peer may still arrive on its barriers
+  if constexpr (CLUSTER) {
+    __syncwarp();
+    cluster_sync();
   }
 }
 
@@ -833,14 +988,25 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
 
 // The launch plan, as computed by ops/kernels/conv_plan.py (ConvPlan.ints).
 // schedule is the wgmma body's (SCHED_COOPERATIVE, SCHED_PINGPONG,
-// SCHED_SWAP) and tma_store whether its epilogue stores by TMA;
-// chunk and smem are the box bodies' (channels a K step, shared-memory
-// bytes a block), which the wgmma body reads neither of.
+// SCHED_SWAP), tma_store whether its epilogue stores by TMA and cluster
+// its CTAs a cluster (1 or 2); chunk and smem are the box bodies'
+// (channels a K step, shared-memory bytes a block), which the wgmma body
+// reads neither of.
 struct Plan {
-  int body, bm, tw, th, tb, bn, stages, strip, schedule, tma_store, grid_x,
-      grid_y, tiles_w, tiles_h, tiles_b, tiles_n, chunk, smem;
+  int body, bm, tw, th, tb, bn, stages, strip, schedule, tma_store, cluster,
+      grid_x, grid_y, tiles_w, tiles_h, tiles_b, tiles_n, chunk, smem;
 };
-constexpr int PLAN_INTS = 18;
+constexpr int PLAN_INTS = 19;
+
+inline Divisor make_divisor(int d) {
+  Divisor v;
+  int s = 0;
+  while ((1ll << s) < d) ++s;
+  v.d = d;
+  v.shift = s;
+  v.mul = (uint32_t)((((1ull << s) - d) << 32) / d + 1);
+  return v;
+}
 
 inline int log2_exact(int v) {
   int l = 0;
@@ -848,25 +1014,73 @@ inline int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE>
+// Launches one configuration, in clusters of `cluster` CTAs (1, or 2 where
+// CLUSTERED: the configuration has a clustered instance).  A cluster
+// launch sizes the persistent grid to the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters, queried once per instance: it depends
+// on the instance and its shared memory only), a multiple of the cluster;
+// a refused cluster launch returns its error, and so does a failed query,
+// at every call.
+template <int BM, int BN, int STAGES, bool STRIP, int SCHED, bool AFFINE,
+          bool CLUSTERED>
 int launch_config(const CUtensorMap& mx, const CUtensorMap& mw,
-                  const CUtensorMap& mo, const Params& p, int grid,
-                  cudaStream_t stream) {
-  auto kern = conv_kernel<BM, BN, STAGES, STRIP, SCHED, AFFINE>;
-  const int smem = Tile<BM, BN, STAGES, STRIP, SCHED>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, THREADS, smem, stream>>>(mx, mw, mo, p);
-  return (int)cudaGetLastError();
+                  const CUtensorMap& mo, const Params& p, int cluster,
+                  int grid, cudaStream_t stream) {
+  using T = Tile<BM, BN, STAGES, STRIP, SCHED>;
+  if (cluster == 1) {
+    auto kern = conv_kernel<BM, BN, STAGES, STRIP, SCHED, AFFINE, false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, T::SMEM, stream>>>(mx, mw, mo, p);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (!CLUSTERED) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (cluster != 2) return (int)cudaErrorInvalidValue;
+    auto kern = conv_kernel<BM, BN, STAGES, STRIP, SCHED, AFFINE, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = T::SMEM;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    static std::atomic<int> active{0};  // clusters the card holds; 0: unknown
+    int clusters = active.load(std::memory_order_relaxed);
+    if (clusters == 0) {
+      err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+      active.store(clusters, std::memory_order_relaxed);
+    }
+    cfg.gridDim = dim3((grid / 2 < clusters ? grid / 2 : clusters) * 2);
+    void* args[] = {const_cast<CUtensorMap*>(&mx),
+                    const_cast<CUtensorMap*>(&mw),
+                    const_cast<CUtensorMap*>(&mo), const_cast<Params*>(&p)};
+    err = cudaLaunchKernelExC(&cfg, (const void*)kern, args);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
 }
 
 // x: (B, Hx, Wx, C) bf16 with Hx, Wx = H, W (halo 1) or H+2, W+2 (halo 0);
 // w: (Cout, 9, C) bf16; out: (B, H, W, Cout) bf16.  The plan's tma_store
 // says whether out is stored by TMA (ping-pong plans with Cout % 8 == 0,
-// TMA's 16-byte strides) or from registers.  Returns 0 or an error code;
-// cudaErrorInvalidValue when the plan is not one this body takes, its
-// tiles do not cover the output, or its tma_store is not what the
+// TMA's 16-byte strides) or from registers, its cluster the CTAs a
+// cluster.  Returns 0 or an error code; cudaErrorInvalidValue when the
+// plan is not one this body takes, its tiles do not cover the output, its
+// cluster is not 1, or 2 in a configuration instantiated with a cluster,
+// with a grid of whole clusters, or its tma_store is not what the
 // schedule, Cout and out's 16-byte alignment allow (a SWAP plan stores
 // only by TMA).
 template <bool AFFINE>
@@ -880,11 +1094,13 @@ int launch(const Plan& pl, const void* x, const void* w, const float* scale,
       C % 8 != 0 || B > (1ll << 30) || pl.grid_y != 1 ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
-  const long long tiles =
-      (long long)pl.tiles_w * pl.tiles_h * pl.tiles_b * pl.tiles_n;
+  const long long tiles_m = (long long)pl.tiles_w * pl.tiles_h * pl.tiles_b;
+  const long long tiles = tiles_m * pl.tiles_n;
   if (tiles > 0x7fffffff || pl.grid_x < 1 ||
       (long long)pl.tiles_w << tw_log < W || (long long)pl.tiles_h << th_log < H ||
       (long long)pl.tiles_b * pl.tb < B || (long long)pl.tiles_n * pl.bn < Cout)
+    return (int)cudaErrorInvalidValue;
+  if (pl.cluster < 1 || pl.cluster > 2 || pl.grid_x % pl.cluster != 0)
     return (int)cudaErrorInvalidValue;
 
   const int Hx = H + 2 * (1 - halo);
@@ -900,7 +1116,7 @@ int launch(const Plan& pl, const void* x, const void* w, const float* scale,
   if (err) return err;
   const cuuint64_t wd[3] = {(cuuint64_t)C, 9, (cuuint64_t)Cout};
   const cuuint64_t ws[2] = {(cuuint64_t)C * 2, (cuuint64_t)9 * C * 2};
-  const cuuint32_t wb[3] = {BK, 1, (cuuint32_t)pl.bn};
+  const cuuint32_t wb[3] = {BK, 1, (cuuint32_t)(pl.bn / pl.cluster)};
   err = encode_map(&mw, w, 3, wd, ws, wb);
   if (err) return err;
   CUtensorMap mo = {};
@@ -929,30 +1145,31 @@ int launch(const Plan& pl, const void* x, const void* w, const float* scale,
   p.tw_log = tw_log;
   p.th_log = th_log;
   p.tb = pl.tb;
-  p.tiles_w = pl.tiles_w;
-  p.tiles_h = pl.tiles_h;
-  p.tiles_n = pl.tiles_n;
-  p.tiles = (int)tiles;
+  p.tiles_w = make_divisor(pl.tiles_w);
+  p.tiles_h = make_divisor(pl.tiles_h);
+  p.tiles_n = make_divisor(pl.tiles_n);
   p.halo = halo;
   p.relu = relu;
   p.tma_store = tma_store;
+  p.groups = (int)((tiles_m + pl.cluster - 1) / pl.cluster) * pl.tiles_n;
   p.scale = scale;
   p.shift = shift;
   p.out = static_cast<__nv_bfloat16*>(out);
   // The (BM, BN, stages, strip, schedule) configurations the plan may name
-  // (conv_plan.WGMMA_CONFIGS).
-#define CONV_WGMMA_CONFIG(BM_, BN_, ST_, SP_, SC_)                         \
+  // (conv_plan.WGMMA_CONFIGS), and whether each has a clustered instance
+  // (conv_plan.CLUSTERED).
+#define CONV_WGMMA_CONFIG(BM_, BN_, ST_, SP_, SC_, CL_)                    \
   if (pl.bm == BM_ && pl.bn == BN_ && pl.stages == ST_ && pl.strip == SP_ && \
       pl.schedule == SC_)                                                  \
-    return launch_config<BM_, BN_, ST_, SP_, SC_, AFFINE>(                 \
-        mx, mw, mo, p, pl.grid_x, stream);
-  CONV_WGMMA_CONFIG(256, 128, 4, 0, 0)
-  CONV_WGMMA_CONFIG(128, 256, 3, 0, 0)
-  CONV_WGMMA_CONFIG(256, 64, 4, 0, 1)
-  CONV_WGMMA_CONFIG(128, 64, 4, 1, 1)
-  CONV_WGMMA_CONFIG(128, 128, 5, 0, 1)
-  CONV_WGMMA_CONFIG(256, 64, 4, 0, 2)
-  CONV_WGMMA_CONFIG(128, 64, 4, 1, 2)
+    return launch_config<BM_, BN_, ST_, SP_, SC_, AFFINE, CL_>(            \
+        mx, mw, mo, p, pl.cluster, pl.grid_x, stream);
+  CONV_WGMMA_CONFIG(256, 128, 4, 0, 0, false)
+  CONV_WGMMA_CONFIG(128, 256, 4, 0, 0, true)
+  CONV_WGMMA_CONFIG(256, 64, 4, 0, 1, false)
+  CONV_WGMMA_CONFIG(128, 64, 4, 1, 1, false)
+  CONV_WGMMA_CONFIG(128, 128, 5, 0, 1, false)
+  CONV_WGMMA_CONFIG(256, 64, 4, 0, 2, false)
+  CONV_WGMMA_CONFIG(128, 64, 4, 1, 2, false)
 #undef CONV_WGMMA_CONFIG
   return (int)cudaErrorInvalidValue;
 }

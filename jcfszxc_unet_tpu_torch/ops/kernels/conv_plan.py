@@ -38,6 +38,7 @@ Bodies:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -89,13 +90,20 @@ SCHEDULES = ("cooperative", "pingpong", "pingpong_swap")
 # instantiate (csrc/conv3x3_wgmma.cuh, CONV_WGMMA_CONFIG), one block per SM
 # each; every one is some shape's pick in :func:`_wgmma_config`.
 # Cooperative (0): both consumer warpgroups share a tile, BM / 2 rows
-# each.  Ping-pong (1, and 2 with the operands swapped, BN = 64): a
-# warpgroup owns a whole BM x BN tile, BM * BN <= 16384 (128 accumulator
-# registers a thread), and has its own bf16 staging tile for the TMA
-# store beside the ring.
-WGMMA_CONFIGS = ((256, 128, 4, 0, 0), (128, 256, 3, 0, 0),
+# each, and store it from registers.  Ping-pong (1, and 2 with the
+# operands swapped, BN = 64): a warpgroup owns a whole BM x BN tile, BM *
+# BN <= 16384 (128 accumulator registers a thread), and has its own bf16
+# staging tile for the TMA store beside the ring.
+WGMMA_CONFIGS = ((256, 128, 4, 0, 0), (128, 256, 4, 0, 0),
                  (256, 64, 4, 0, 1), (128, 64, 4, 1, 1), (128, 128, 5, 0, 1),
                  (256, 64, 4, 0, 2), (128, 64, 4, 1, 2))
+# Clusters of a wgmma launch: the CTAs of one along the pixel tiles, which
+# share the weights' box; each loads its part of the box once and
+# multicasts it by TMA into the same stage of both.  1: no cluster.
+CLUSTERS = (1, 2)
+# The configurations instantiated with a cluster too (the last flag of
+# CONV_WGMMA_CONFIG): those that :func:`_wgmma_cluster` pairs.
+CLUSTERED = ((128, 256, 4, 0, 0),)
 # Shared memory a block may hold on the H100 (static and dynamic), and the
 # consumer warpgroups of a wgmma block.
 SMEM_LIMIT = 232448
@@ -115,11 +123,13 @@ def wgmma_smem(config: tuple[int, int, int, int, int]) -> int:
 
 
 def schedule(plan: "ConvPlan") -> str | None:
-    """The wgmma body's schedule (a name of :data:`SCHEDULES`); None for
-    the other bodies."""
+    """The wgmma body's schedule (a name of :data:`SCHEDULES`, with
+    ``/cluster2`` after it for a cluster of 2 CTAs); None for the other
+    bodies."""
     if plan.body != "wgmma":
         return None
-    return SCHEDULES[plan.schedule]
+    name = SCHEDULES[plan.schedule]
+    return name if plan.cluster == 1 else f"{name}/cluster{plan.cluster}"
 
 
 def _wgmma_config(cin: int, cout: int, w: int
@@ -140,20 +150,32 @@ def _wgmma_config(cin: int, cout: int, w: int
       tiles, or strips where Cin > 64 on maps at least 128 wide; Cout <=
       128 ping-pong 128 x 128 tiles, or 256 x 64 ones where Cin <= 64;
       wider outputs ping-pong 128 x 128 where Cin <= 128, the cooperative
-      256 x 128 tile from Cin >= 512 on maps at most 16 wide (16^2
-      1024 -> 512 at batch 64: 0.233-0.235 against 0.247-0.251; at 32^2
-      the sweeps and the lists disagreed), else the cooperative 128 x 256
-      tile (64^2 512 -> 512: 0.513 against 0.602 swapped).
+      256 x 128 tile for Cout >= 1024 from Cin <= 512 (32^2 512 -> 1024:
+      0.258-0.261 against 0.268-0.269) and from Cin >= 512 on maps at
+      most 8 wide (8^2 1024 -> 1024 at batch 64, in turns: 0.108-0.111
+      against 0.110-0.113 for 128 x 256), else the cooperative 128 x 256
+      tile with four stages (64^2 1024 -> 512: 0.898-0.910 against
+      0.974-1.003 with three; at batch 64, in turns against 256 x 128:
+      16^2 1024 -> 512 0.217-0.220 against 0.230-0.235, 512 -> 512
+      0.122-0.126 against 0.128-0.136);
+    * swapped 256 x 64 boxes also for Cin 129-256 into Cout 256-512 on maps
+      narrower than 128 (64^2 256 -> 512: 0.267-0.279 against 0.301-0.304
+      cooperative; 32^2 256 -> 256 at batch 64: 0.133-0.135 against
+      0.143-0.147).
 
     Strips of 128 pixels lie partly past the edge of narrower maps.  Two
     two-stage ping-pong forms (256-pixel strips, 128 x 128 strips), which
     fit the staging tiles beside only two stages, lost at every shape and
-    were dropped."""
+    were dropped; so did three-stage cooperative tiles with a TMA-store
+    epilogue from a staging tile (64^2 1024 -> 512: 0.974-1.003 ms), which
+    leaves room for three stages only (the fourth: 0.898-0.910)."""
     if cout % 8 == 0 and cout <= 256:
         if w >= 128 or (w >= 96 and cout <= 64):
             return 128, 64, 4, 1, 2
         if cin <= 128:
             return 256, 64, 4, 0, 2
+    if cout % 8 == 0 and 128 < cin <= 256 and 256 <= cout <= 512:
+        return 256, 64, 4, 0, 2
     if cout <= 64:
         return (128, 64, 4, 1, 1) if w >= 128 and cin > 64 else \
             (256, 64, 4, 0, 1)
@@ -161,9 +183,26 @@ def _wgmma_config(cin: int, cout: int, w: int
         return (256, 64, 4, 0, 1) if cin <= 64 else (128, 128, 5, 0, 1)
     if cin <= 128:
         return 128, 128, 5, 0, 1
-    if cin >= 512 and w <= 16:
+    if (cout >= 1024 and cin <= 512) or (cin >= 512 and w <= 8):
         return 256, 128, 4, 0, 0
-    return 128, 256, 3, 0, 0
+    return 128, 256, 4, 0, 0
+
+
+def _wgmma_cluster(config: tuple[int, int, int, int, int], cout: int,
+                   w: int) -> int:
+    """The cluster of a wgmma call (CTAs along the pixel tiles), from
+    scripts/conv_tile_sweep.py over every configuration in clusters of 1
+    and 2 CTAs along the pixel tiles, 2 along the Cout blocks (sharing the
+    A box) and 2 x 2 on the H100: pairs along the pixel tiles, which share
+    the weights' box, for the cooperative 128 x 256 tile into Cout >= 512
+    on maps at least 32 wide (64^2 512 -> 512: 0.472-0.503 ms against
+    0.514-0.542 alone in three calls; 1024 -> 512: 0.844-0.861 against
+    0.910-0.928 in two; 32^2 1024 -> 1024: 0.439, 0.482, 0.467 against
+    0.489, 0.477, 0.484).  Nowhere else did a cluster win beyond the
+    spread of the sweeps (the 128^2 Cout-256 strips: 0.482-0.565 against
+    0.480-0.490; 32^2 512 -> 256 at batch 64: 0.256 against 0.245), and
+    no shape won along Cout or on 2 x 2, so those went."""
+    return 2 if config in CLUSTERED and cout >= 512 and w >= 32 else 1
 
 
 @dataclass(frozen=True)
@@ -180,6 +219,7 @@ class ConvPlan:
     smem: int = 0                  # box bodies: shared-memory bytes a block
     schedule: int = 0              # wgmma: the code of its SCHEDULES
     tma_store: int = 0             # wgmma: 1: the epilogue stores by TMA
+    cluster: int = 1               # wgmma: CTAs a cluster (CLUSTERS)
 
     @property
     def n_tiles(self) -> int:
@@ -189,9 +229,8 @@ class ConvPlan:
     def ints(self):
         """The plan as the launchers read it (``wgmma_conv::Plan``)."""
         vals = (BODIES[self.body], self.bm, *self.box, self.bn, self.stages,
-                self.strip, self.schedule, self.tma_store, *self.grid,
-                *self.tiles,
-                self.chunk, self.smem)
+                self.strip, self.schedule, self.tma_store, self.cluster,
+                *self.grid, *self.tiles, self.chunk, self.smem)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -226,8 +265,9 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
     ``imcol``: the im2col kernel (x is its padded copy; its bodies are
     ``wgmma`` and ``fma``)."""
     if dtype == torch.bfloat16 and cin % 8 == 0 and aligned:
-        return wgmma_plan(b, h, w, cout, _wgmma_config(cin, cout, w),
-                          sm_count)
+        config = _wgmma_config(cin, cout, w)
+        return wgmma_plan(b, h, w, cout, config, sm_count,
+                          cluster=_wgmma_cluster(config, cout, w))
     if imcol and dtype == torch.bfloat16:
         raise ValueError("the im2col kernel's bf16 operands must have "
                          "C % 8 == 0 and be 16-byte aligned")
@@ -240,19 +280,33 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
                     (0, 0, 0, 0))
 
 
+def wgmma_groups(plan: ConvPlan) -> int:
+    """Tile groups of a wgmma plan: one pixel tile a CTA of the cluster
+    (one tile without a cluster) of one Cout block, the last ones holding
+    a tile past the batch where the pixel-tile count is odd."""
+    tw, th, tb, tn = plan.tiles
+    return _cdiv(tw * th * tb, plan.cluster) * tn
+
+
 def wgmma_plan(b: int, h: int, w: int, cout: int,
                config: tuple[int, int, int, int, int], sm_count: int,
-               box: tuple[int, int, int] | None = None) -> ConvPlan:
+               box: tuple[int, int, int] | None = None,
+               cluster: int = 1) -> ConvPlan:
     """The wgmma body's plan with a given (BM, BN, stages, strip,
-    schedule) and, by default, :func:`choose_box`'s box (rows of 128
-    pixels for strips): persistent blocks, one per SM at most, walking the
-    tiles.  A ping-pong plan stores its output through TMA where Cout %
-    8 == 0 (TMA's 16-byte global strides; ``out`` is a fresh tensor, so
-    16-byte aligned, which the launcher checks), else channel pairs from
-    registers; the launcher refuses a ``pingpong_swap`` plan that cannot
-    store by TMA."""
+    schedule), cluster and, by default, :func:`choose_box`'s box (rows of
+    128 pixels for strips): persistent blocks, one per SM at most, whole
+    clusters walking the tile groups (the launcher takes no more clusters
+    than the card holds at once).  A ping-pong plan stores its output
+    through TMA where Cout % 8 == 0 (TMA's 16-byte global strides; ``out``
+    is a fresh tensor, so 16-byte aligned, which the launcher checks),
+    else channel pairs from registers, as the cooperative tiles do; the
+    launcher refuses a plan whose route is not that one, and a
+    ``pingpong_swap`` plan that cannot store by TMA."""
     if config not in WGMMA_CONFIGS:
         raise ValueError(f"no wgmma configuration {config}")
+    if cluster not in CLUSTERS or (cluster > 1
+                                   and config not in CLUSTERED):
+        raise ValueError(f"no wgmma cluster {cluster} for {config}")
     bm, bn, stages, strip, sched = config
     if strip:
         box = (128, bm // 128, 1)
@@ -260,10 +314,12 @@ def wgmma_plan(b: int, h: int, w: int, cout: int,
     if tw * th * tb != bm:
         raise ValueError(f"box {(tw, th, tb)} does not hold {bm} pixels")
     tiles = (_cdiv(w, tw), _cdiv(h, th), _cdiv(b, tb), _cdiv(cout, bn))
-    n = tiles[0] * tiles[1] * tiles[2] * tiles[3]
-    return ConvPlan("wgmma", bm, (tw, th, tb), bn, stages, strip,
-                    (min(n, sm_count), 1), tiles, schedule=sched,
-                    tma_store=int(sched > 0 and cout % 8 == 0))
+    plan = ConvPlan("wgmma", bm, (tw, th, tb), bn, stages, strip, (0, 1),
+                    tiles, schedule=sched,
+                    tma_store=int(sched > 0 and cout % 8 == 0),
+                    cluster=cluster)
+    grid = min(wgmma_groups(plan), sm_count // cluster) * cluster
+    return dataclasses.replace(plan, grid=(grid, 1))
 
 
 def sm_count(device: torch.device) -> int:

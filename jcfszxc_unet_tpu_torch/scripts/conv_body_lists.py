@@ -9,14 +9,20 @@ mode.  ``--dtype float32``: the ``f32_box`` body takes every f32 conv;
 its lists are UNet's 18 at 16 x 512^2, the same stems, MultiResUNet's 25
 and the row-sharded forward's 18 slab convs (2 images padded to 640 x 576,
 320 rows a rank and a halo row on each side).  ``--body wgmma``: the bf16
-``wgmma`` body's lists, UNet's 17 convs with Cin % 8 == 0 at 16 x 512^2
-and the zoo's wgmma shapes with Cout <= 128 (``chip_smoke.py``'s
-``ZOO_CONV_CASES``), each row with the schedule that ran (``pingpong`` or
-``cooperative``, where the package counts it).  For each list this times
+``wgmma`` body's lists, UNet's 17 convs with Cin % 8 == 0 at 16 x 512^2,
+the zoo's wgmma shapes with Cout <= 128 (``chip_smoke.py``'s
+``ZOO_CONV_CASES``) and UNet's 17 on the train path's validation batch
+(64 x 128^2 down to 8^2), each row with the schedule that ran
+(``pingpong`` or ``cooperative``, where the package counts it);
+``--lists`` picks some of them by name.  For each list this times
 kernel 1 (through the K-major entry that ``ops/blocks`` calls), checks
 every shape against the plain version (1e-2 of max |plain| in bf16, 1e-4
-in f32), times each call's device and host time apart too (the zoo's
-small calls time the host otherwise), and with ``--library`` also times cuDNN's ``F.conv2d`` alone
+in f32) and prints a digest of its output (the first 16 hex digits of
+the SHA-256 of its bytes: two checkouts' digests of one shape agree
+exactly when their outputs do bit for bit, the inputs being made from
+the same seed), times each call's device and host time apart too (the
+zoo's small calls time the host otherwise), and with ``--library`` also
+times cuDNN's ``F.conv2d`` alone
 (channels_last, TF32 off) and, in bf16, the route of padding Cin to a
 multiple of 8 with a copy of x (``F.pad``) and running the ``wgmma`` body
 on the padded operands; bounds are bytes over 3.35 TB/s or operations
@@ -35,6 +41,8 @@ directory first):
         --dtype float32 --library --out new_f32.json
     python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
         --body wgmma --library --out new_wgmma.json
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
+        --body wgmma --lists zoo,val --out new_zoo_val.json
 
 Needs a CUDA GPU.
 """
@@ -42,6 +50,7 @@ Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
@@ -127,7 +136,10 @@ ZOO_WGMMA = {
     (2, 64, 64, 8, 16, True): 1, (2, 64, 64, 16, 32, True): 1,
     (2, 64, 64, 32, 64, True): 1, (2, 32, 32, 128, 128, False): 1,
 }
-WGMMA_LISTS = {"unet": UNET_WGMMA, "zoo": ZOO_WGMMA}
+# UNet's 17 at the validation batch of the train path (64 x 128^2).
+VAL_WGMMA = _counted((64, 128 >> k, 128 >> k, cin, cout, True)
+                     for k, cin, cout in UNET if cin % 8 == 0)
+WGMMA_LISTS = {"unet": UNET_WGMMA, "zoo": ZOO_WGMMA, "val": VAL_WGMMA}
 
 
 def conv_cost(b, h, w, cin, cout, itemsize=2):
@@ -227,6 +239,14 @@ def pad8_route(x, w_km, scale, shift, relu, target_ms=20.0):
                                            relu).float()
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import torch
+
+    raw = t.contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16",
              pad8=True):
     """Rows per shape and weighted totals of one list, with kernel 1's
@@ -256,7 +276,10 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16",
         before = dict(conv_fused.counter.bodies)
         # schedules are counted since the wgmma body has two
         sched_before = dict(getattr(conv_fused.counter, "schedules", {}))
-        got = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu).float()
+        out = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu)
+        out_digest = digest(out)
+        got = out.float()
+        del out
         body = [k for k, v in conv_fused.counter.bodies.items()
                 if v != before.get(k, 0)]
         sched = [k for k, v in getattr(conv_fused.counter, "schedules",
@@ -270,7 +293,7 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16",
         row = {"shape": [b, h, wd, cin, cout], "relu": relu, "count": n,
                "body": body[0] if body else None,
                "schedule": sched[0] if sched else None,
-               "max_abs_err": err, "max_abs_plain": ref,
+               "digest": out_digest, "max_abs_err": err, "max_abs_plain": ref,
                "ok": err <= TOL[dtype] * ref, "flops": flops,
                "bytes": nbytes, "bound_ms": bound_ms(flops, nbytes, dtype),
                "ms": time_ms(lambda: conv3x3_affine_relu_kmajor(
@@ -348,6 +371,9 @@ def main():
     ap.add_argument("--body", choices=("mma_sync", "wgmma"),
                     default="mma_sync",
                     help="bf16: the mma_sync lists or the wgmma lists")
+    ap.add_argument("--lists", default=None,
+                    help="comma-separated names of the lists to run "
+                         "(default: all of the dtype's and body's)")
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -356,6 +382,12 @@ def main():
     wgmma = args.dtype == "bfloat16" and args.body == "wgmma"
     lists = (F32_LISTS if args.dtype == "float32" else
              WGMMA_LISTS if wgmma else LISTS)
+    if args.lists:
+        names = args.lists.split(",")
+        unknown = sorted(set(names) - set(lists))
+        if unknown:
+            ap.error(f"no list {unknown}; the lists: {sorted(lists)}")
+        lists = {name: lists[name] for name in names}
     res = {"package": jcfszxc_unet_tpu_torch.__file__,
            "gpu": gpu_name_and_power(), "dtype": args.dtype,
            "body": None if args.dtype == "float32" else args.body,
@@ -363,6 +395,9 @@ def main():
                                     pad8=not wgmma)
                      for name, calls in lists.items()}}
     for name, lst in res["lists"].items():
+        for r in lst["rows"]:
+            print(f"digest {name} {r['shape']} {r['schedule'] or r['body']} "
+                  f"{r['digest']}", flush=True)
         t = lst["total"]
         extra = ""
         if args.library:

@@ -2,9 +2,12 @@
 
 Times every (BM, BN, stages, strip, schedule) configuration that the
 launchers instantiate (``conv_plan.WGMMA_CONFIGS``: the cooperative tiles
-and the ping-pong ones, whose warpgroups own alternate tiles and store
-through TMA where Cout % 8 == 0, with the operands swapped or not) at the
-shapes the main paths give the 3x3 conv kernels, bf16:
+and the ping-pong ones, whose warpgroups own alternate tiles, with the
+operands swapped or not; each stores through TMA where Cout % 8 == 0 and
+it has a staging tile), without a cluster and, where the configuration
+has a clustered instance (``conv_plan.CLUSTERED``), in pairs of CTAs
+along the pixel tiles that multicast the weights' box, at the shapes the
+main paths give the 3x3 conv kernels, bf16:
 
 * ``eval``: UNet's 3x3 convs with Cin >= 64 at batch 16 (one 16-patch
   chunk of 512^2 patches);
@@ -16,7 +19,9 @@ shapes the main paths give the 3x3 conv kernels, bf16:
 * ``probe``: the im2col kernel at B 64, 128^2, 128 -> 64;
 
 and, for the eval shapes at 512^2 and 256^2, a few boxes beside the one
-``choose_box`` picks.  Each configuration is checked against the plain
+``choose_box`` picks (without a cluster).  It ends with the fastest
+configuration and cluster of each shape beside the planned one.  Each
+configuration is checked against the plain
 version (within 1e-2 of max|plain|) before it is timed; cuDNN's conv on
 the same input is timed beside it, and ``planned`` marks the plan that
 ``plan_conv`` picks.
@@ -81,6 +86,8 @@ def sweep():
 
     from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_imcol
     from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
+        CLUSTERED,
+        CLUSTERS,
         WGMMA_CONFIGS,
         plan_conv,
         schedule,
@@ -119,6 +126,8 @@ def sweep():
                          "cout": cout, "config": [plan.bm, plan.bn,
                                                   plan.stages, plan.strip,
                                                   plan.schedule],
+                         "cluster": plan.cluster,
+                         "tma_store": plan.tma_store,
                          "schedule": schedule(plan),
                          "box": list(plan.box), "label": label, "ms": ms,
                          "tflops": flops / ms / 1e9, "cudnn_ms": lib_ms,
@@ -137,10 +146,17 @@ def sweep():
             if cfg[1] > max(64, cout) or (cfg[3] and hw < 128
                                           and path != "patch"):
                 continue
-            for box in (BOXES[cfg[0]] if boxes and not cfg[3] else (None,)):
+            label = {0: "coop", 1: "ping", 2: "swap"}[cfg[4]]
+            for cluster in CLUSTERS if cfg in CLUSTERED else (1,):
+                plan = wgmma_plan(b, hw, hw, cout, cfg, sms,
+                                  cluster=cluster)
+                out.append((f"{label} {cfg[:4]} c{cluster} box {plan.box}",
+                            plan))
+            for box in (BOXES[cfg[0]] if boxes and not cfg[3] else ()):
+                if box == out[-1][1].box:
+                    continue
                 plan = wgmma_plan(b, hw, hw, cout, cfg, sms, box)
-                label = {0: "coop", 1: "ping", 2: "swap"}[cfg[4]]
-                out.append((f"{label} {cfg[:4]} box {plan.box}", plan))
+                out.append((f"{label} {cfg[:4]} c1 box {plan.box}", plan))
         return out
 
     for path, b, shapes in (
@@ -181,6 +197,23 @@ def sweep():
         configs("probe", b, hw, cout))
     return {"device": torch.cuda.get_device_name(0), "sm_count": sms,
             "gpu": gpu_name_and_power(), "rows": rows}
+
+
+def best_rows(rows):
+    """Per shape, the fastest row that agrees with the plain version and
+    the planned row: {(path, b, hw, cin, cout): (best, planned)}."""
+    out = {}
+    for r in rows:
+        if not r["ok"] or "ms" not in r:
+            continue
+        key = (r["path"], r["b"], r["hw"], r["cin"], r["cout"])
+        best, planned = out.get(key, (None, None))
+        if best is None or r["ms"] < best["ms"]:
+            best = r
+        if r.get("planned"):
+            planned = r
+        out[key] = (best, planned)
+    return out
 
 
 def f32_boxes(b, hw, tile):
@@ -260,6 +293,11 @@ def main():
     if args:
         with open(args[0], "w") as f:
             json.dump(res, f, indent=1)
+    if not f32:
+        for key, (best, planned) in best_rows(res["rows"]).items():
+            print(f"best {key}: {best['label']} {best['ms']:.3f} ms; planned "
+                  + (f"{planned['label']} {planned['ms']:.3f} ms" if planned
+                     else "-"), flush=True)
     print(res["gpu"])
     bad = [r for r in res["rows"] if not r["ok"]]
     print(f"{len(res['rows'])} timings, {len(bad)} outside "

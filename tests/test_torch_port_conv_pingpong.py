@@ -453,17 +453,19 @@ def test_wgmma_configuration_fits_the_sm(config):
     assert sched != SWAP or bn == 64  # the channels are wgmma's 64 rows
     plan = wgmma_plan(4, 37, 140, 96, config, sm_count=132)
     ints = list(plan.ints())
-    assert ints[:10] == [3, bm, *plan.box, bn, stages, strip, sched,
-                         int(sched > 0)]  # Cout 96: TMA stores ping-pong
+    # Cout 96: TMA stores ping-pong; no cluster
+    assert ints[:11] == [3, bm, *plan.box, bn, stages, strip, sched,
+                         int(sched > 0), 1]
 
 
 def test_schedule_choice():
     """Cout <= 128 takes a ping-pong plan, swapped where Cout % 8 == 0
-    (which stores by TMA); the deep layers on narrow maps keep the
-    cooperative tiles."""
+    (which stores by TMA), and so does Cin 256 into Cout 512; the deep
+    layers on narrow maps keep the cooperative tiles."""
     for cin, cout, w in ((64, 64, 512), (128, 64, 512), (64, 128, 256),
                          (256, 128, 256), (512, 256, 128), (64, 64, 64),
-                         (128, 128, 64), (8, 16, 64)):
+                         (128, 128, 64), (8, 16, 64), (256, 512, 64),
+                         (256, 256, 32)):
         plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
         assert schedule(plan) == "pingpong_swap" and plan.bn == 64
         assert plan.strip == (w >= 128) and plan.tma_store
@@ -472,10 +474,11 @@ def test_schedule_choice():
         plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
         assert schedule(plan) == "pingpong" and plan.bn <= 128
         assert plan.tma_store == (cout % 8 == 0)
-    for cin, cout, w in ((256, 512, 64), (512, 512, 64), (1024, 1024, 32),
-                         (1024, 512, 64), (512, 512, 16)):
+    for cin, cout, w in ((512, 512, 64), (1024, 1024, 32), (512, 1024, 32),
+                         (1024, 512, 64), (512, 512, 16), (512, 256, 32)):
         plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
-        assert schedule(plan) == "cooperative"
+        # on 64-wide maps in clusters (tests/test_torch_port_conv_cluster.py)
+        assert schedule(plan).split("/")[0] == "cooperative"
         assert not plan.tma_store
     assert schedule(plan_conv(2, 16, 16, 3, 64, torch.bfloat16, True)) is None
 
@@ -521,7 +524,7 @@ def test_pingpong_matches_plain_on_gpu(cuda_device, config, b, h, w, cin,
 @pytest.mark.cuda
 @pytest.mark.parametrize("config,cout", [
     ((256, 64, 4, 0, 1), 64), ((256, 64, 4, 0, 1), 17),
-    ((128, 256, 3, 0, 0), 256)], ids=str)
+    ((128, 256, 4, 0, 0), 256)], ids=str)
 def test_launcher_refuses_a_plan_whose_store_route_is_wrong(
         cuda_device, config, cout):
     """The plan says whether the epilogue stores by TMA; the launcher

@@ -239,7 +239,7 @@ def test_wgmma_plan_is_persistent_and_covers_the_output():
     # tile here, one block each
     assert (small.bn, small.n_tiles, small.grid) == (64, 2, (2, 1))
     ints = list(plan.ints())
-    assert len(ints) == 18 and ints[0] == 3  # wgmma_conv::Plan, body code
+    assert len(ints) == 19 and ints[0] == 3  # wgmma_conv::Plan, body code
 
 
 @pytest.mark.parametrize("config", [c for c in WGMMA_CONFIGS
@@ -257,3 +257,36 @@ def test_other_tile_configurations_addressing(config):
     assert bool((hits == 1).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _make_divisor(d):
+    """``wgmma_conv::make_divisor``: (mul, shift) with n / d ==
+    (mulhi(n, mul) + n) >> shift for 0 <= n < 2^31."""
+    shift = max(d - 1, 0).bit_length()
+    return ((((1 << shift) - d) << 32) // d + 1, shift)
+
+
+def _divide(n, mul, shift):
+    """``Divisor::div`` in 32-bit arithmetic, as the card does it."""
+    total = ((n * mul) >> 32) + n
+    assert total < 2 ** 32  # the 32-bit sum does not wrap
+    return total >> shift
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 64, 97, 132, 4096, 65535,
+                               2 ** 30 - 1, 2 ** 30, 2 ** 31 - 1])
+def test_tile_divisor_is_exact(d):
+    """The divisors that the launcher works out for the tile loops (the
+    tile counts along Cout, W and H) divide every tile index exactly:
+    the neighbourhoods of multiples of d across the range, and spread
+    indices up to 2^31 - 1."""
+    mul, shift = _make_divisor(d)
+    assert 0 <= mul < 2 ** 32
+    rng = np.random.default_rng(d)
+    ns = {0, 1, 2 ** 31 - 1}
+    for q in range(0, 2 ** 31 // d, max(1, 2 ** 31 // d // 200)):
+        ns |= {q * d + r for r in (-1, 0, 1, d - 1)}
+    ns |= set(int(n) for n in rng.integers(0, 2 ** 31, 2000))
+    for n in ns:
+        if 0 <= n < 2 ** 31:
+            assert _divide(n, mul, shift) == n // d, n
