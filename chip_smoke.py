@@ -23,7 +23,11 @@ Phases, each of which must pass:
    kernel's mma_sync body (bf16, Cin % 8 != 0) on its own lists (the
    stems, MultiResUNet's 25 odd-width convs plain and s2d at 16 x 512^2),
    beside cuDNN and the route of padding Cin to 8 with a copy and running
-   the wgmma body; the wgmma body's times split by schedule (ping-pong,
+   the wgmma body; the narrow body (bf16, Cin % 8 == 0, the widths of
+   conv_plan.NARROW_SHAPES) on the zoo's narrow list (eight models' 55 calls at 16 x
+   512^2 down to 64^2), each shape checked against the plain version, run
+   twice (bit-identical) and timed beside cuDNN; the wgmma body's times
+   split by schedule (ping-pong,
    with the operands swapped or not, and cooperative, each with its
    cluster; ``[conv] by body`` lines); every f32 call on the f32_box body,
    and two calls on the same inputs bit-identical in f32 and in bf16
@@ -248,23 +252,25 @@ CLUSTER_EDGE_CASE = (2, 65, 64, 512, 512, True)
 
 # The fifteen zoo models of the zoo_eval phase: registry name -> launches
 # of the conv kernel per eval forward, by body (bf16 convs with Cin % 8 !=
-# 0 on mma_sync: Cin = 3, and MultiResUNet's truncated widths).
+# 0 on mma_sync: Cin = 3, and MultiResUNet's truncated widths; the narrow
+# ones, conv_plan.NARROW_SHAPES, on narrow: the 55 calls of
+# conv_body_lists.NARROW_MODELS).
 ZOO = {
     "ResUNet.ResUNet": {"mma_sync": 2, "wgmma": 13},
-    "SegNet.SegNet": {"mma_sync": 1, "wgmma": 25},
-    "UNetPP.NestedUNet": {"mma_sync": 1, "wgmma": 29},
+    "SegNet.SegNet": {"mma_sync": 1, "wgmma": 24, "narrow": 1},
+    "UNetPP.NestedUNet": {"mma_sync": 1, "wgmma": 19, "narrow": 10},
     "AttentionUNet.AttentionUNet": {"mma_sync": 1, "wgmma": 21},
     "R2UNet.R2UNet": {"wgmma": 58},
     "R2AttentionUNet.R2AttentionUNet": {"wgmma": 58},
-    "BCDUNet.BCDU_net_D3": {"mma_sync": 1, "wgmma": 24},
-    "BCDUNet.BCDU_net_D1": {"mma_sync": 1, "wgmma": 20},
-    "MultiResUNet.MultiResUNet": {"mma_sync": 25, "wgmma": 12},
+    "BCDUNet.BCDU_net_D3": {"mma_sync": 1, "wgmma": 21, "narrow": 3},
+    "BCDUNet.BCDU_net_D1": {"mma_sync": 1, "wgmma": 17, "narrow": 3},
+    "MultiResUNet.MultiResUNet": {"mma_sync": 25, "wgmma": 5, "narrow": 7},
     "DenseUNet.DenseUNet": {"wgmma": 40},
-    "FRUNet.FRUNet": {"mma_sync": 1, "wgmma": 43},
+    "FRUNet.FRUNet": {"mma_sync": 1, "wgmma": 24, "narrow": 19},
     "BARUNet.BARUNet": {"mma_sync": 1, "wgmma": 21},
     "BIARUNet.BIARUNet": {"mma_sync": 1, "wgmma": 21},
-    "MCUNet.MCUNet": {"mma_sync": 1, "wgmma": 18},
-    "RetinaLiteNet.TransFuseNet": {"mma_sync": 1, "wgmma": 5},
+    "MCUNet.MCUNet": {"mma_sync": 1, "wgmma": 11, "narrow": 7},
+    "RetinaLiteNet.TransFuseNet": {"mma_sync": 1, "narrow": 5},
 }
 ZOO_F32_PATCHES, ZOO_F32_HW, ZOO_F32_TOL = 2, 128, 1e-3
 # Models with biased convs (and transposed convs) that no BatchNorm
@@ -334,9 +340,10 @@ WHOLE_IMAGE_CONV_CASES = [
                          (32, 512, 512))]
 
 # The s2d phase: the three models with a space-to-depth mode -> launches
-# of the conv kernel per eval forward by body (the plain mode's: an s2d
-# 3x3 is a 3x3 on 4x the channels, FRUNet's FeatureFuse one launch either
-# way); train_arrays steps per epoch of its s2d and remat runs; the JAX
+# of the conv kernel per eval forward by body (the plain mode's launches:
+# an s2d 3x3 is a 3x3 on 4x the channels, FRUNet's FeatureFuse one launch
+# either way; none of the s2d widths takes the narrow body, so its plain
+# mode's narrow launches run on wgmma there); train_arrays steps per epoch of its s2d and remat runs; the JAX
 # --latest-path fixture it resumes from
 # (tests/test_torch_port_remat_resume.write_jax_latest_fixture).
 S2D_MODELS = {
@@ -1001,6 +1008,9 @@ def phase_kernels(report, state):
     state["conv_by_body"] = conv_by_body(conv_times, state["conv_bodies"],
                                          state["conv_schedules"])
     state["mma_sync_lists"] = mma_sync_lists(checks)
+    state["narrow_list"] = narrow_list(
+        checks, state["conv_bodies"]["eval"].get("narrow", 0))
+    state["conv_by_body"]["narrow"] = state["narrow_list"]["by_body"]
     report["conv_by_body"] = state["conv_by_body"]
     for body, row in state["conv_by_body"].items():
         parts = [(body, row)] + [(f"{body}/{name}", sub) for name, sub
@@ -1012,10 +1022,11 @@ def phase_kernels(report, state):
                   f"{r['launches_main_path']} launches on the main path",
                   flush=True)
     report["mma_sync_lists"] = state["mma_sync_lists"]
+    report["narrow_list"] = state["narrow_list"]
     for path in ("eval", "eval_chunk", "train_val", "plan_edge",
                  "cluster_edge", "zoo",
                  "whole_image", *(f"mma_sync_{name}" for name in
-                                  conv_body_lists.LISTS)):
+                                  conv_body_lists.LISTS), "narrow"):
         mine = [c for c in checks if c["path"] == path]
         err16 = max(c["max_abs_err"] / c["max_abs_plain"] for c in mine
                     if c["dtype"] == "bfloat16")
@@ -1033,17 +1044,26 @@ def phase_kernels(report, state):
                          "batch": [edge.cluster, tiles_m]})
     wrong_body = [c for c in checks if c["body"] != (
         "f32_box" if c["dtype"] == "float32"
-        else "wgmma" if c["shape"][3] % 8 == 0 else "mma_sync")]
+        else "mma_sync" if c["shape"][3] % 8
+        else "narrow" if conv_plan.takes_narrow(*c["shape"][3:5])
+        else "wgmma")]
     if wrong_body:
-        failures.append({"f32 off the f32_box body, bf16 Cin % 8 == 0 off "
-                         "the wgmma body or Cin % 8 != 0 off the mma_sync "
-                         "body": wrong_body})
+        failures.append({"f32 off the f32_box body, bf16 Cin % 8 != 0 off "
+                         "the mma_sync body, bf16 Cin % 8 == 0 off the "
+                         "narrow body (conv_plan.NARROW_SHAPES) or the "
+                         "wgmma body (the rest)": wrong_body})
     for name in ("f32", "bf16"):
         unequal = [r for r in report[f"{name}_repeatable"]
                    if not r["identical"]]
         if unequal:
             failures.append({f"{name} kernel 1 not bit-identical across two "
                              f"calls": unequal})
+    narrow = state["narrow_list"]
+    if narrow["bodies"] != ["narrow"] or narrow["identical"] != narrow[
+            "checks"]:
+        failures.append({"narrow list off the narrow body or not "
+                         "bit-identical across two calls": [
+                             narrow["bodies"], narrow["identical"]]})
 
     # Dice: correctness on 20 x 584 x 565, times at the main path's shape.
     dice_rows = {}
@@ -1234,6 +1254,61 @@ def mma_sync_lists(checks):
               f"({sorted(pad['bodies'])}) {pad['pad8_wgmma_ms']:.3f} ms = "
               f"{pad['pad_ms'] + pad['pad8_wgmma_ms']:.3f} ms; kernel vs "
               f"plain {t['checks_ok']}/{t['checks']} shapes", flush=True)
+    return out
+
+
+def narrow_list(checks, launches_main_path):
+    """Kernel 1 on the zoo's narrow list (``scripts/conv_body_lists.NARROW``:
+    eight models' 55 calls at 16 x 512^2 down to 64^2, the narrow body's)
+    through ``conv_list``, each shape checked against the plain version
+    (appended to ``checks``) and run twice on the same inputs (whether the
+    two outputs are bit-identical), with per-model totals.  Returns the
+    list's totals, its ``by_body`` row (with ``launches_main_path``, the
+    body's count from the main path's run) and the rows."""
+    import torch
+
+    from jcfszxc_unet_tpu_torch.ops.kernels.conv_fused import (
+        conv3x3_affine_relu_kmajor,
+    )
+    from jcfszxc_unet_tpu_torch.scripts import conv_body_lists as cbl
+
+    res = conv_list(cbl.NARROW, torch.bfloat16, "narrow", seed=5)
+    checks += res["checks"]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    identical = 0
+    for b, h, wd, cin, cout, relu in cbl.NARROW:
+        x, w, scale, shift = conv_inputs(g, b, h, wd, cin, cout,
+                                         torch.bfloat16)
+        w_km = w.permute(3, 0, 1, 2).contiguous()
+        first = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu)
+        second = conv3x3_affine_relu_kmajor(x, w_km, scale, shift, relu)
+        torch.cuda.synchronize()
+        identical += bool(torch.equal(first, second))
+        del x, w, w_km, first, second
+    t = res["total"]
+    models = cbl.by_model(res["rows"], ("ms", "library_ms", "bound_ms"))
+    keys = ("ms", "bound_ms", "library_ms", "plain_ms")
+    out = {**t, "identical": identical,
+           "bodies": sorted({r["body"] for r in res["rows"]}),
+           "models": models, "rows": res["rows"],
+           "by_body": {"dtype": "bfloat16", "list": "zoo narrow list",
+                       "convs": t["n_convs"], **{k: t[k] for k in keys},
+                       "launches_main_path": launches_main_path}}
+    print(f"[conv] narrow list ({t['n_convs']} convs, {len(cbl.NARROW)} "
+          f"shapes, bodies {out['bodies']}): kernel {t['ms']:.3f} ms "
+          f"({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{t['plain_ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms, bound "
+          f"{t['bound_ms']:.3f} ms ({t['bound_by']}); kernel vs plain "
+          f"{t['checks_ok']}/{t['checks']} shapes; twice bit-identical "
+          f"{identical}/{len(cbl.NARROW)}", flush=True)
+    for r in res["rows"]:
+        print(f"    {r['shape']} relu={int(r['relu'])} x{r['count']}: "
+              f"{r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms", flush=True)
+    for model, m in models.items():
+        print(f"[conv] narrow list, {model}: kernel {m['ms']:.3f} ms, cuDNN "
+              f"{m['library_ms']:.3f} ms, bound {m['bound_ms']:.3f} ms",
+              flush=True)
     return out
 
 
@@ -1597,7 +1672,7 @@ def phase_zoo_eval(report, state):
     state["zoo_conv_launches"] = conv_by_model
     state["conv_bodies"]["zoo"] = {
         b: sum(m.get(b, 0) for m in conv_by_model.values())
-        for b in ("wgmma", "mma_sync")}
+        for b in ("wgmma", "mma_sync", "narrow")}
     if failures:
         raise AssertionError(f"zoo checks failed: {failures}")
 
@@ -3931,6 +4006,9 @@ def kernels_line(state):
             row["mma_sync_lists"] = {
                 name: {k: v for k, v in t.items() if k != "rows"}
                 for name, t in state["mma_sync_lists"].items()}
+            row["narrow_list"] = {
+                k: v for k, v in state["narrow_list"].items()
+                if k not in ("rows", "by_body")}
     probe = dict(state["kernels_probe"])
     probe["launches_by_path"] = {
         "probe": probe["launches"],

@@ -13,12 +13,16 @@
 //
 // Bound on the H100: at UNet's shapes the work is 2*9*Cin flops per output
 // value, far above the card's ridge point, so the tensor cores' rate bounds
-// the bf16 path, and only wgmma reaches it.  Three bodies, chosen by the
-// caller's plan (ops/kernels/conv_plan.py) from dtype, Cin and alignment,
-// and checked here, each against its own tile:
+// the bf16 path, and only wgmma reaches it.  Four bodies, chosen by the
+// caller's plan (ops/kernels/conv_plan.py) from dtype, Cin, Cout and
+// alignment, and checked, each against its own tile:
 //   * wgmma (bf16, Cin % 8 == 0, x and w 16-byte aligned: 17 of UNet's 18
 //     convs): the TMA-fed, warp-specialised wgmma mainloop of
 //     conv3x3_wgmma.cuh, whose TMA zero fill supplies the halo;
+//   * narrow (the same bf16 calls with Cin <= 32 into Cout <= 128, or Cout
+//     <= 32: the zoo's byte-bound convs, none of UNet's): conv3x3_narrow.cu,
+//     one TMA-loaded haloed box of all the taps per tile and the weights
+//     resident in shared memory;
 //   * mma_sync (bf16, any other Cin or alignment: the Cin = 3 stem of every
 //     model, MultiResUNet's odd widths plain and space-to-depth): TMA needs
 //     16-byte global strides and a 3-channel pixel is 6 bytes, so this body
@@ -45,10 +49,17 @@
 
 #include "conv3x3_wgmma.cuh"
 
+// The narrow body (bf16, Cin <= 32 or Cout <= 32): conv3x3_narrow.cu.
+int conv3x3_narrow_launch(const wgmma_conv::Plan& pl, const void* x,
+                          const void* w, const float* scale,
+                          const float* shift, void* out, long long B, int H,
+                          int W, int Cin, int Cout, int relu,
+                          cudaStream_t stream);
+
 namespace {
 
 // Bodies, as numbered by ops/kernels/conv_plan.py.
-enum Body { kF32Box = 1, kMmaSync = 2, kWgmma = 3 };
+enum Body { kF32Box = 1, kMmaSync = 2, kWgmma = 3, kNarrow = 4 };
 
 // ---------------------------------------------------------------------------
 // cp.async (both box bodies)
@@ -1172,6 +1183,9 @@ extern "C" int conv3x3_affine_relu_launch(int dtype, const void* x,
   } else if (dtype == 1 && pl.body == kWgmma) {
     return wgmma_conv::launch<true>(pl, x, w, sc, sh, out, B, H, W, Cin, Cout,
                                     /*halo=*/1, relu, s);
+  } else if (dtype == 1 && pl.body == kNarrow) {
+    return conv3x3_narrow_launch(pl, x, w, sc, sh, out, B, H, W, Cin, Cout,
+                                 relu, s);
   } else if (dtype == 0 && pl.body == kF32Box) {
     return f32::launch(pl, static_cast<const float*>(x),
                        static_cast<const float*>(w), sc, sh,

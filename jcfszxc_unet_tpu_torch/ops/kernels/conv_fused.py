@@ -16,7 +16,13 @@ body (``csrc/conv3x3_wgmma.cuh``) brings both operands in by TMA: x as 4-D
 boxes of output pixels whose out-of-image taps TMA zero-fills, or as
 haloed row strips that serve three taps each, into a persistent,
 warp-specialised ``mbarrier`` ring.  It takes every bf16 call with
-Cin % 8 == 0 and 16-byte-aligned operands.  TMA needs 16-byte global
+Cin % 8 == 0 and 16-byte-aligned operands but the narrow ones (few
+channels on one side, at the widths ``conv_plan.NARROW_SHAPES`` lists),
+which bytes bound and which the
+``narrow`` body (``csrc/conv3x3_narrow.cu``) takes: persistent blocks that
+keep the weights in shared memory and bring in one haloed input box of
+all the taps per tile by TMA, the pixels as ``wgmma``'s rows and Cout
+rounded up to 8 as its width.  TMA needs 16-byte global
 strides, and a pixel of the stem (Cin = 3) is 6 bytes, so every other bf16
 call (the stems, MultiResUNet's odd widths) takes the ``mma_sync`` body:
 one haloed input box per tile in shared memory with its channels padded

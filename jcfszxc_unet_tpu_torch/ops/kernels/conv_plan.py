@@ -33,6 +33,14 @@ Bodies:
   and grid.
 * ``fma``: the im2col kernel's f32 body (an element-by-element K loop on
   the CUDA cores).
+* ``narrow`` (``csrc/conv3x3_narrow.cu``): the bf16 calls that the
+  ``wgmma`` body would take with few channels on one side, at the widths
+  where the H100's sweeps showed it the fastest route
+  (:func:`takes_narrow`, ``NARROW_SHAPES``), which bytes bound:
+  persistent blocks with the weights
+  resident in shared memory, one haloed input box of all the taps per
+  tile and chunk by TMA, pixels as ``wgmma``'s rows and Cout rounded up to
+  8 as its width; :func:`narrow_plan` picks its tile, chunk and grid.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import torch
 
 BK = 64    # channels of one tap per K step
 
-BODIES = {"fma": 0, "f32_box": 1, "mma_sync": 2, "wgmma": 3}
+BODIES = {"fma": 0, "f32_box": 1, "mma_sync": 2, "wgmma": 3, "narrow": 4}
 
 # Tiles of the im2col kernel's f32 body (fma): 128 pixels taken in (b, y,
 # x) order x 64 channels.
@@ -80,6 +88,27 @@ F32_SHARED_SM = 1.7
 BOX_BM, BOX_MAX, BOX_THREADS, BOX_STAGES = 128, 240, 256, 2
 BOX_BNS = (16, 32, 48, 64)
 BOX_CHUNKS = (8, 32)
+
+
+# The narrow body (csrc/conv3x3_narrow.cu): the (Cin, Cout) it takes, the
+# distinct widths of scripts/conv_body_lists.py's narrow list (the eight
+# zoo models' narrow convs), where scripts/conv_tile_sweep.py --narrow
+# showed it the fastest route on the H100 (PERF.md section 6); the (N,
+# CK) instances those widths need, N the products' width (Cout rounded up
+# to 8) and CK the channels of a TMA box; STAGES boxes in the ring (two a
+# consumer warpgroup); the tiles (TW, TH) the plan takes for a tile of
+# 256 pixels (4 m64 blocks of 8 x 8; 16 x 16 where 32 x 8 does not fit in
+# shared memory), 128 at N >= 64; a block's static shared memory (the
+# mbarriers).
+NARROW_SHAPES = frozenset({
+    (32, 32), (64, 32), (96, 32), (128, 32), (160, 32), (192, 32),
+    (16, 32), (48, 32), (32, 64), (32, 128), (64, 8), (64, 2), (64, 1),
+    (8, 17), (128, 17), (8, 8), (8, 16), (24, 16)})
+NARROW_INSTANCES = ((8, 16), (8, 32), (16, 16), (16, 32), (24, 16),
+                    (24, 32), (32, 16), (32, 32), (64, 32), (128, 32))
+NARROW_STAGES = 4
+NARROW_TILES = {256: ((32, 8), (16, 16)), 128: ((16, 8),)}
+NARROW_STATIC_SMEM = 64
 
 
 # The wgmma body's schedules by their code in a plan (the kernel's
@@ -264,10 +293,11 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
     channels.  ``aligned``: x and the weights start on 16-byte boundaries.
     ``imcol``: the im2col kernel (x is its padded copy; its bodies are
     ``wgmma`` and ``fma``)."""
+    if (dtype == torch.bfloat16 and cin % 8 == 0 and aligned and not imcol
+            and takes_narrow(cin, cout)):
+        return narrow_plan(b, h, w, cin, cout, sm_count)
     if dtype == torch.bfloat16 and cin % 8 == 0 and aligned:
-        config = _wgmma_config(cin, cout, w)
-        return wgmma_plan(b, h, w, cout, config, sm_count,
-                          cluster=_wgmma_cluster(config, cout, w))
+        return wgmma_route(b, h, w, cin, cout, sm_count)
     if imcol and dtype == torch.bfloat16:
         raise ValueError("the im2col kernel's bf16 operands must have "
                          "C % 8 == 0 and be 16-byte aligned")
@@ -278,6 +308,17 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int,
     grid = (_cdiv(b * h * w, _SIMPLE_BM), _cdiv(cout, _SIMPLE_BN))
     return ConvPlan("fma", _SIMPLE_BM, (0, 0, 0), _SIMPLE_BN, 0, 0, grid,
                     (0, 0, 0, 0))
+
+
+def wgmma_route(b: int, h: int, w: int, cin: int, cout: int,
+                sm_count: int = 132) -> ConvPlan:
+    """The ``wgmma`` body's own plan of a bf16 call with Cin % 8 == 0
+    (:func:`_wgmma_config`'s configuration and :func:`_wgmma_cluster`'s
+    cluster): what :func:`plan_conv` gives such a call that the narrow
+    body does not take."""
+    config = _wgmma_config(cin, cout, w)
+    return wgmma_plan(b, h, w, cout, config, sm_count,
+                      cluster=_wgmma_cluster(config, cout, w))
 
 
 def wgmma_groups(plan: ConvPlan) -> int:
@@ -490,3 +531,83 @@ def f32_plan(b: int, h: int, w: int, cout: int, sm_count: int = 132,
     _, (bm, bn), box, tiles, n = best
     return ConvPlan("f32_box", bm, box, bn, F32_STAGES, 0, (n, 1), tiles,
                     F32_CHUNK, f32_smem(bm, bn))
+
+
+def narrow_chunk(cin: int) -> int:
+    """Channels of one TMA box of the narrow body: 16 (rows of 32 bytes,
+    Cin 8 zero-filled to 16) up to Cin 16, else 32 (several chunks past
+    Cin 32)."""
+    return 16 if cin <= 16 else 32
+
+
+def narrow_pixels(n: int) -> int:
+    """Pixels of a narrow tile at products' width ``n``: 4 m64 blocks
+    (256), 2 from n = 64 on, so that a warpgroup's accumulators take 64
+    registers a thread at n = 64 (128 at n = 128).  256-pixel tiles at n
+    = 64 spilled (168 registers) and ran 32 -> 64 at 512^2 8 % slower on
+    the H100 (``scripts/conv_tile_sweep.py --narrow``); two channel blocks
+    of 64 at n = 128, each a 128-pixel tile of its own, ran 2 % slower
+    than one block of 128 channels."""
+    return 128 if n >= 64 else 256
+
+
+def narrow_smem(cin: int, cout: int, box: tuple[int, int],
+                chunk: int) -> int:
+    """Dynamic shared-memory bytes of a narrow block (the launcher's
+    ``smem``): 1024 of alignment, NARROW_STAGES stages of the haloed box
+    (TW + 2) (TH + 2) x chunk, each rounded up to 1024 bytes, two staging
+    tiles where Cout % 8 == 0 (TMA stores), the weights as 9 taps x
+    ceil(Cin / chunk) * chunk / 16 k16 steps x N x 32 bytes, and scale and
+    shift (N floats each)."""
+    tw, th = box
+    n = _cdiv(cout, 8) * 8
+    stage = _cdiv((tw + 2) * (th + 2) * chunk * 2, 1024) * 1024
+    staging = tw * th * cout * 2 if cout % 8 == 0 else 0
+    ksteps = _cdiv(cin, chunk) * chunk // 16
+    return (1024 + NARROW_STAGES * stage + 2 * staging + 9 * ksteps * n * 32
+            + 8 * n)
+
+
+def narrow_fits(cin: int, cout: int, box: tuple[int, int]) -> bool:
+    return (narrow_smem(cin, cout, box, narrow_chunk(cin))
+            + NARROW_STATIC_SMEM <= SMEM_LIMIT)
+
+
+def narrow_tile(cin: int, cout: int) -> tuple[int, int]:
+    """The narrow body's tile for Cin -> Cout: the first of NARROW_TILES
+    whose block fits in shared memory (the first where none does)."""
+    tiles = NARROW_TILES[narrow_pixels(_cdiv(cout, 8) * 8)]
+    return next((box for box in tiles if narrow_fits(cin, cout, box)),
+                tiles[0])
+
+
+def takes_narrow(cin: int, cout: int) -> bool:
+    """Whether a bf16 call with Cin % 8 == 0 and aligned operands takes the
+    narrow body: its (Cin, Cout) is one of NARROW_SHAPES."""
+    return (cin, cout) in NARROW_SHAPES
+
+
+def narrow_plan(b: int, h: int, w: int, cin: int, cout: int,
+                sm_count: int, box: tuple[int, int] | None = None
+                ) -> ConvPlan:
+    """The narrow body's plan: tiles of :func:`narrow_pixels` pixels, TW x
+    TH of one image (:func:`narrow_tile`'s; ``box`` forces another of TW
+    and TH multiples of 8, as ``scripts/conv_tile_sweep.py --narrow``
+    does), walked along W, H, then the batch; :func:`narrow_chunk`'s
+    chunk; a persistent grid of one block an SM at most; a TMA-store
+    epilogue where Cout % 8 == 0."""
+    n = _cdiv(cout, 8) * 8
+    tw, th = box or narrow_tile(cin, cout)
+    chunk = narrow_chunk(cin)
+    if ((n, chunk) not in NARROW_INSTANCES or cin % 8 or tw % 8 or th % 8
+            or tw * th != narrow_pixels(n)
+            or not narrow_fits(cin, cout, (tw, th))):
+        raise ValueError(f"no narrow plan for {cin} -> {cout} with tile "
+                         f"{(tw, th)}")
+    tiles = (_cdiv(w, tw), _cdiv(h, th), b, 1)
+    n_tiles = tiles[0] * tiles[1] * tiles[2]
+    return ConvPlan("narrow", tw * th, (tw, th, 1), n, NARROW_STAGES, 0,
+                    (min(n_tiles, sm_count), 1), tiles, chunk,
+                    narrow_smem(cin, cout, (tw, th), chunk),
+                    tma_store=int(cout % 8 == 0))
+

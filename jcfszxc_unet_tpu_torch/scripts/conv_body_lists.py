@@ -13,8 +13,10 @@ and the row-sharded forward's 18 slab convs (2 images padded to 640 x 576,
 the zoo's wgmma shapes with Cout <= 128 (``chip_smoke.py``'s
 ``ZOO_CONV_CASES``) and UNet's 17 on the train path's validation batch
 (64 x 128^2 down to 8^2), each row with the schedule that ran
-(``pingpong`` or ``cooperative``, where the package counts it);
-``--lists`` picks some of them by name.  For each list this times
+(``pingpong`` or ``cooperative``, where the package counts it), and the
+zoo's narrow convs (Cin <= 32 or Cout <= 32, the ``narrow`` body's
+list: eight models' 55 calls at 16 x 512^2 down to 64^2, with each
+model's totals); ``--lists`` picks some of them by name.  For each list this times
 kernel 1 (through the K-major entry that ``ops/blocks`` calls), checks
 every shape against the plain version (1e-2 of max |plain| in bf16, 1e-4
 in f32) and prints a digest of its output (the first 16 hex digits of
@@ -43,6 +45,8 @@ directory first):
         --body wgmma --library --out new_wgmma.json
     python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
         --body wgmma --lists zoo,val --out new_zoo_val.json
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_body_lists \\
+        --body wgmma --lists narrow --library --out new_narrow.json
 
 Needs a CUDA GPU.
 """
@@ -139,7 +143,46 @@ ZOO_WGMMA = {
 # UNet's 17 at the validation batch of the train path (64 x 128^2).
 VAL_WGMMA = _counted((64, 128 >> k, 128 >> k, cin, cout, True)
                      for k, cin, cout in UNET if cin % 8 == 0)
-WGMMA_LISTS = {"unet": UNET_WGMMA, "zoo": ZOO_WGMMA, "val": VAL_WGMMA}
+# The zoo's narrow bf16 convs (Cin % 8 == 0, and Cin <= 32 or Cout <=
+# 32) per model, as ops/blocks records them on one 512^2 patch (level k at
+# 512 / 2^k), scaled to the eval chunk of 16 patches: model -> {(level,
+# Cin, Cout, relu): launches per forward}.  UNet has none.
+NARROW_MODELS = {
+    "FRUNet.FRUNet": {(0, 32, 32, False): 14, (0, 64, 32, False): 5},
+    "UNetPP.NestedUNet": {(0, 32, 32, True): 5, (0, 96, 32, True): 1,
+                          (0, 128, 32, True): 1, (0, 160, 32, True): 1,
+                          (0, 192, 32, True): 1, (1, 32, 64, True): 1},
+    "MultiResUNet.MultiResUNet": {(0, 8, 17, True): 2, (0, 32, 32, True): 3,
+                                  (0, 64, 8, True): 1,
+                                  (1, 128, 17, True): 1},
+    "BCDUNet.BCDU_net_D3": {(0, 32, 64, True): 1, (0, 32, 128, False): 1,
+                            (0, 64, 2, True): 1},
+    "BCDUNet.BCDU_net_D1": {(0, 32, 64, True): 1, (0, 32, 128, False): 1,
+                            (0, 64, 2, True): 1},
+    "MCUNet.MCUNet": {(0, 32, 32, True): 2, (0, 64, 32, True): 1,
+                      (1, 32, 64, True): 1, (1, 64, 32, True): 1,
+                      (3, 32, 64, True): 2},
+    "SegNet.SegNet": {(0, 64, 1, False): 1},
+    "RetinaLiteNet.TransFuseNet": {(0, 8, 8, True): 1, (1, 8, 16, True): 1,
+                                   (1, 24, 16, True): 1,
+                                   (2, 16, 32, True): 1,
+                                   (2, 48, 32, True): 1},
+}
+
+
+def narrow_model_calls(model, batch=16):
+    """One model's narrow convs at an eval chunk of ``batch`` 512^2
+    patches, ``{(B, H, W, Cin, Cout, relu): count}``."""
+    return {(batch, 512 >> k, 512 >> k, cin, cout, relu): n
+            for (k, cin, cout, relu), n in NARROW_MODELS[model].items()}
+
+
+NARROW = {}
+for _model in NARROW_MODELS:
+    for _key, _n in narrow_model_calls(_model).items():
+        NARROW[_key] = NARROW.get(_key, 0) + _n
+WGMMA_LISTS = {"unet": UNET_WGMMA, "zoo": ZOO_WGMMA, "val": VAL_WGMMA,
+               "narrow": NARROW}
 
 
 def conv_cost(b, h, w, cin, cout, itemsize=2):
@@ -344,6 +387,19 @@ def run_list(calls, library, seed=7, target_ms=20.0, dtype="bfloat16",
     return {"rows": rows, "total": total}
 
 
+def by_model(rows, keys):
+    """The narrow list's weighted totals of ``keys`` per model of
+    :data:`NARROW_MODELS` from its rows (one per shape)."""
+    by_shape = {(*r["shape"], r["relu"]): r for r in rows}
+    out = {}
+    for model in NARROW_MODELS:
+        calls = narrow_model_calls(model)
+        out[model] = {k: sum(n * by_shape[key][k]
+                             for key, n in calls.items()) for k in keys}
+        out[model]["n_convs"] = sum(calls.values())
+    return out
+
+
 def gpu_name_and_power():
     try:
         return subprocess.run(
@@ -394,6 +450,11 @@ def main():
            "lists": {name: run_list(calls, args.library, dtype=args.dtype,
                                     pad8=not wgmma)
                      for name, calls in lists.items()}}
+    if "narrow" in res["lists"]:
+        res["lists"]["narrow"]["models"] = by_model(
+            res["lists"]["narrow"]["rows"],
+            ["ms", "device_ms", "bound_ms"]
+            + (["library_ms"] if args.library else []))
     for name, lst in res["lists"].items():
         for r in lst["rows"]:
             print(f"digest {name} {r['shape']} {r['schedule'] or r['body']} "
@@ -414,6 +475,13 @@ def main():
               f"{t['bound_ms']:.3f} ms ({t['bound_by']}){extra}; "
               f"{t['checks_ok']}/{t['checks']} within {TOL[args.dtype]} "
               f"(max {t['max_err_rel']:.2e})", flush=True)
+    for model, t in res["lists"].get("narrow", {}).get("models",
+                                                        {}).items():
+        extra = (f", cuDNN {t['library_ms']:.3f} ms" if args.library
+                 else "")
+        print(f"narrow {model}: {t['n_convs']} convs, kernel "
+              f"{t['ms']:.3f} ms (device {t['device_ms']:.3f} ms){extra}, "
+              f"bound {t['bound_ms']:.3f} ms", flush=True)
     print(res["gpu"], flush=True)
     if args.out:
         with open(args.out, "w") as f:

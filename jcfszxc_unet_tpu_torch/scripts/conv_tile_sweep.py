@@ -34,8 +34,21 @@ one-image boxes whose channel plane fits (8-wide boxes run 8-pixel thread
 rows, wider ones 16); checked within 1e-4 of max|plain|, beside cuDNN with
 TF32 off; ``planned`` marks the plan ``f32_plan`` picks.
 
+With ``--narrow`` it times, at every shape of ``conv_body_lists``'s
+``narrow`` list (the zoo's narrow bf16 convs at 16 x 512^2 down to
+64^2), or at the shapes given as ``--shape=B,H,W,CIN,COUT`` (repeated;
+ReLU on), every route forced on it: the plan ``plan_conv`` picks, the
+``mma_sync`` body's box plan (``conv_plan.box_plan``), each ``wgmma``
+configuration without a cluster, and, where the package has the
+``narrow`` body (``conv_plan.narrow_plan``), each tile of
+``NARROW_SWEEP_TILES`` that fits; cuDNN beside them.  It uses no other
+name of the package, so it forces the same routes on another checkout
+put first on ``PYTHONPATH`` (the parent's, in turns with this one).
+
     python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep [out.json]
     python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep --f32 [out.json]
+    python -m jcfszxc_unet_tpu_torch.scripts.conv_tile_sweep --narrow \\
+        [--shape=16,512,512,32,32 ...] [out.json]
 
 Needs a CUDA GPU.
 """
@@ -286,14 +299,109 @@ def sweep_f32():
             "gpu": gpu_name_and_power(), "rows": rows}
 
 
+# The narrow body's tiles the sweep forces: those of 256 pixels (Cout <= 32)
+# and of 128 (Cout 64, 128) with TW and TH multiples of 8;
+# conv_plan.narrow_plan refuses the ones of the other size or that do not
+# fit.
+NARROW_SWEEP_TILES = ((32, 8), (16, 16), (8, 32), (16, 8), (8, 16))
+
+
+def sweep_narrow(shapes=None):
+    """Every route forced on each shape of the narrow list (or of
+    ``shapes``, (B, H, W, Cin, Cout, relu) each), bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcfszxc_unet_tpu_torch.ops.kernels import conv_fused, conv_plan
+    from jcfszxc_unet_tpu_torch.scripts.conv_body_lists import NARROW
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the sweep times CUDA kernels: it needs a GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    sms = conv_plan.sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    narrow = getattr(conv_plan, "narrow_plan", None)
+    rows = []
+    for b, h, w_, cin, cout, relu in sorted(set(shapes or NARROW)):
+        x = torch.randn((b, h, w_, cin), generator=g, device=dev).bfloat16()
+        w = (torch.randn((cout, 3, 3, cin), generator=g, device=dev)
+             / math.sqrt(9 * cin)).bfloat16()
+        scale = 0.5 + torch.rand((cout,), generator=g, device=dev)
+        shift = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        want = conv_fused.conv3x3_affine_relu_torch(
+            x, w.permute(1, 2, 3, 0), scale, shift, relu).float()
+        ref = float(want.abs().max())
+        x_cl = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(0, 3, 1, 2).contiguous()
+        lib_ms = _event_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
+        planned = conv_plan.plan_conv(b, h, w_, cin, cout, torch.bfloat16,
+                                      True, sms)
+        plans = [("planned", planned),
+                 ("box", conv_plan.box_plan(b, h, w_, cin, cout, sms))]
+        for cfg in conv_plan.WGMMA_CONFIGS:
+            if (cfg[1] > max(64, cout) or (cfg[3] and w_ < 128)
+                    or (cfg[4] == 2 and cout % 8)):  # swap: TMA stores
+                continue
+            label = {0: "coop", 1: "ping", 2: "swap"}[cfg[4]]
+            plans.append((f"wgmma {label} {cfg[:4]}",
+                          conv_plan.wgmma_plan(b, h, w_, cout, cfg, sms)))
+        for box in NARROW_SWEEP_TILES if narrow else ():
+            try:
+                plan = narrow(b, h, w_, cin, cout, sms, box)
+            except ValueError:  # another tile size, or no instance
+                continue
+            plans.append((f"narrow {plan.box[:2]} ck{plan.chunk} "
+                          f"st{plan.stages}", plan))
+        flops = 2 * b * h * w_ * cout * 9 * cin
+        for label, plan in plans:
+            got = conv_fused.launch(x, w, scale, shift, relu, plan)
+            err = float((got.float() - want).abs().max())
+            del got
+            ms = _event_ms(lambda: conv_fused.launch(x, w, scale, shift,
+                                                     relu, plan))
+            rows.append({"path": "narrow", "b": b, "hw": [h, w_],
+                         "cin": cin, "cout": cout, "relu": relu,
+                         "label": label, "body": plan.body,
+                         "box": list(plan.box), "bn": plan.bn,
+                         "chunk": plan.chunk, "stages": plan.stages,
+                         "ms": ms, "tflops": flops / ms / 1e9,
+                         "cudnn_ms": lib_ms,
+                         "planned": plan == planned and label != "planned",
+                         "ok": err <= 1e-2 * ref})
+            print(f"narrow B{b:<3d} {h:4d}x{w_:<4d} {cin:4d}->{cout:<4d} "
+                  f"{label:38s} {ms:8.4f} ms (cuDNN {lib_ms:.4f} ms)"
+                  f"{' planned' if rows[-1]['planned'] else ''} "
+                  f"{'ok' if rows[-1]['ok'] else 'BAD'}", flush=True)
+        del x, w, want, x_cl, w_oihw
+    return {"device": torch.cuda.get_device_name(0), "sm_count": sms,
+            "gpu": gpu_name_and_power(), "rows": rows}
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != "--f32"]
-    f32 = len(args) < len(sys.argv) - 1
-    res = sweep_f32() if f32 else sweep()
+    flags = {"--f32", "--narrow"}
+    shapes = [(*map(int, a.split("=", 1)[1].split(",")), True)
+              for a in sys.argv[1:] if a.startswith("--shape=")]
+    args = [a for a in sys.argv[1:]
+            if a not in flags and not a.startswith("--shape=")]
+    f32 = "--f32" in sys.argv[1:]
+    narrow = "--narrow" in sys.argv[1:]
+    res = (sweep_f32() if f32 else sweep_narrow(shapes) if narrow
+           else sweep())
     if args:
         with open(args[0], "w") as f:
             json.dump(res, f, indent=1)
-    if not f32:
+    if narrow:
+        best = {}
+        for r in res["rows"]:
+            key = (r["b"], *r["hw"], r["cin"], r["cout"])
+            if r["ok"] and r["label"] != "planned" and (
+                    key not in best or r["ms"] < best[key]["ms"]):
+                best[key] = r
+        for key, r in best.items():
+            print(f"best {key}: {r['label']} {r['ms']:.4f} ms (cuDNN "
+                  f"{r['cudnn_ms']:.4f} ms)", flush=True)
+    elif not f32:
         for key, (best, planned) in best_rows(res["rows"]).items():
             print(f"best {key}: {best['label']} {best['ms']:.3f} ms; planned "
                   + (f"{planned['label']} {planned['ms']:.3f} ms" if planned

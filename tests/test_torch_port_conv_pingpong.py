@@ -50,6 +50,7 @@ from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
     plan_conv,
     schedule,
     wgmma_plan,
+    wgmma_route,
     wgmma_smem,
 )
 
@@ -461,22 +462,23 @@ def test_wgmma_configuration_fits_the_sm(config):
 def test_schedule_choice():
     """Cout <= 128 takes a ping-pong plan, swapped where Cout % 8 == 0
     (which stores by TMA), and so does Cin 256 into Cout 512; the deep
-    layers on narrow maps keep the cooperative tiles."""
+    layers on narrow maps keep the cooperative tiles.  (The wgmma body's
+    own plans: plan_conv routes 8 -> 16 and 64 -> 17 to the narrow body.)"""
     for cin, cout, w in ((64, 64, 512), (128, 64, 512), (64, 128, 256),
                          (256, 128, 256), (512, 256, 128), (64, 64, 64),
                          (128, 128, 64), (8, 16, 64), (256, 512, 64),
                          (256, 256, 32)):
-        plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
+        plan = wgmma_route(16, w, w, cin, cout)
         assert schedule(plan) == "pingpong_swap" and plan.bn == 64
         assert plan.strip == (w >= 128) and plan.tma_store
     for cin, cout, w in ((64, 17, 512), (64, 96 + 1, 37), (256, 128, 64),
                          (320, 64, 32)):
-        plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
+        plan = wgmma_route(16, w, w, cin, cout)
         assert schedule(plan) == "pingpong" and plan.bn <= 128
         assert plan.tma_store == (cout % 8 == 0)
     for cin, cout, w in ((512, 512, 64), (1024, 1024, 32), (512, 1024, 32),
                          (1024, 512, 64), (512, 512, 16), (512, 256, 32)):
-        plan = plan_conv(16, w, w, cin, cout, torch.bfloat16, True)
+        plan = wgmma_route(16, w, w, cin, cout)
         # on 64-wide maps in clusters (tests/test_torch_port_conv_cluster.py)
         assert schedule(plan).split("/")[0] == "cooperative"
         assert not plan.tma_store

@@ -30,6 +30,7 @@ from jcfszxc_unet_tpu_torch.ops.kernels.conv_plan import (
     choose_box,
     plan_conv,
     wgmma_plan,
+    wgmma_route,
 )
 
 
@@ -161,7 +162,10 @@ CASES = [
 @pytest.mark.parametrize("b,h,w,cin,cout,relu", CASES)
 def test_fused_conv_addressing_matches_plain(b, h, w, cin, cout, relu):
     x, wt, scale, shift = _inputs(b, h, w, cin, cout, seed=cin + h)
-    plan = plan_conv(b, h, w, cin, cout, torch.bfloat16, True, sm_count=3)
+    # the wgmma body's own plan: plan_conv routes the narrow shapes among
+    # these (Cout <= 32, or Cin <= 32 into Cout <= 128) to the narrow body
+    # (tests/test_torch_port_conv_narrow.py)
+    plan = wgmma_route(b, h, w, cin, cout, sm_count=3)
     assert plan.body == "wgmma"
     w_kmaj = wt.permute(3, 0, 1, 2).reshape(cout, 9, cin)  # the kernel's B
     got, hits = _emulate(plan, x, w_kmaj, h, w, scale, shift, relu, halo=1)
@@ -217,6 +221,8 @@ def test_body_choice():
     assert body(64, bf16) == "wgmma"
     assert body(3, bf16) == "mma_sync"             # UNet's first conv
     assert body(8, bf16) == "wgmma"                # MultiResUNet's Cin 8
+    assert body(32, bf16) == "narrow"              # BCDU's 32 -> 64
+    assert body(128, bf16) == "wgmma"
     assert body(17, bf16) == "mma_sync"            # and its odd widths
     for cin in (12, 68, 204):                      # and its s2d widths
         assert body(cin, bf16) == "mma_sync"

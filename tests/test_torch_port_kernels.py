@@ -250,9 +250,12 @@ def _check_conv_on_gpu(device, dtype, tol, b, h, w, cin, cout, relu):
     want = conv3x3_affine_relu_torch(x, wt, scale, shift, relu=relu).float()
     torch.cuda.synchronize()
     assert conv_fused.counter.launches == before + 1
-    # the body that ran: wgmma for every bf16 call with Cin % 8 == 0
+    # the body that ran: for a bf16 call with Cin % 8 == 0 the narrow body
+    # where Cin <= 32 or Cout <= 32 (conv_plan.takes_narrow), else wgmma
     body = {torch.float32: "f32_box",
-            torch.bfloat16: "wgmma" if cin % 8 == 0 else "mma_sync"}[dtype]
+            torch.bfloat16: "mma_sync" if cin % 8
+            else "narrow" if conv_plan.takes_narrow(cin, cout)
+            else "wgmma"}[dtype]
     assert conv_fused.counter.bodies.get(body, 0) == bodies.get(body, 0) + 1
     # both accumulate in f32: summation order and (bf16) one rounding
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())

@@ -42,9 +42,11 @@ def test_frunet_train_forward_and_running_stats_match_jax(zoo, monkeypatch):
 
 def test_frunet_fused_conv_sites(zoo, monkeypatch):
     # 16 nodes x 2 FRConv convs + 12 FeatureFuse 3x3s; block1_3's fuse
-    # reads Cin = 3
+    # reads Cin = 3; the 32-wide row's 14 32 -> 32 and 5 64 -> 32 convs
+    # take the narrow body
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
-                                                         "wgmma": 43}
+                                                         "wgmma": 24,
+                                                         "narrow": 19}
 
 
 def test_frunet_s2d_builds_and_unet_refuses_it():

@@ -43,9 +43,11 @@ def test_mcunet_train_forward_and_running_stats_match_jax(zoo, monkeypatch):
 
 
 def test_mcunet_fused_conv_sites(zoo, monkeypatch):
-    # in_conv 2, down1..3 2 each, InceptionA's three 3x3s, up1..4 2 each
+    # in_conv 2, down1..3 2 each, InceptionA's three 3x3s, up1..4 2 each;
+    # the seven with Cin <= 32 or Cout <= 32 on the narrow body
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
-                                                         "wgmma": 18}
+                                                         "wgmma": 11,
+                                                         "narrow": 7}
 
 
 def test_mcunet_inception_folds_its_own_eps(zoo):

@@ -45,9 +45,11 @@ def test_multires_train_forward_and_running_stats_match_jax(zoo,
 def test_multires_fused_conv_sites(zoo, monkeypatch):
     # 9 blocks x 3 + 4 + 3 + 2 + 1 Respath units; int(F * 1.67 * k)
     # widths (8, 17, 26, 35, 53, 71, 106, 142, 213, 284, 427) off the
-    # Cin % 8 == 0 wgmma body, with the Cin = 3 input
+    # Cin % 8 == 0 bodies, with the Cin = 3 input; of those twelve, the
+    # 8 -> 17, 32 -> 32, 64 -> 8 and 128 -> 17 ones take the narrow body
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 25,
-                                                         "wgmma": 12}
+                                                         "wgmma": 5,
+                                                         "narrow": 7}
 
 
 def test_multires_s2d_builds_and_unet_refuses_it():

@@ -47,9 +47,11 @@ def test_nested_train_forward_and_running_stats_match_jax(zoo, monkeypatch):
 
 
 def test_nested_fused_conv_sites(zoo, monkeypatch):
-    # 15 nodes x 2 convs; only conv0_0's first conv reads Cin = 3
+    # 15 nodes x 2 convs; only conv0_0's first conv reads Cin = 3; the
+    # row-0 nodes' ten Cout-32 convs and conv1_0's 32 -> 64 on narrow
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
-                                                         "wgmma": 29}
+                                                         "wgmma": 19,
+                                                         "narrow": 10}
 
 
 def test_nested_deep_supervision_returns_the_four_heads(zoo):

@@ -42,9 +42,10 @@ def test_segnet_train_forward_and_running_stats_match_jax(zoo, monkeypatch):
 
 def test_segnet_fused_conv_sites(zoo, monkeypatch):
     # 25 conv -> BN -> ReLU stages (the first from Cin = 3) and the
-    # 64 -> 1 head with its bias as the shift, ReLU off
+    # 64 -> 1 head with its bias as the shift, ReLU off (the narrow body)
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
-                                                         "wgmma": 25}
+                                                         "wgmma": 24,
+                                                         "narrow": 1}
 
 
 def test_segnet_refuses_sizes_it_cannot_pool(zoo):

@@ -57,9 +57,10 @@ def test_transfuse_train_forward_and_running_stats_match_jax(zoo,
 
 def test_transfuse_fused_conv_sites(zoo, monkeypatch):
     # conv_block1..3 (3 -> 8 on mma_sync), decoder_conv1 48 -> 32,
-    # decoder_conv2 24 -> 16 and decoder_block3's 8 -> 8
+    # decoder_conv2 24 -> 16 and decoder_block3's 8 -> 8, all five of
+    # them on the narrow body
     assert kernel_calls(zoo[2], zoo[3], monkeypatch) == {"mma_sync": 1,
-                                                         "wgmma": 5}
+                                                         "narrow": 5}
 
 
 def test_transfuse_default_head_is_the_sigmoid(zoo):
