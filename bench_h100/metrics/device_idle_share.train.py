@@ -1,0 +1,12 @@
+"""Share of the traced training window (one whole epoch: its steps and
+its validation pass) in which no kernel, copy or set ran on the card,
+in %."""
+
+
+def read(r):
+    if r.trace is None or r.kind != "train_epochs":
+        return None
+    lo, hi = r.trace.window
+    if hi <= lo:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_ns() / (hi - lo))
