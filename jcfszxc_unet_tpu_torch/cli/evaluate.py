@@ -30,11 +30,16 @@ JAX CLI pads for its mesh), with ``--s2d`` too.  Rank 0 gathers the maps,
 computes Dice and AUC and writes every output.  A collective waits
 torch's default time before it fails the run (``--dist-timeout`` sets
 it).
+
+``--profile-dir`` runs the evaluation under a ``torch.profiler`` capture
+(``utils.profiling.trace``) and writes a Chrome trace there, with the
+protocol's spans (``unet.eval`` and its steps).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -66,6 +71,7 @@ from jcfszxc_unet_tpu_torch.utils.device import (
     resolve_device,
     resolve_device_count,
 )
+from jcfszxc_unet_tpu_torch.utils.profiling import annotate, trace
 from jcfszxc_unet_tpu_torch.utils.seed import set_seed
 
 THRESHOLD_SWEEP = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
@@ -103,48 +109,74 @@ def evaluate_arrays(model, images, masks, labels, patch_size: int = 256,
     With a ``world``, this is one rank of a data-parallel evaluation (see
     the module doc): the maps are gathered, and rank 0 alone computes the
     metrics and returns them; the other ranks return an empty dict.
+
+    Under a profiler the call is the span ``unet.eval``, with
+    ``unet.eval.copy_in``, ``.gather``, ``.forward`` (a chunk), ``.stitch``,
+    ``.auc``, ``.dice`` and ``.copy_out`` inside it and ``unet.sync``
+    around each point where the host waits for the card.
     """
     _check_protocol(sliding_window, spatial, tta)
-    dev = world.device if world is not None else resolve_device(device)
-    predictor = Predictor(model, compute_dtype=compute_dtype,
-                          patch_size=patch_size,
-                          inference_batch_size=inference_batch_size,
-                          device=dev, tta=tta, world=world)
-    images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
-    masks = torch.as_tensor(np.asarray(masks, np.float32), device=dev)
-    labels = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
-    if spatial:
-        pred_maps = predictor.predict_spatial(images)
-    elif sliding_window:
-        start, stop = row_bounds(images.shape[0], world)
-        pred_maps = gather_rows(torch.stack([
-            predictor.predict_full_image(image, patch_size, overlap,
-                                         inference_batch_size)
-            for image in images[start:stop]]) if stop > start
-            else masks.new_zeros((0,) + masks.shape[1:]),
-            images.shape[0], world)
-    else:
-        pred_maps = predictor.predict_images(images)
-    if not is_main(world):
-        return {}
-    pred_maps = pred_maps * masks  # evaluate.py:309
-    result = {}
-    if compute_auc:
-        result["auc"] = [float(roc_auc(pred_maps[i], labels[i], masks[i]))
-                         for i in range(pred_maps.shape[0])]
-    binary = (pred_maps > threshold).float()
-    result["dice"] = binary_dice(binary, labels).tolist()
-    if full_metrics:
-        result["classification"] = [
-            [float(v) for v in classification_metrics(binary[i], labels[i],
-                                                      masks[i])]
-            for i in range(pred_maps.shape[0])]
-    if threshold_sweep:
-        result["threshold_sweep"] = [
-            (th, float(binary_dice((pred_maps > th).float(), labels).mean()))
-            for th in THRESHOLD_SWEEP]
-    result["pred_maps"] = pred_maps.cpu().numpy()
-    return result
+    with annotate("unet.eval"):
+        dev = world.device if world is not None else resolve_device(device)
+        predictor = Predictor(model, compute_dtype=compute_dtype,
+                              patch_size=patch_size,
+                              inference_batch_size=inference_batch_size,
+                              device=dev, tta=tta, world=world)
+        with annotate("unet.eval.copy_in"):
+            images, masks, labels = (_to_device(a, dev)
+                                     for a in (images, masks, labels))
+        if spatial:
+            pred_maps = predictor.predict_spatial(images)
+        elif sliding_window:
+            start, stop = row_bounds(images.shape[0], world)
+            pred_maps = gather_rows(torch.stack([
+                predictor.predict_full_image(image, patch_size, overlap,
+                                             inference_batch_size)
+                for image in images[start:stop]]) if stop > start
+                else masks.new_zeros((0,) + masks.shape[1:]),
+                images.shape[0], world)
+        else:
+            pred_maps = predictor.predict_images(images)
+        if not is_main(world):
+            return {}
+        pred_maps = pred_maps * masks  # evaluate.py:309
+        result = {}
+        if compute_auc:
+            with annotate("unet.eval.auc"):
+                result["auc"] = [
+                    _to_host(roc_auc(pred_maps[i], labels[i], masks[i]))
+                    for i in range(pred_maps.shape[0])]
+        binary = (pred_maps > threshold).float()
+        with annotate("unet.eval.dice"):
+            dice = binary_dice(binary, labels)
+            with annotate("unet.sync"):
+                result["dice"] = dice.tolist()
+        if full_metrics:
+            result["classification"] = [
+                [_to_host(v) for v in classification_metrics(
+                    binary[i], labels[i], masks[i])]
+                for i in range(pred_maps.shape[0])]
+        if threshold_sweep:
+            result["threshold_sweep"] = [
+                (th, _to_host(binary_dice((pred_maps > th).float(),
+                                          labels).mean()))
+                for th in THRESHOLD_SWEEP]
+        with annotate("unet.eval.copy_out"), annotate("unet.sync"):
+            result["pred_maps"] = pred_maps.cpu().numpy()
+        return result
+
+
+def _to_device(a, dev) -> torch.Tensor:
+    """Host array ``a`` on ``dev`` in f32: a pageable copy, which the
+    host waits for on the card."""
+    with annotate("unet.sync"):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _to_host(t: torch.Tensor) -> float:
+    """A 0-d tensor's value on the host: a sync on the card."""
+    with annotate("unet.sync"):
+        return float(t)
 
 
 def eval_model(model, output_dir: str,
@@ -323,6 +355,9 @@ def get_args(argv=None):
     parser.add_argument("--threshold-sweep", action="store_true",
                         help="Also print mean Dice across binarization cuts "
                              "(0.3-0.99) from the same probability maps")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler (Chrome) trace of the "
+                             "evaluation here")
     return parser.parse_args(argv)
 
 
@@ -377,30 +412,34 @@ def run(args, world=None):
             model, _ = opt_in_s2d(model, config)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-    eval_model(
-        model=model,
-        input_data=args.data_file,
-        inference_batch_size=args.inference_batch_size,
-        output_dir=args.output_dir,
-        patch_size=args.patch_size,
-        compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
-                       else torch.float32),
-        error_panels=args.error_panels,
-        full_metrics=args.full_metrics,
-        threshold=args.threshold,
-        threshold_sweep=args.threshold_sweep,
-        metrics_json=args.metrics_json,
-        sliding_window=args.sliding_window,
-        overlap=args.overlap,
-        num_images=args.num_images if args.sliding_window else None,
-        image_indices=(
-            [int(s) for s in args.image_indices.split(",")]
-            if (args.sliding_window and args.image_indices) else None),
-        spatial=args.spatial,
-        tta=args.tta,
-        device=device,
-        world=world,
-    )
+    profiling = contextlib.ExitStack()
+    if args.profile_dir:
+        profiling.enter_context(trace(args.profile_dir))
+    with profiling:
+        eval_model(
+            model=model,
+            input_data=args.data_file,
+            inference_batch_size=args.inference_batch_size,
+            output_dir=args.output_dir,
+            patch_size=args.patch_size,
+            compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
+                           else torch.float32),
+            error_panels=args.error_panels,
+            full_metrics=args.full_metrics,
+            threshold=args.threshold,
+            threshold_sweep=args.threshold_sweep,
+            metrics_json=args.metrics_json,
+            sliding_window=args.sliding_window,
+            overlap=args.overlap,
+            num_images=args.num_images if args.sliding_window else None,
+            image_indices=(
+                [int(s) for s in args.image_indices.split(",")]
+                if (args.sliding_window and args.image_indices) else None),
+            spatial=args.spatial,
+            tta=args.tta,
+            device=device,
+            world=world,
+        )
 
 
 if __name__ == "__main__":

@@ -14,6 +14,11 @@ its mesh: each rank cuts and forwards its contiguous share in chunks of
 the batch size over the ranks' count, the probabilities are gathered,
 and every rank stitches them as one process would (the stitch is
 replicated, as in JAX).
+
+Under a profiler the steps are spans (``utils.profiling.annotate``):
+``unet.eval.gather`` (with ``unet.sync`` around the grid's copy to the
+device, where the host waits for it), one ``unet.eval.forward`` per chunk
+and ``unet.eval.stitch``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from jcfszxc_unet_tpu_torch.data.sampler import (
     extract_patches,
 )
 from jcfszxc_unet_tpu_torch.parallel.mesh import gather_rows, row_bounds
+from jcfszxc_unet_tpu_torch.utils.profiling import annotate
 
 
 def stitch_patches(probs: torch.Tensor, centers: np.ndarray, n_images: int,
@@ -76,8 +82,21 @@ def stitch_patches_scatter(probs: torch.Tensor, centers, n_images: int,
 
 def _chunked(forward, patches: torch.Tensor, batch_size: int):
     bs = min(batch_size, patches.shape[0])
-    return torch.cat([forward(patches[i:i + bs])
-                      for i in range(0, patches.shape[0], bs)])
+
+    def chunk(i):
+        with annotate("unet.eval.forward"):
+            return forward(patches[i:i + bs])
+
+    return torch.cat([chunk(i) for i in range(0, patches.shape[0], bs)])
+
+
+def _gather(images: torch.Tensor, centers, patch_size: int) -> torch.Tensor:
+    """``extract_patches`` of the host-built grid ``centers``, whose copy
+    to the images' device is a host sync on the card."""
+    with annotate("unet.eval.gather"):
+        with annotate("unet.sync"):
+            idx = torch.as_tensor(centers, device=images.device)
+        return extract_patches(images, idx, patch_size)
 
 
 def tiled_predict(forward: Callable[[torch.Tensor], torch.Tensor],
@@ -100,19 +119,19 @@ def tiled_predict(forward: Callable[[torch.Tensor], torch.Tensor],
             f"584x565 DRIVE images)")
     centers = build_grid_sample_map(n, h, w, patch_size // 2)
     if world is None:
-        probs = _chunked(forward, extract_patches(images, centers,
-                                                  patch_size),
+        probs = _chunked(forward, _gather(images, centers, patch_size),
                          inference_batch_size)
     else:
         total = centers.shape[0]
         bs = max(min(inference_batch_size, total) // world.size, 1)
         start, stop = row_bounds(total, world)
-        local = (_chunked(forward, extract_patches(
+        local = (_chunked(forward, _gather(
             images, centers[start:stop], patch_size), bs)
             if stop > start else torch.zeros(
                 (0, patch_size, patch_size, 1), device=images.device))
         probs = gather_rows(local, total, world)
-    return stitch_patches(probs.squeeze(-1), centers, n, h, w)
+    with annotate("unet.eval.stitch"):
+        return stitch_patches(probs.squeeze(-1), centers, n, h, w)
 
 
 def sliding_window_predict(forward: Callable[[torch.Tensor], torch.Tensor],
@@ -134,9 +153,10 @@ def sliding_window_predict(forward: Callable[[torch.Tensor], torch.Tensor],
         [(0, y + half, x + half)
          for y in range(0, h - patch_size + 1, step)
          for x in range(0, w - patch_size + 1, step)], dtype=np.int32)
-    probs = _chunked(forward, extract_patches(image[None], centers,
-                                              patch_size), batch_size)
-    return stitch_patches(probs.squeeze(-1), centers, 1, h, w)[0]
+    probs = _chunked(forward, _gather(image[None], centers, patch_size),
+                     batch_size)
+    with annotate("unet.eval.stitch"):
+        return stitch_patches(probs.squeeze(-1), centers, 1, h, w)[0]
 
 
 def dihedral_tta(forward: Callable[[torch.Tensor], torch.Tensor]

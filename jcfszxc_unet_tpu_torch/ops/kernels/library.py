@@ -18,7 +18,10 @@ and contiguous NHWC strides without touching storage, so that
 holds one node per call.  Only the CUDA implementations read
 ``data_ptr()``, the alignment tests of the plans included, and only they
 add to the launch counters, so the launches of an exported program count
-too.  The kernels are eval-mode kernels: a backward through an operator
+too.  Under a profiler the host work of one kernel-1 call in the CUDA
+implementation (its plan, workspace, tensor-map encodes and launch) is
+the span ``unet.kernel1``; the CPU and fake implementations hold no
+span.  The kernels are eval-mode kernels: a backward through an operator
 raises.
 
 The operators are defined with ``torch.library.Library``.  Measured on
@@ -48,6 +51,7 @@ from jcfszxc_unet_tpu_torch.ops.kernels import (
     conv_plan,
     dice_fused,
 )
+from jcfszxc_unet_tpu_torch.utils.profiling import annotate
 
 NAMESPACE = "jcfszxc_unet"
 
@@ -66,8 +70,9 @@ def _conv_cpu(x, w_km, scale, shift, relu):
 
 
 def _conv_cuda(x, w_km, scale, shift, relu):
-    return conv_fused.launch(x, w_km, scale, shift, relu,
-                             conv_fused.plan_for(x, w_km))
+    with annotate("unet.kernel1"):
+        return conv_fused.launch(x, w_km, scale, shift, relu,
+                                 conv_fused.plan_for(x, w_km))
 
 
 def _conv_fake(x, w_km, scale, shift, relu):

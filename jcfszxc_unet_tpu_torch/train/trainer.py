@@ -52,6 +52,7 @@ JAX mesh's global semantics (trainer.py:44-48, 72-73):
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Iterable
 
 import numpy as np
@@ -77,6 +78,7 @@ from jcfszxc_unet_tpu_torch.parallel.mesh import (
 from jcfszxc_unet_tpu_torch.train.losses import combined_loss
 from jcfszxc_unet_tpu_torch.train.optim import clip_and_step
 from jcfszxc_unet_tpu_torch.train.state import TrainState
+from jcfszxc_unet_tpu_torch.utils.profiling import annotate
 
 
 def split_indices(n_samples: int, val_percent: float):
@@ -151,19 +153,26 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
         state.step += 1
         opt.zero_grad(set_to_none=True)
         with global_batch_norm(model, world):
-            logits = forward(model, _nchw(imgs, compute_dtype)).permute(
-                0, 2, 3, 1)
-            loss, _, _ = combined_loss(logits, labs, n_classes, world=world)
-            loss.backward()
-        if world is not None:
-            average_gradients(model.parameters(), world)
-            loss = mean_over_ranks(loss, world)
+            with annotate("unet.train.forward"):
+                logits = forward(model, _nchw(imgs, compute_dtype)).permute(
+                    0, 2, 3, 1)
+                loss, _, _ = combined_loss(logits, labs, n_classes,
+                                           world=world)
+            with annotate("unet.train.backward"):
+                loss.backward()
+                if world is not None:
+                    average_gradients(model.parameters(), world)
+                    loss = mean_over_ranks(loss, world)
         # Host sync: see module doc.  It comes after the backward has been
         # queued, so the device is not left idle while the host launches it.
-        if not bool(torch.isfinite(loss)):
-            opt.zero_grad(set_to_none=True)
-            return torch.zeros((), device=loss.device), False
-        clip_and_step(opt, clip_norm)
+        with annotate("unet.train.nan_guard"):
+            with annotate("unet.sync"):
+                finite = bool(torch.isfinite(loss))
+            if not finite:
+                opt.zero_grad(set_to_none=True)
+                return torch.zeros((), device=loss.device), False
+        with annotate("unet.train.optimizer"):
+            clip_and_step(opt, clip_norm)
         return loss.detach().float(), True
 
     return train_step
@@ -174,12 +183,18 @@ def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
                   augment: bool = False, remat: bool = False,
                   world=None) -> Callable:
     """``(state, images, labels, sample_map, generator) -> {"epoch_loss",
-    "skipped"}``: ``steps`` steps on batches drawn from ``generator``.
-    ``epoch_loss`` is the sum of the kept losses (a 0-d tensor): skipped
-    steps add nothing, the caller still divides by ``steps``
-    (train.py:303, 392).  ``augment`` adds a random dihedral-8 element per
-    sample; ``remat`` and ``world`` are :func:`make_batch_step_fn`'s
-    (``batch_size`` is the global batch, drawn whole on every rank)."""
+    "skipped", "step_losses", "step_end_s"}``: ``steps`` steps on batches
+    drawn from ``generator``.  ``epoch_loss`` is the sum of the kept
+    losses (a 0-d tensor): skipped steps add nothing, the caller still
+    divides by ``steps`` (train.py:303, 392).  ``step_losses`` is each
+    step's loss, a (steps,) f32 tensor on the device (0 where the step
+    was skipped), and ``step_end_s`` the host's ``time.perf_counter()``
+    as each step returned; neither costs a sync.  ``augment`` adds a
+    random dihedral-8 element per sample; ``remat`` and ``world`` are
+    :func:`make_batch_step_fn`'s (``batch_size`` is the global batch,
+    drawn whole on every rank).  Under a profiler each step is the span
+    ``unet.train.step``, holding ``unet.train.sample``, ``.forward``,
+    ``.backward``, ``.nan_guard`` (its ``unet.sync``) and ``.optimizer``."""
     batch_step = make_batch_step_fn(n_classes=n_classes,
                                     compute_dtype=compute_dtype, remat=remat,
                                     world=world)
@@ -187,15 +202,24 @@ def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
     def epoch_fn(state, images, labels, sample_map, generator):
         total = torch.zeros((), device=images.device)
         skipped = 0
+        losses, ends = [], []
         for _ in range(steps):
-            imgs, labs = sample_batch(generator, images, labels, sample_map,
-                                      batch_size, patch_size)
-            if augment:
-                imgs, labs = augment_batch(generator, imgs, labs)
-            loss, ok = batch_step(state, imgs, labs)
-            total += loss
-            skipped += not ok
-        return {"epoch_loss": total, "skipped": skipped}
+            with annotate("unet.train.step"):
+                with annotate("unet.train.sample"):
+                    imgs, labs = sample_batch(generator, images, labels,
+                                              sample_map, batch_size,
+                                              patch_size)
+                    if augment:
+                        imgs, labs = augment_batch(generator, imgs, labs)
+                loss, ok = batch_step(state, imgs, labs)
+                total += loss
+                skipped += not ok
+                losses.append(loss)
+            ends.append(time.perf_counter())
+        return {"epoch_loss": total, "skipped": skipped,
+                "step_losses": (torch.stack(losses) if losses
+                                else total.new_zeros((0,))),
+                "step_end_s": ends}
 
     return epoch_fn
 
@@ -261,12 +285,23 @@ def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
     model is put back in the mode it was in.  With a ``world``, each rank
     forwards its share of the V patches in chunks of ``chunk_size`` over
     the ranks' count (JAX shards each chunk over the mesh), and every
-    rank returns the gathered probabilities and their metrics."""
+    rank returns the gathered probabilities and their metrics.  Under a
+    profiler a call is the span ``unet.val``, with one ``unet.val.forward``
+    per chunk and ``unet.val.dice`` inside it."""
     if world is not None:
         chunk_size = max(chunk_size // world.size, 1)
 
+    def forward(chunk):
+        with annotate("unet.val.forward"):
+            return torch.sigmoid(model(_nchw(chunk, compute_dtype)).float()
+                                 ).permute(0, 2, 3, 1)
+
     @torch.inference_mode()
     def val_fn(val_imgs: torch.Tensor, val_labs: torch.Tensor):
+        with annotate("unet.val"):
+            return val_pass(val_imgs, val_labs)
+
+    def val_pass(val_imgs, val_labs):
         if val_imgs.shape[0] == 0:
             # Empty split: zeros, as the JAX package (the reference would
             # crash on an empty np.stack, train.py:334).
@@ -279,19 +314,19 @@ def make_val_fn(model: nn.Module, *, chunk_size: int = 64,
         start, stop = row_bounds(val_imgs.shape[0], world)
         try:
             probs = torch.cat([
-                torch.sigmoid(model(_nchw(chunk, compute_dtype)).float())
-                .permute(0, 2, 3, 1)
+                forward(chunk)
                 for chunk in val_imgs[start:stop].split(chunk_size)]
                 or [val_labs.new_zeros((0,) + val_labs.shape[1:])])
         finally:
             model.train(was_training)
         probs = gather_rows(probs, val_imgs.shape[0], world)
-        p = probs[..., 0].contiguous()
-        t = val_labs[..., 0].float().contiguous()
-        dice = dice_coeff_hard((p > 0.5).float(), t)
-        dice_fg = dice_coeff_hard((p <= 0.5).float(), 1.0 - t)
-        metrics = {"dice": dice, "dice_bg": dice, "dice_fg": dice_fg,
-                   "dice_avg": (dice + dice_fg) / 2.0}
+        with annotate("unet.val.dice"):
+            p = probs[..., 0].contiguous()
+            t = val_labs[..., 0].float().contiguous()
+            dice = dice_coeff_hard((p > 0.5).float(), t)
+            dice_fg = dice_coeff_hard((p <= 0.5).float(), 1.0 - t)
+            metrics = {"dice": dice, "dice_bg": dice, "dice_fg": dice_fg,
+                       "dice_avg": (dice + dice_fg) / 2.0}
         return metrics, probs
 
     return val_fn

@@ -6,7 +6,9 @@
     one), written as a Chrome trace into ``logdir`` (open it in
     ``chrome://tracing`` or Perfetto; the JAX package writes an xprof
     trace);
-  * :func:`annotate`: a named region in that trace (``record_function``);
+  * :func:`annotate`: a named span in that trace (``record_function``)
+    while a profiler runs, and a shared null context that costs one check
+    when none does: the port's spans (``unet.*``) sit on its hot paths;
   * :func:`enable_nan_debugging`: autograd's anomaly mode, which raises at
     the backward of the first operation that made a NaN (the JAX package
     flips ``jax_debug_nans``); the train step's NaN guard stays the
@@ -42,8 +44,17 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
             logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region in a :func:`trace` timeline."""
+    """A span called ``name`` in a profiler capture (:func:`trace`, or any
+    ``torch.profiler`` run), on the clock of the card's kernels.  Without
+    a running profiler it returns one shared null context and builds no
+    ``record_function``, which costs microseconds a span even when
+    nothing records it."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
