@@ -3,9 +3,12 @@
 
 What differs in mechanism from the JAX package:
 
-  * PyTorch runs eagerly: an epoch is a Python loop of steps, each of
-    which samples centers on the device, gathers the patches, runs the
-    train-mode forward and backward on stock ops, clips and steps RMSprop.
+  * An epoch is a Python loop of steps, each of which samples centers on
+    the device, gathers the patches, runs the train-mode forward and
+    backward on stock ops, clips and steps RMSprop.  On the card the
+    forward, loss and backward are captured once as a CUDA graph and
+    replayed (``train/step_graph.py``, :func:`make_batch_step_fn`); the
+    JAX package compiles the whole step instead.
   * The NaN guard (trainer.py:98-110) reads ``isfinite(loss)`` on the
     host once per step, after the backward is queued: a device sync that
     the JAX package avoids with a branchless select.  A non-finite loss
@@ -78,6 +81,7 @@ from jcfszxc_unet_tpu_torch.parallel.mesh import (
 from jcfszxc_unet_tpu_torch.train.losses import combined_loss
 from jcfszxc_unet_tpu_torch.train.optim import clip_and_step
 from jcfszxc_unet_tpu_torch.train.state import TrainState
+from jcfszxc_unet_tpu_torch.train.step_graph import StepGraph
 from jcfszxc_unet_tpu_torch.utils.profiling import annotate
 
 
@@ -136,7 +140,26 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
     ``remat``: the forward's activations are recomputed in the backward
     instead of kept (see the module doc).  With a ``world``, ``imgs`` and
     ``labs`` are the global batch, of which this rank trains its rows,
-    and ``loss`` is the global loss (see the module doc)."""
+    and ``loss`` is the global loss (see the module doc).
+
+    On a CUDA batch, with no ``world`` and no ``remat``, the forward, the
+    loss, ``isfinite(loss)`` and the backward become one CUDA graph
+    (``train/step_graph.py``): the first two steps of a model and batch
+    shape run eagerly, the third is captured and replayed, and every later
+    one copies its batch into the graph's inputs and replays it.  The
+    sampling before the step, the NaN guard's read of ``isfinite(loss)``
+    on the host, and ``clip_and_step`` stay eager, in the same order; a
+    non-finite loss still skips clip and step.  The guard's read waits
+    for the replay's forward and loss only (an event inside the graph),
+    so the host queues clip, RMSprop and the next step's sampling while
+    the card runs the backward.  While the graph lives,
+    each ``.grad`` is the graph's memory, which the next replay overwrites,
+    so the graph path sets no ``.grad`` to None.  A model whose warm-up
+    steps make a synchronising call in their forward, loss or backward,
+    or whose capture raises, trains eagerly.  ``train_step.counter`` (a
+    ``step_graph.GraphCounter``) counts captures, replays and eager steps
+    with their reasons."""
+    graph = StepGraph(world=world, remat=remat)
 
     def forward(model, x):
         if not remat:
@@ -146,35 +169,69 @@ def make_batch_step_fn(*, n_classes: int, compute_dtype=torch.float32,
             context_fn=lambda: (contextlib.nullcontext(),
                                 frozen_running_stats(model)))
 
-    def train_step(state: TrainState, imgs: torch.Tensor, labs: torch.Tensor):
-        model, opt = state.model, state.optimizer
-        model.train()
-        imgs, labs = shard_rows(imgs, world), shard_rows(labs, world)
-        state.step += 1
-        opt.zero_grad(set_to_none=True)
+    def forward_loss_backward(model, imgs, labs, mark=None):
         with global_batch_norm(model, world):
             with annotate("unet.train.forward"):
                 logits = forward(model, _nchw(imgs, compute_dtype)).permute(
                     0, 2, 3, 1)
                 loss, _, _ = combined_loss(logits, labs, n_classes,
                                            world=world)
+            if mark is not None:  # the capture's flag, between loss and
+                mark(loss)        # backward
             with annotate("unet.train.backward"):
                 loss.backward()
                 if world is not None:
                     average_gradients(model.parameters(), world)
                     loss = mean_over_ranks(loss, world)
+        return loss
+
+    def graphed(model, opt, imgs, labs, route):
+        """The loss of a replay, the graph's own tensor; None where the
+        capture raised."""
+        with annotate("unet.train.graph"):
+            if route == "capture":
+                opt.zero_grad(set_to_none=True)
+                if not graph.capture(model, imgs, labs,
+                                     forward_loss_backward):
+                    return None
+            return graph.replay(imgs, labs)
+
+    def eager(model, opt, imgs, labs, route):
+        opt.zero_grad(set_to_none=True)
+        graph.counter.add_eager(route)
+        if route != "warm-up":
+            return forward_loss_backward(model, imgs, labs)
+        with graph.warm_up():
+            return forward_loss_backward(model, imgs, labs)
+
+    def train_step(state: TrainState, imgs: torch.Tensor, labs: torch.Tensor):
+        model, opt = state.model, state.optimizer
+        model.train()
+        imgs, labs = shard_rows(imgs, world), shard_rows(labs, world)
+        state.step += 1
+        route, out = graph.route(model, imgs, labs), None
+        if route in ("capture", "replay"):
+            out = graphed(model, opt, imgs, labs, route)
+            route = graph.stopped or route  # "capture error" where it raised
+        loss = eager(model, opt, imgs, labs, route) if out is None else out
         # Host sync: see module doc.  It comes after the backward has been
-        # queued, so the device is not left idle while the host launches it.
+        # queued, so the device is not left idle while the host launches it;
+        # after a replay it waits for the forward and loss alone, so the
+        # host queues what follows while the card runs the backward.
         with annotate("unet.train.nan_guard"):
             with annotate("unet.sync"):
-                finite = bool(torch.isfinite(loss))
+                finite = (bool(torch.isfinite(loss)) if out is None
+                          else graph.finite())
             if not finite:
-                opt.zero_grad(set_to_none=True)
+                if out is None:  # a replay overwrites the gradients
+                    opt.zero_grad(set_to_none=True)
                 return torch.zeros((), device=loss.device), False
         with annotate("unet.train.optimizer"):
             clip_and_step(opt, clip_norm)
-        return loss.detach().float(), True
+        # The graph's loss is overwritten by the next replay.
+        return (loss.detach().float() if out is None else loss.clone()), True
 
+    train_step.counter = graph.counter
     return train_step
 
 
@@ -194,7 +251,17 @@ def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
     :func:`make_batch_step_fn`'s (``batch_size`` is the global batch,
     drawn whole on every rank).  Under a profiler each step is the span
     ``unet.train.step``, holding ``unet.train.sample``, ``.forward``,
-    ``.backward``, ``.nan_guard`` (its ``unet.sync``) and ``.optimizer``."""
+    ``.backward``, ``.nan_guard`` (its ``unet.sync``) and ``.optimizer``.
+
+    Where :func:`make_batch_step_fn` graphs the step (a CUDA batch, no
+    ``world``, no ``remat``, a model that its warm-up finds capturable),
+    the epoch's first two steps are its eager warm-up and the third its
+    capture, so a new step function's first epoch captures and every later
+    epoch only replays; the sampling stays eager and draws from
+    ``generator`` as before, and a replayed step's span
+    ``unet.train.graph`` (the batch's two copies in and the graph's launch)
+    takes the place of ``.forward`` and ``.backward``.  ``epoch_fn.counter``
+    is the step function's ``GraphCounter``."""
     batch_step = make_batch_step_fn(n_classes=n_classes,
                                     compute_dtype=compute_dtype, remat=remat,
                                     world=world)
@@ -221,6 +288,7 @@ def make_epoch_fn(*, n_classes: int, batch_size: int, patch_size: int,
                                 else total.new_zeros((0,))),
                 "step_end_s": ends}
 
+    epoch_fn.counter = batch_step.counter
     return epoch_fn
 
 
